@@ -1,0 +1,293 @@
+// K1: fused window attention (norm1 -> Q/KV projections -> per-head
+// softmax(q k^T * dh^-1/2 + relative-position bias [+ shift mask]) V -> output
+// projection [+ residual]) on a post-roll [B, H, W, C] feature map.
+//
+// Replaces the TPU kernel fbanet_tpu/ops/attention_pallas.py::
+// _attention2d_kernel (launched by _pallas_forward_2d). Rounding points follow
+// its _attn_block_math: LN in f32 rounded to the compute type; q, k, v from
+// f32-accumulated products plus f32 bias (q scaled in f32) rounded; f32
+// logits + bias + mask; max-subtracted exp with the probabilities rounded
+// for the AV product and the division by the f32 row sum applied after it;
+// f32-accumulated output projection + f32 bias, residual added in f32.
+//
+// What bounds it on the H100: arithmetic. A window reads 64 x C activations
+// (16-32 KB in bf16) and does ~8 x 64 x C^2 flops of projections, about
+// 256-1024 flops per byte of activation traffic, so the kernel is
+// compute-bound. What the design does: one block per window reads its 64
+// tokens straight from the 4-D map by index arithmetic and writes the result
+// back in place, so no partition tensor, no q/k/v and no logits ever reach
+// device memory (the point of the TPU kernel). Heads run in groups of at
+// most 64 projected columns, which keeps the working set of C = 256 in
+// shared memory (dynamic, above the 48 KB default). In bf16 every product
+// runs on the tensor cores (WMMA 16x16x16, f32 accumulation, operands in
+// shared memory, weights read from L2); in f32 the products are
+// register-tiled FMAs on the CUDA cores (f32 has no tensor-core path of the
+// same precision). A wgmma/TMA pipeline with weights staged in shared
+// memory is later work.
+#include "common.cuh"
+
+namespace fbanet {
+namespace {
+
+// Heads per group: the largest divisor of `heads` whose columns fit in 64.
+__host__ __device__ inline int head_group(int heads, int dh) {
+  int hg = 1;
+  for (int g = 1; g <= heads; ++g)
+    if (heads % g == 0 && g * dh <= 64) hg = g;
+  return hg;
+}
+
+// f32 kernel: every array f32 with odd row strides (no bank conflicts).
+inline size_t attention_f32_smem(int n, int C, int heads) {
+  const int dh = C / heads;
+  const int gw = head_group(heads, dh) * dh;
+  return sizeof(float) * ((size_t)2 * n * (C + 1) + (size_t)3 * n * (gw + 1) +
+                          (size_t)n * (n + 1) + n);
+}
+
+// bf16 kernel: byte offsets of its shared-memory arrays, in this order:
+// LN output y and attention output o [n][C+8] bf16; q, k, v of a head
+// group [n][gw+8] bf16; probabilities p [n][n+8] bf16; f32 logits s
+// [n][n+1]; f32 1 / row sums; one 16 x 16 f32 WMMA epilogue slot per warp.
+struct Bf16Layout {
+  size_t y, o, q, k, v, p, s, inv, scratch, total;
+  __host__ __device__ Bf16Layout(int n, int C, int gw) {
+    y = 0;
+    o = y + align128(sizeof(bf16) * n * (C + 8));
+    q = o + align128(sizeof(bf16) * n * (C + 8));
+    k = q + align128(sizeof(bf16) * n * (gw + 8));
+    v = k + align128(sizeof(bf16) * n * (gw + 8));
+    p = v + align128(sizeof(bf16) * n * (gw + 8));
+    s = p + align128(sizeof(bf16) * n * (n + 8));
+    inv = s + align128(sizeof(float) * n * (n + 1));
+    scratch = inv + align128(sizeof(float) * n);
+    total = scratch + sizeof(float) * 256 * (kThreads / 32);
+  }
+};
+
+__host__ __device__ inline int group_width(int C, int heads) {
+  return head_group(heads, C / heads) * (C / heads);
+}
+
+// Softmax of one logits row per warp: probabilities (rounded to the compute
+// type) into p, 1 / (f32 row sum) into inv; the division happens after AV.
+template <typename TP>
+__device__ __forceinline__ void softmax_rows(int n, const float* sS, int lds,
+                                             TP* sP, int ldp, float* sInv) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int m = warp; m < n; m += kThreads / 32) {
+    const float* row = sS + m * lds;
+    float mx = __int_as_float(0xff800000);  // -inf
+    for (int s = lane; s < n; s += 32) mx = fmaxf(mx, row[s]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int s = lane; s < n; s += 32) {
+      const float e = expf(row[s] - mx);
+      sum += e;
+      sP[m * ldp + s] = from_f<TP>(e);
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) sInv[m] = 1.0f / sum;
+  }
+}
+
+struct Args {
+  const void* x;
+  void* out;
+  const float *ln_s, *ln_b;
+  const void *wq, *wkv, *wproj;  // compute-dtype weights, torch Linear layout
+  const float *bq, *bkv, *bproj, *bias, *mask;
+  int H, W, C, heads, ws, residual;
+};
+
+__global__ void __launch_bounds__(kThreads) window_attention_f32_kernel(Args a) {
+  extern __shared__ float smem[];
+  const float* __restrict__ x = (const float*)a.x;
+  float* __restrict__ out = (float*)a.out;
+  const float* wq = (const float*)a.wq;
+  const float* wkv = (const float*)a.wkv;
+  const float* wproj = (const float*)a.wproj;
+  const int C = a.C, ws = a.ws, n = ws * ws;
+  const int dh = C / a.heads;
+  const int gw = group_width(C, a.heads);
+  const int ldc = C + 1, ldg = gw + 1, lds = n + 1;
+  float* sY = smem;             // [n][ldc] LN output
+  float* sO = sY + n * ldc;     // [n][ldc] attention output, all heads
+  float* sQ = sO + n * ldc;     // [n][ldg] q of the head group
+  float* sK = sQ + n * ldg;     // [n][ldg]
+  float* sV = sK + n * ldg;     // [n][ldg]
+  float* sS = sV + n * ldg;     // [n][lds] logits, then probabilities
+  float* sInv = sS + n * lds;   // [n] 1 / row sum
+
+  const int nwh = a.H / ws, nww = a.W / ws;
+  const int win = blockIdx.x % (nwh * nww);  // window index within the image
+  const int b = blockIdx.x / (nwh * nww);
+  const int wr = win / nww, wc = win % nww;
+  auto tok = [&](int t) -> size_t {  // offset of token t's channel 0
+    const int r = wr * ws + t / ws, c = wc * ws + t % ws;
+    return (((size_t)b * a.H + r) * a.W + c) * C;
+  };
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int t = warp; t < n; t += kThreads / 32)
+    layernorm_row<float>(x + tok(t), C, a.ln_s, a.ln_b, sY + t * ldc, lane);
+  __syncthreads();
+
+  const float scale = 1.0f / sqrtf((float)dh);
+  const float* mw = a.mask ? a.mask + (size_t)win * n * n : nullptr;
+  for (int g0 = 0; g0 < C; g0 += gw) {
+    gemm_nt(n, gw, C, sY, ldc, wq + (size_t)g0 * C, C, 1, [&](int m, int j, float v) {
+      sQ[m * ldg + j] = (v + a.bq[g0 + j]) * scale;
+    });
+    gemm_nt(n, gw, C, sY, ldc, wkv + (size_t)g0 * C, C, 1, [&](int m, int j, float v) {
+      sK[m * ldg + j] = v + a.bkv[g0 + j];
+    });
+    gemm_nt(n, gw, C, sY, ldc, wkv + (size_t)(C + g0) * C, C, 1, [&](int m, int j, float v) {
+      sV[m * ldg + j] = v + a.bkv[C + g0 + j];
+    });
+    __syncthreads();
+    for (int hh = 0; hh < gw / dh; ++hh) {
+      const int h = g0 / dh + hh;
+      const float* bh = a.bias + (size_t)h * n * n;
+      gemm_nt(n, n, dh, sQ + hh * dh, ldg, sK + hh * dh, ldg, 1, [&](int m, int s, float v) {
+        sS[m * lds + s] = v + bh[m * n + s] + (mw ? mw[m * n + s] : 0.f);
+      });
+      __syncthreads();
+      softmax_rows(n, sS, lds, sS, lds, sInv);  // in place
+      __syncthreads();
+      // o = P V: B[d][s] = V[s][d] (column access: bsn = 1, bsk = ldg)
+      gemm_nt(n, dh, n, sS, lds, sV + hh * dh, 1, ldg, [&](int m, int d, float v) {
+        sO[m * ldc + h * dh + d] = v * sInv[m];
+      });
+      __syncthreads();
+    }
+  }
+
+  gemm_nt(n, C, C, sO, ldc, wproj, C, 1, [&](int m, int o, float v) {
+    const size_t p = tok(m) + o;
+    out[p] = v + a.bproj[o] + (a.residual ? x[p] : 0.f);
+  });
+}
+
+__global__ void __launch_bounds__(kThreads) window_attention_bf16_kernel(Args a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const bf16* __restrict__ x = (const bf16*)a.x;
+  bf16* __restrict__ out = (bf16*)a.out;
+  const bf16* wq = (const bf16*)a.wq;
+  const bf16* wkv = (const bf16*)a.wkv;
+  const bf16* wproj = (const bf16*)a.wproj;
+  const int C = a.C, ws = a.ws, n = ws * ws;
+  const int dh = C / a.heads;
+  const int gw = group_width(C, a.heads);
+  const int ldc = C + 8, ldg = gw + 8, ldp = n + 8, lds = n + 1;
+  const Bf16Layout L(n, C, gw);
+  bf16* sY = (bf16*)(smem_raw + L.y);
+  bf16* sO = (bf16*)(smem_raw + L.o);
+  bf16* sQ = (bf16*)(smem_raw + L.q);
+  bf16* sK = (bf16*)(smem_raw + L.k);
+  bf16* sV = (bf16*)(smem_raw + L.v);
+  bf16* sP = (bf16*)(smem_raw + L.p);
+  float* sS = (float*)(smem_raw + L.s);
+  float* sInv = (float*)(smem_raw + L.inv);
+  float* scratch = (float*)(smem_raw + L.scratch);
+
+  const int nwh = a.H / ws, nww = a.W / ws;
+  const int win = blockIdx.x % (nwh * nww);
+  const int b = blockIdx.x / (nwh * nww);
+  const int wr = win / nww, wc = win % nww;
+  auto tok = [&](int t) -> size_t {
+    const int r = wr * ws + t / ws, c = wc * ws + t % ws;
+    return (((size_t)b * a.H + r) * a.W + c) * C;
+  };
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int t = warp; t < n; t += kThreads / 32)
+    layernorm_row<bf16>(x + tok(t), C, a.ln_s, a.ln_b, sY + t * ldc, lane);
+  __syncthreads();
+
+  const float scale = 1.0f / sqrtf((float)dh);
+  const float* mw = a.mask ? a.mask + (size_t)win * n * n : nullptr;
+  using col = wmma::col_major;
+  for (int g0 = 0; g0 < C; g0 += gw) {
+    gemm_tc<col>(n, n, gw, C, sY, ldc, wq + (size_t)g0 * C, C, scratch,
+                 [&](int m, int j, float v) {
+                   sQ[m * ldg + j] = __float2bfloat16((v + a.bq[g0 + j]) * scale);
+                 });
+    gemm_tc<col>(n, n, gw, C, sY, ldc, wkv + (size_t)g0 * C, C, scratch,
+                 [&](int m, int j, float v) {
+                   sK[m * ldg + j] = __float2bfloat16(v + a.bkv[g0 + j]);
+                 });
+    gemm_tc<col>(n, n, gw, C, sY, ldc, wkv + (size_t)(C + g0) * C, C, scratch,
+                 [&](int m, int j, float v) {
+                   sV[m * ldg + j] = __float2bfloat16(v + a.bkv[C + g0 + j]);
+                 });
+    __syncthreads();
+    for (int hh = 0; hh < gw / dh; ++hh) {
+      const int h = g0 / dh + hh;
+      const float* bh = a.bias + (size_t)h * n * n;
+      // logits: B(d, s) = K[s][d], a column-major view of the k tile
+      gemm_tc<col>(n, n, n, dh, sQ + hh * dh, ldg, sK + hh * dh, ldg, scratch,
+                   [&](int m, int s, float v) {
+                     sS[m * lds + s] = v + bh[m * n + s] + (mw ? mw[m * n + s] : 0.f);
+                   });
+      __syncthreads();
+      softmax_rows(n, sS, lds, sP, ldp, sInv);
+      __syncthreads();
+      gemm_tc<wmma::row_major>(n, n, dh, n, sP, ldp, sV + hh * dh, ldg, scratch,
+                               [&](int m, int d, float v) {
+                                 sO[m * ldc + h * dh + d] = __float2bfloat16(v * sInv[m]);
+                               });
+      __syncthreads();
+    }
+  }
+
+  gemm_tc<col>(n, n, C, C, sO, ldc, wproj, C, scratch, [&](int m, int o, float v) {
+    const size_t p = tok(m) + o;
+    float r = v + a.bproj[o];
+    if (a.residual) r += __bfloat162float(x[p]);
+    out[p] = __float2bfloat16(r);
+  });
+}
+
+size_t smem_bytes(int n, int C, int heads, int bf16) {
+  return bf16 ? Bf16Layout(n, C, group_width(C, heads)).total
+              : attention_f32_smem(n, C, heads);
+}
+
+}  // namespace
+}  // namespace fbanet
+
+extern "C" {
+
+// Dynamic shared memory of one block, or 0 for a shape the kernel does not
+// take (the bf16 kernel tiles by 16: tokens, C and head size).
+int fbanet_window_attention_smem(int n, int C, int heads, int bf16) {
+  if (C % heads) return 0;
+  if (bf16 && (n % 16 || C % 16 || (C / heads) % 16)) return 0;
+  return (int)fbanet::smem_bytes(n, C, heads, bf16);
+}
+
+int fbanet_window_attention(const void* x, void* out, const void* ln_s,
+                            const void* ln_b, const void* wq, const void* bq,
+                            const void* wkv, const void* bkv, const void* wproj,
+                            const void* bproj, const void* bias, const void* mask,
+                            int B, int H, int W, int C, int heads, int ws,
+                            int residual, int bf16, void* stream) {
+  const int smem = fbanet_window_attention_smem(ws * ws, C, heads, bf16);
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  fbanet::Args a{x, out, (const float*)ln_s, (const float*)ln_b, wq, wkv, wproj,
+                 (const float*)bq, (const float*)bkv, (const float*)bproj,
+                 (const float*)bias, (const float*)mask, H, W, C, heads, ws, residual};
+  auto kern = bf16 ? fbanet::window_attention_bf16_kernel
+                   : fbanet::window_attention_f32_kernel;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned grid = (unsigned)B * (H / ws) * (W / ws);
+  kern<<<grid, fbanet::kThreads, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+const char* fbanet_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

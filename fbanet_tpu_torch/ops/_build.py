@@ -1,0 +1,108 @@
+"""Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
+
+The sources in `fbanet_tpu_torch/csrc/*.cu` compile with nvcc for `sm_90a`
+into one shared library with a plain C interface. The build happens at first
+use, into `build/fbanet_tpu_torch/<hash>/` at the repository root (listed in
+`.gitignore`), keyed by a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one loads in milliseconds. Nothing here runs at
+import: the CPU tests import every module on a machine without nvcc.
+
+Every C entry point takes device pointers and the CUDA stream as
+`c_void_p`, ints as `c_int`, launches on that stream without synchronising,
+and returns `cudaGetLastError()` as an int; `check` turns a non-zero return
+into an exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG.parent / "build" / "fbanet_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signatures: name -> argtypes (every function returns int, a cudaError_t)
+SIGNATURES = {
+    # x, out, ln_s, ln_b, wq, bq, wkv, bkv, wproj, bproj, bias, mask,
+    # B, H, W, C, heads, ws, residual, bf16, stream
+    "fbanet_window_attention": [_P] * 12 + [_I] * 8 + [_P],
+    # x, out, ln_s, ln_b, w1, b1, wdw, bdw, w2, b2,
+    # B, H, W, C, Ch, residual, bf16, stream
+    "fbanet_leff": [_P] * 10 + [_I] * 7 + [_P],
+    # dynamic shared-memory bytes of one block, 0 for a shape the kernel
+    # does not take (host functions): (tokens per window, C, heads, bf16)
+    # and (C, Ch, bf16)
+    "fbanet_window_attention_smem": [_I, _I, _I, _I],
+    "fbanet_leff_smem": [_I, _I, _I],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the CUDA "
+                       "kernels of fbanet_tpu_torch cannot be built")
+
+
+def _source_hash(sources: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels if this source hash has no library yet; return
+    the library's path. Raises with nvcc's output when the build fails."""
+    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    out_dir = BUILD_ROOT / _source_hash(sources)
+    lib = out_dir / "libfbanet_kernels.so"
+    if lib.exists():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"libfbanet_kernels.{os.getpid()}.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+           *[str(s) for s in sources if s.suffix == ".cu"]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (out_dir / "build.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    tmp.replace(lib)  # atomic: a concurrent loader never sees half a file
+    return lib
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first call."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.fbanet_error_string.argtypes = [ctypes.c_int]
+    lib.fbanet_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error (a refused launch
+    never runs, and a later synchronize would not report it)."""
+    if err != 0:
+        name = library().fbanet_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({name})")

@@ -1,0 +1,89 @@
+"""The port runs where JAX is not installed (GPU hosts need not have it).
+
+1. Static: no module of fbanet_tpu_torch/ (nor chip_smoke.py) imports jax,
+   flax, optax or jaxtyping, and from the JAX package only the
+   pure-dataclass `fbanet_tpu.config`.
+2. Dynamic: a subprocess whose import system refuses those packages runs a
+   tiny CPU forward, registration and evaluation step of the port.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "jaxtyping")
+ALLOWED_FROM_JAX_PACKAGE = {"fbanet_tpu.config"}
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    if top in BLOCKED:
+        return True
+    return top == "fbanet_tpu" and name not in ALLOWED_FROM_JAX_PACKAGE
+
+
+def test_port_sources_import_no_jax():
+    files = sorted((ROOT / "fbanet_tpu_torch").rglob("*.py"))
+    assert len(files) >= 14
+    bad = [f"{f.relative_to(ROOT)}: {m}" for f in files + [ROOT / "chip_smoke.py"]
+           for m in _imports(f) if _forbidden(m)]
+    assert not bad, bad
+    assert not any(m.startswith("fbanet_tpu")
+                   for m in _imports(ROOT / "chip_smoke.py")
+                   if not m.startswith("fbanet_tpu_torch"))
+
+
+_SCRIPT = r"""
+import sys
+BLOCKED = {blocked!r}
+for name in list(sys.modules):
+    if name.split(".")[0] in BLOCKED:
+        del sys.modules[name]
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in BLOCKED or (top == "fbanet_tpu" and name not in
+                              ("fbanet_tpu", "fbanet_tpu.config")):
+            raise ImportError("blocked in this test: " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import torch
+torch.set_num_threads(2)
+from fbanet_tpu_torch.evaluate import eval_step
+from fbanet_tpu_torch.models import ModelConfig, create_model
+from fbanet_tpu_torch.ops.registration import align_burst
+from fbanet_tpu_torch.utils.weights import random_state_dict
+
+cfg = ModelConfig(num_frames=2, img_size=16, embed_dim=8, window_size=4,
+                  heads=(1, 2, 4, 8, 4, 4, 2, 2, 2), dtype="float32")
+model = create_model(cfg)
+model.load_state_dict(random_state_dict(model, 0))
+burst = torch.rand(1, 2, 16, 16, 3, generator=torch.Generator().manual_seed(0))
+aligned, mats, _ = align_burst(burst, eps=1e-5)
+pred, psnr, ssim, _ = eval_step(model, burst, torch.rand(1, 64, 64, 3),
+                                boundary_ignore=8)
+assert pred.shape == (1, 64, 64, 3) and torch.isfinite(psnr).all()
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED
+                or m.startswith("fbanet_tpu."))
+print("LOADED", loaded)
+"""
+
+
+def test_port_runs_with_jax_blocked():
+    proc = subprocess.run(
+        [sys.executable, "-c", _SCRIPT.format(blocked=set(BLOCKED))],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED ['fbanet_tpu.config']" in proc.stdout, proc.stdout
