@@ -8,27 +8,43 @@ non-zero:
 
 1. device: requires CUDA; prints the card's name and power limit.
 2. build: compiles the CUDA kernels from fbanet_tpu_torch/csrc with nvcc
-   (into build/fbanet_tpu_torch/, at first use) and prints the seconds.
+   (one process per source, in parallel, into build/fbanet_tpu_torch/, at
+   first use) and prints the seconds and nvcc's register/spill report.
 3. kernels: K1 (fused window attention) and K2 (fused LeFF) against their
    plain PyTorch versions on the card at the five SwinGroup shapes of the
    published model (B=2), f32 and bf16, K1 masked and unmasked, with the
    residual. Prints the max abs error and the median times (CUDA events).
-4. slice: FBANet-64, 14 frames, 160 px, bf16 compute, every parameter drawn
+4. backward: K3 (attention backward) and K4 (LeFF backward), each with the
+   fixed-order sums of ops/reduce.py, against their plain backwards at the
+   same shapes, f32 and bf16, K3 masked and unmasked, residual on and off:
+   every gradient within its limit, and bitwise equal over two runs.
+5. reduce: the two reduction kernels against their plain versions, timed
+   beside one library call each.
+6. slice: FBANet-64, 14 frames, 160 px, bf16 compute, every parameter drawn
    from a seed, serves 3 batches of 4 bursts through `eval_step` (ECC
    registration + forward + clamp + PSNR/SSIM). Checks finite [0, 1]
    outputs of shape [4, 640, 640, 3], K1 and K2 launch counts of exactly 20
    per forward, and agreement with the same slice on the plain versions.
    Then times align and forward at B=8 and prints a torch.profiler table
    of one such step by device time.
+7. train: the same model with drop_path 0.1 takes 5 AdamW steps at B=8
+   through `train.make_train_step` (Charbonnier + 3 GW loss). Checks finite
+   losses, that every parameter moved, 20 launches per step of each of
+   K1-K4, and every f32 parameter gradient of one B=2 step against the
+   plain versions; times the B=8 step against the plain versions and
+   prints a torch.profiler table of one step.
 
-The line before the last is a JSON object {"kernels": [...]}, preceded by
-the nvidia-smi name/power-limit line; the last line is
-{"ok": true, "device": {...}}.
+Each kernel wrapper counts its launches; the counts are set to 0 just
+before the serving and the training runs and read just after. The line
+before the last is a JSON object {"kernels": [...]} (launches on those
+runs; error, times and bound from phases 3-5), preceded by the nvidia-smi
+name/power-limit line; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -48,6 +64,62 @@ WS = 8
 # one bf16 ulp (2^-8 relative), and 3e-2 allows several such flips.
 TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 SLICE_PSNR_MIN = 40.0  # dB between kernel-path and plain-path predictions
+# f32 train step, kernels vs plain versions: each parameter gradient within
+# 1e-3 of its tensor's max |grad|. The same f32 math with sums in another
+# order (the kernels' own limit is 1e-4), carried through 20 layers and the
+# convolutions around them, and the loss's clamp, whose gradient switches
+# off where a prediction crosses 0 or 1.
+TRAIN_GRAD_TOL = 1e-3
+# published peaks of one H100 SXM at 700 W (NVIDIA data sheet, dense):
+# bf16 tensor cores, f32 on the CUDA cores, device memory
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+
+
+class Bound:
+    """The least time the card could take for some calls: per call the
+    larger of (tensor-core flops / bf16 peak + CUDA-core flops / f32 peak)
+    and (bytes that must move / memory rate), summed over calls."""
+
+    def __init__(self):
+        self.ms = self.ops_ms = self.bytes_ms = 0.0
+
+    def add(self, tc_flops: float, f32_flops: float, nbytes: float) -> None:
+        t_ops = (tc_flops / PEAK_BF16 + f32_flops / PEAK_F32) * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        self.ms += max(t_ops, t_bytes)
+        self.ops_ms += t_ops
+        self.bytes_ms += t_bytes
+
+    def fields(self) -> dict:
+        return {"bound_ms": self.ms, "bound_by": "operations"
+                if self.ops_ms >= self.bytes_ms else "bytes"}
+
+
+def attention_work(h, c, heads, masked, backward=False):
+    """(tensor-core flops, CUDA-core flops, bytes) of one K1 (or K3) call
+    at B=2, bf16 activations, f32 parameters: each input read once, each
+    output written once. Forward: Q, K, V, proj 8 T C^2, logits and AV
+    4 T n C. Backward: recompute 6 T C^2 + 4 T n C, do 2 T C^2, dv, dp, dq,
+    dk 8 T n C, dy 6 T C^2, dWq, dWkv, dWproj 8 T C^2."""
+    t, n = 2 * h * h, WS * WS
+    params = 4 * (4 * c * c + 6 * c + heads * n * n
+                  + (h // WS) ** 2 * n * n * masked)
+    if not backward:
+        return 8 * t * c * c + 4 * t * n * c, 5 * t * n * heads, \
+            4 * t * c + params
+    return 22 * t * c * c + 12 * t * n * c, 10 * t * n * heads, \
+        6 * t * c + params + 4 * (4 * c * c + 6 * c + heads * n * n)
+
+
+def leff_work(h, c, backward=False):
+    """(tensor-core flops, CUDA-core flops, bytes) of one K2 (or K4) call at
+    B=2: dense1 and dense2 4 T C Ch, depthwise 18 T Ch; the backward adds
+    dh2, dy, dW1, dW2 (6 T C Ch) and dh1 and the tap gradients (36 T Ch)."""
+    t, ch = 2 * h * h, 4 * c
+    params = 4 * (2 * c * ch + 11 * ch + 3 * c)
+    if not backward:
+        return 4 * t * c * ch, 18 * t * ch, 4 * t * c + params
+    return 10 * t * c * ch, 54 * t * ch, 6 * t * c + 2 * params
 
 
 def log(msg: str) -> None:
@@ -180,6 +252,7 @@ def phase_kernels(shapes) -> dict:
 
     res = {"K1": dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0),
            "K2": dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)}
+    bounds = {"K1": Bound(), "K2": Bound()}
     failures = []
     for i, (h, c, heads) in enumerate(shapes):
         for dname in ("float32", "bfloat16"):
@@ -202,6 +275,7 @@ def phase_kernels(shapes) -> dict:
                     ms, pms = time_ms(k1), time_ms(lambda: k1(plain=True))
                     res["K1"]["ms"] += ms
                     res["K1"]["plain_ms"] += pms
+                    bounds["K1"].add(*attention_work(h, c, heads, masked))
                     line += f" kernel_ms={ms:.4f} plain_ms={pms:.4f}"
                 log(line)
                 if not (rel <= TOL[dname]) or not torch.isfinite(got).all():
@@ -221,6 +295,7 @@ def phase_kernels(shapes) -> dict:
                 ms, pms = time_ms(k2), time_ms(lambda: k2(plain=True))
                 res["K2"]["ms"] += ms
                 res["K2"]["plain_ms"] += pms
+                bounds["K2"].add(*leff_work(h, c))
                 line += f" kernel_ms={ms:.4f} plain_ms={pms:.4f}"
             log(line)
             if not (rel <= TOL[dname]) or not torch.isfinite(got).all():
@@ -228,6 +303,167 @@ def phase_kernels(shapes) -> dict:
     if failures:
         raise AssertionError("kernel disagrees with its plain version:\n"
                              + "\n".join(failures))
+    for k in res:
+        res[k].update(bounds[k].fields(), library_ms=None)
+    return res
+
+
+# backward (K3, K4) vs plain limits: dx relative to max(1, max |plain dx|),
+# each parameter gradient relative to its own max |plain grad|. f32: the
+# same f32 math in another sum order (the weight gradients sum 2 x 10^4 to
+# 2 x 10^5 token products), 1e-4 as for the forwards. bf16: both versions
+# round at the same points (y, q, k, v, p, do, dlogits, dq, dk, dv, dz1,
+# h2), so a differing sum order can flip a rounded intermediate by one ulp
+# (2^-8 relative), which then moves the sums built on it; 3e-2 as for the
+# forwards.
+BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+def _grad_errors(got, ref) -> list[float]:
+    """Per-output errors: dx relative to max(1, max |ref|), the rest
+    relative to their own max |ref|."""
+    errs = [rel_err(got[0], ref[0])[1]]
+    for a, b in zip(got[1:], ref[1:]):
+        scale = float(b.float().abs().max())
+        errs.append(float((a.float() - b.float()).abs().max())
+                    / (scale if scale > 0 else 1.0))
+    return errs
+
+
+def phase_backward(shapes) -> dict:
+    """K3 and K4 (each followed by the fixed-order sums of ops.reduce)
+    against their plain backwards on the card at the five SwinGroup shapes,
+    B=2, f32 and bf16, K3 masked and unmasked, residual on and off; every
+    gradient, plus bitwise repeatability (two kernel runs on the same
+    inputs). Returns per-kernel {max_abs_err, ms, plain_ms} (times summed
+    over the shapes: bf16, K3 masked, residual on)."""
+    import torch
+
+    from fbanet_tpu_torch.ops import attention, leff
+
+    res = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+           for k in ("K3", "K4")}
+    bounds = {"K3": Bound(), "K4": Bound()}
+    failures = []
+
+    def check(name, line, got, again, ref, dname):
+        errs = _grad_errors(got, ref)
+        abs_err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(got, ref))
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], abs_err)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        line += (f": max rel err {max(errs):.3e} (dx {errs[0]:.3e}) "
+                 f"max_abs_err {abs_err:.3e} bitwise_repeat={same}")
+        if not (max(errs) <= BWD_TOL[dname]) or not same or not finite:
+            failures.append(line + f" errs={[f'{e:.2e}' for e in errs]}")
+        return line
+
+    for i, (h, c, heads) in enumerate(shapes):
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            for masked in (False, True):
+                x, a = attention_case(h, c, heads, dtype, masked, 300 + i)
+                g = _normal_fn(400 + i)((2, h, h, c), 1.0).to(dtype)
+                p = {k: v for k, v in a.items() if k != "bproj"}
+                for residual in (False, True):
+                    def k3(x=x, g=g, p=p, heads=heads, residual=residual):
+                        return attention.window_attention_bwd(
+                            x, g, **p, heads=heads, window_size=WS,
+                            residual=residual)
+
+                    def k3_plain(x=x, g=g, p=p, heads=heads,
+                                 residual=residual):
+                        return attention._plain_bwd_2d(
+                            x, g, *p.values(), heads, WS, residual)
+
+                    got, again, ref = k3(), k3(), k3_plain()
+                    torch.cuda.synchronize()
+                    line = check("K3", f"K3 attention bwd H={h} C={c} "
+                                 f"heads={heads} {dname} masked={masked} "
+                                 f"residual={residual}", got, again, ref,
+                                 dname)
+                    if dname == "bfloat16" and masked and residual:
+                        ms, pms = time_ms(k3), time_ms(k3_plain)
+                        res["K3"]["ms"] += ms
+                        res["K3"]["plain_ms"] += pms
+                        bounds["K3"].add(*attention_work(
+                            h, c, heads, masked, backward=True))
+                        line += f" kernel_ms={ms:.4f} plain_ms={pms:.4f}"
+                    log(line)
+            x, a = leff_case(h, c, dtype, 500 + i)
+            g = _normal_fn(600 + i)((2, h, h, c), 1.0).to(dtype)
+            p = {k: v for k, v in a.items() if k != "b2"}
+            for residual in (False, True):
+                def k4(x=x, g=g, p=p, residual=residual):
+                    return leff.leff_bwd(x, g, **p, residual=residual)
+
+                def k4_plain(x=x, g=g, p=p, residual=residual):
+                    dx, *rest = leff.leff_bwd_reference(x, g, **p)
+                    return (dx + g if residual else dx, *rest)
+
+                got, again, ref = k4(), k4(), k4_plain()
+                torch.cuda.synchronize()
+                line = check("K4", f"K4 leff bwd H={h} C={c} Ch={4 * c} "
+                             f"{dname} residual={residual}", got, again,
+                             ref, dname)
+                if dname == "bfloat16" and residual:
+                    ms, pms = time_ms(k4), time_ms(k4_plain)
+                    res["K4"]["ms"] += ms
+                    res["K4"]["plain_ms"] += pms
+                    bounds["K4"].add(*leff_work(h, c, backward=True))
+                    line += f" kernel_ms={ms:.4f} plain_ms={pms:.4f}"
+                log(line)
+    if failures:
+        raise AssertionError("backward kernel disagrees with its plain "
+                             "version or does not repeat:\n"
+                             + "\n".join(failures))
+    for k in res:
+        res[k].update(bounds[k].fields(), library_ms=None)
+    return res
+
+
+def phase_reduce() -> dict:
+    """The two reduction kernels against their plain versions at the
+    largest main-path use (dec1's dW2 at B=2: T = 51200 tokens, 128 x 512
+    outputs, bf16; its per-tile partial sums, 800 x 5760 f32), with times
+    and the one-call library counterparts: torch.mm with an f32 output,
+    torch.sum."""
+    import torch
+
+    from fbanet_tpu_torch.ops.reduce import column_sum, token_matmul
+
+    nrm = _normal_fn(700)
+    a = nrm((51200, 128), 1.0).to(torch.bfloat16)
+    b = nrm((51200, 512), 1.0).to(torch.bfloat16)
+    p = nrm((800, 3 * 128 + 11 * 512), 1.0)
+    res = {}
+    for name, fn, plain, lib, work in (
+            ("R1", lambda: token_matmul(a, b),
+             lambda: a.float().t() @ b.float(),
+             lambda: torch.mm(a.t(), b, out_dtype=torch.float32),
+             (2 * 51200 * 128 * 512, 0, 2 * 51200 * 640 + 4 * 128 * 512)),
+            ("R2", lambda: column_sum(p), lambda: p.sum(0),
+             lambda: torch.sum(p, 0), (0, p.numel(), 4 * (p.numel() + 5760)))):
+        got, again, ref = fn(), fn(), plain()
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        rel = err / float(ref.abs().max())
+        bound = Bound()
+        bound.add(*work)
+        try:
+            lib_ms = time_ms(lib)
+        except (TypeError, RuntimeError):  # torch.mm without out_dtype
+            lib_ms = None
+        res[name] = dict(max_abs_err=err, ms=time_ms(fn),
+                         plain_ms=time_ms(plain), library_ms=lib_ms,
+                         **bound.fields())
+        log(f"{name} {'token_matmul' if name == 'R1' else 'column_sum'}: "
+            f"max rel err {rel:.3e} bitwise_repeat="
+            f"{torch.equal(got, again)} {res[name]}")
+        if not (rel <= 1e-4) or not torch.equal(got, again):
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"or does not repeat")
     return res
 
 
@@ -341,6 +577,143 @@ def phase_slice(card: str) -> dict:
     return launches
 
 
+def _counters():
+    """name -> the wrapper whose `.launches` counts that kernel."""
+    from fbanet_tpu_torch.ops import attention, leff, reduce
+
+    return {"K1": attention.fused_window_attention_2d,
+            "K2": leff.fused_leff, "K3": attention.window_attention_bwd,
+            "K4": leff.leff_bwd, "R1": reduce.token_matmul,
+            "R2": reduce.column_sum}
+
+
+def _device_ms(events) -> tuple[float, dict]:
+    """(total device ms of a profile, device ms of the port's kernels by
+    name)."""
+    total, ours = 0.0, {}
+    for e in events:
+        if "CUDA" not in str(e.device_type):  # device events only
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        total += us
+        for key in ("window_attention_bwd", "window_attention_bf16",
+                    "leff_bwd", "leff_bf16", "token_matmul", "column_sum"):
+            if key in e.key:
+                ours[key] = ours.get(key, 0.0) + us / 1e3
+    return total / 1e3, ours
+
+
+def phase_train(card: str) -> dict:
+    """The training path at the published width: FBANet-64 (14 frames,
+    160 px, window 8, bf16 compute, f32 parameters, drop_path 0.1), random
+    weights from a seed, AdamW at lr 1e-4, B=8 synthetic bursts with HR
+    targets, 5 steps of `train.make_train_step`. Checks finite losses, that
+    every parameter moved, and 20 launches per step of each of K1-K4. Then
+    one f32 step at B=2 holds every parameter gradient of the kernel path
+    against the plain path, and the B=8 step is timed against the plain
+    versions and profiled. Returns the launch counts of the 5 steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fbanet_tpu_torch.config import TrainConfig
+    from fbanet_tpu_torch.models import ModelConfig, create_model
+    from fbanet_tpu_torch.train import make_optimizer, make_train_step
+    from fbanet_tpu_torch.utils.weights import random_state_dict
+
+    cfg = ModelConfig(num_frames=14, img_size=160, embed_dim=64,
+                      window_size=8, dtype="bfloat16", drop_path_rate=0.1)
+    tcfg = TrainConfig(batch_size=8, lr_initial=1e-4, optimizer="adamw")
+    state = random_state_dict(create_model(cfg, seed=0), seed=2)
+    model = create_model(cfg, device="cuda", seed=0)
+    model.load_state_dict(state, strict=True)
+    layers = sum(cfg.depths[i] for i in (0, 1, 4, 5, 6)) * 2
+    opt = make_optimizer(model.parameters(), tcfg)
+    step = make_train_step(model, opt, tcfg)
+    lr_np, hr_np = make_realistic_bursts(8, 14, 160, seed=30, hr_scale=4)
+    lr8, hr8 = torch.from_numpy(lr_np).cuda(), torch.from_numpy(hr_np).cuda()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    counters = _counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    losses, times, per_step = [], [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        losses.append(float(step(lr8, hr8, gen, tcfg.lr_initial)))
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({k: c.launches for k, c in counters.items()})
+    launches = per_step[-1]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"train: 5 steps at B=8, losses {losses}, step ms {times}, "
+        f"launches {launches}, peak {peak:.2f} GiB")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    for name in ("K1", "K2", "K3", "K4"):
+        counts = [s[name] for s in per_step]
+        if counts != [layers * (i + 1) for i in range(5)]:
+            raise AssertionError(f"{name}: cumulative launches {counts} over "
+                                 f"5 steps, expected {layers} per step")
+    still = [n for n, p in model.named_parameters()
+             if torch.equal(p.detach(), before[n])]
+    if still:
+        raise AssertionError(f"parameters that did not move: {still}")
+    del before
+
+    # f32, B=2: every parameter gradient, kernels against plain versions
+    cfg32 = cfg.replace(dtype="float32")
+    m32 = create_model(cfg32, device="cuda", seed=0)
+    m32.load_state_dict(state, strict=True)
+    grads = []
+    for plain in (False, True):
+        m32.zero_grad(set_to_none=True)
+        loss_fn = make_train_step(m32, None, tcfg, plain=plain).loss_fn
+        loss_fn(lr8[:2], hr8[:2],
+                torch.Generator(device="cuda").manual_seed(11)).backward()
+        grads.append({n: p.grad.clone() for n, p in m32.named_parameters()
+                      if p.grad is not None})
+    if grads[0].keys() != grads[1].keys():
+        raise AssertionError("kernel and plain paths differ in which "
+                             "parameters get a gradient")
+    worst, worst_name = 0.0, ""
+    for n, ref in grads[1].items():
+        scale = float(ref.abs().max())
+        err = float((grads[0][n] - ref).abs().max()) / (scale or 1.0)
+        if not err <= worst:
+            worst, worst_name = err, n
+    log(f"train f32 B=2 gradients, kernels vs plain: {len(grads[1])} "
+        f"tensors, max err relative to each tensor's max |grad| "
+        f"{worst:.3e} ({worst_name}; limit {TRAIN_GRAD_TOL})")
+    if not worst <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"f32 gradient {worst_name}: {worst:.3e}")
+    del m32, grads
+
+    # B=8 step time against the plain versions (same model, fresh steps)
+    ms = statistics.median(times[1:])
+    plain_step = make_train_step(model, opt, tcfg, plain=True)
+    plain_times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(plain_step(lr8, hr8, gen, tcfg.lr_initial))
+        plain_times.append((time.perf_counter() - t0) * 1e3)
+    log(f"train B=8 on {card}: {ms:.2f} ms/step, {8e3 / ms:.3f} samples/s "
+        f"(plain versions {statistics.median(plain_times):.2f} ms/step), "
+        f"peak {peak:.2f} GiB")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        float(step(lr8, hr8, gen, tcfg.lr_initial))
+    events = prof.key_averages()
+    log(events.table(sort_by="cuda_time_total", row_limit=25,
+                     max_name_column_width=60))
+    total, ours = _device_ms(events)
+    log(f"train B=8 profile: device {total:.3f} ms, port kernels (ms) "
+        f"{ {k: round(v, 3) for k, v in ours.items()} }")
+    return launches
+
+
 def main() -> None:
     if not (ROOT / "fbanet_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py: fbanet_tpu_torch/ not found next to "
@@ -371,17 +744,30 @@ def main() -> None:
     log((lib_path.parent / "build.log").read_text())
 
     kres = phase_kernels(MAIN_SHAPES)
-    launches = phase_slice(card)
-    kernels = [
-        {"name": "K1 fused window attention", "route": "cuda",
-         "source": "fbanet_tpu_torch/csrc/attention.cu",
-         "replaces": "fbanet_tpu/ops/attention_pallas.py:250",
-         "launches": launches["K1"], **kres["K1"]},
-        {"name": "K2 fused LeFF", "route": "cuda",
-         "source": "fbanet_tpu_torch/csrc/leff.cu",
-         "replaces": "fbanet_tpu/ops/leff_pallas.py:172",
-         "launches": launches["K2"], **kres["K2"]},
-    ]
+    kres.update(phase_backward(MAIN_SHAPES))
+    kres.update(phase_reduce())
+    served = phase_slice(card)
+    trained = phase_train(card)
+    # launches on the main paths: serving (K1, K2) plus training (all)
+    launches = {k: served.get(k, 0) + trained[k] for k in trained}
+    table = (
+        ("K1", "K1 fused window attention", "attention.cu",
+         "fbanet_tpu/ops/attention_pallas.py:250"),
+        ("K2", "K2 fused LeFF", "leff.cu",
+         "fbanet_tpu/ops/leff_pallas.py:172"),
+        ("K3", "K3 fused window attention backward", "attention_bwd.cu",
+         "fbanet_tpu/ops/attention_pallas.py:334"),
+        ("K4", "K4 fused LeFF backward (and K4b)", "leff_bwd.cu",
+         "fbanet_tpu/ops/leff_pallas.py:278 and :528"),
+        ("R1", "K3/K4 weight-gradient sums (token_matmul)", "reduce.cu",
+         "fbanet_tpu/ops/attention_pallas.py:465 and leff_pallas.py:394"),
+        ("R2", "K3/K4 partial sums (column_sum)", "reduce.cu",
+         "fbanet_tpu/ops/attention_pallas.py:463 and leff_pallas.py:392"),
+    )
+    kernels = [{"name": name, "route": "cuda",
+                "source": f"fbanet_tpu_torch/csrc/{src}", "replaces": where,
+                "launches": launches[key], **kres[key]}
+               for key, name, src, where in table]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 
 The PyTorch + CUDA counterpart of `fbanet_tpu`, module for module. The JAX
 package stays the reference: every module here is tested against its JAX
-counterpart (tests/test_torch_*.py), and the two fused Pallas kernels of the
-inference path are hand-written CUDA C++ kernels for `sm_90a` here
+counterpart (tests/test_torch_*.py), and the fused Pallas kernels of the
+serving and training paths (the attention and LeFF forwards and their
+backwards) are hand-written CUDA C++ kernels for `sm_90a` here
 (`ops/attention.py`, `ops/leff.py`, sources in `csrc/`).
 
 Layouts follow the JAX package at the public functions: bursts
@@ -11,8 +12,8 @@ Layouts follow the JAX package at the public functions: bursts
 Parameters use torch layouts under the names `fbanet_tpu.utils.torch_io`
 produces, so a converted JAX checkpoint loads with `strict=True`.
 
-This package imports torch and numpy only; from `fbanet_tpu` it takes just
-the pure-dataclass `fbanet_tpu.config`.
+This package imports torch and numpy only, and nothing of `fbanet_tpu`: it
+keeps its own copy of the configuration (`config.py`).
 """
 
 __version__ = "0.1.0"

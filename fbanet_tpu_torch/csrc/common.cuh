@@ -135,13 +135,14 @@ __host__ __device__ inline size_t align128(size_t bytes) {
 
 // Tensor-core product over bf16 operands. For each 16 x 16 tile of the
 // [Mp, N] output (Mp, N, K multiples of 16) one warp accumulates
-// sum_k A[m][k] * B(k, n) in f32, parks the tile in its 16 x 16 f32 slot of
-// `scratch` and calls epi(m, n, value) for the rows m < M. A is row-major
-// (row stride lda); B(k, n) lives at B[n * ldb + k] for wmma::col_major (a
-// torch Linear weight [N, K], or K^T) and at B[k * ldb + n] for
-// wmma::row_major. Strides are multiples of 8 elements, tile starts 32-byte
-// aligned.
-template <typename BLayout, typename Epi>
+// sum_k A(m, k) * B(k, n) in f32, parks the tile in its 16 x 16 f32 slot of
+// `scratch` and calls epi(m, n, value) for the rows m < M. A(m, k) lives at
+// A[m * lda + k] for wmma::row_major (the default) and at A[k * lda + m] for
+// wmma::col_major (a transposed operand); B(k, n) lives at B[n * ldb + k]
+// for wmma::col_major (a torch Linear weight [N, K], or K^T) and at
+// B[k * ldb + n] for wmma::row_major. Strides are multiples of 8 elements,
+// tile starts 32-byte aligned.
+template <typename BLayout, typename ALayout = wmma::row_major, typename Epi>
 __device__ __forceinline__ void gemm_tc(int M, int Mp, int N, int K,
                                         const bf16* A, int lda, const bf16* B,
                                         int ldb, float* scratch, Epi epi) {
@@ -153,9 +154,12 @@ __device__ __forceinline__ void gemm_tc(int M, int Mp, int N, int K,
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
     wmma::fill_fragment(acc, 0.f);
     for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> a;
       wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b;
-      wmma::load_matrix_sync(a, A + (size_t)m0 * lda + k0, lda);
+      if constexpr (std::is_same_v<ALayout, wmma::row_major>)
+        wmma::load_matrix_sync(a, A + (size_t)m0 * lda + k0, lda);
+      else
+        wmma::load_matrix_sync(a, A + (size_t)k0 * lda + m0, lda);
       if constexpr (std::is_same_v<BLayout, wmma::col_major>)
         wmma::load_matrix_sync(b, B + (size_t)n0 * ldb + k0, ldb);
       else
@@ -173,9 +177,10 @@ __device__ __forceinline__ void gemm_tc(int M, int Mp, int N, int K,
 }
 
 // Cm[M][N] (f32, row stride ldc, a multiple of 4) += A[M][K] . B where B(k, n)
-// = B[n * ldb + k] (col-major, a torch Linear weight slice). M, N, K
-// multiples of 16; each warp owns whole output tiles, so no two warps touch
-// the same element.
+// = B[n * ldb + k] for wmma::col_major (the default: a torch Linear weight
+// slice) or B[k * ldb + n] for wmma::row_major. M, N, K multiples of 16; each
+// warp owns whole output tiles, so no two warps touch the same element.
+template <typename BLayout = wmma::col_major>
 __device__ __forceinline__ void gemm_tc_acc(int M, int N, int K, const bf16* A,
                                             int lda, const bf16* B, int ldb,
                                             float* Cm, int ldc) {
@@ -188,13 +193,88 @@ __device__ __forceinline__ void gemm_tc_acc(int M, int N, int K, const bf16* A,
     wmma::load_matrix_sync(acc, c, ldc, wmma::mem_row_major);
     for (int k0 = 0; k0 < K; k0 += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLayout> b;
       wmma::load_matrix_sync(a, A + (size_t)m0 * lda + k0, lda);
-      wmma::load_matrix_sync(b, B + (size_t)n0 * ldb + k0, ldb);
+      if constexpr (std::is_same_v<BLayout, wmma::col_major>)
+        wmma::load_matrix_sync(b, B + (size_t)n0 * ldb + k0, ldb);
+      else
+        wmma::load_matrix_sync(b, B + (size_t)k0 * ldb + n0, ldb);
       wmma::mma_sync(acc, a, b, acc);
     }
     wmma::store_matrix_sync(c, acc, ldc, wmma::mem_row_major);
   }
+}
+
+// epi(m, n, sum_k A(m, k) * B(k, n)) on the CUDA cores, f32 accumulation in
+// order of k: the f32 counterpart of gemm_tc for the backward kernels. Row m
+// of A starts at arow(m) (a pointer into shared or global memory, so rows
+// need not be evenly spaced), with element k at arow(m)[k * ask]; B(k, n) =
+// B[n * bsn + k * bsk]. Same 4 x 4 register tiling as gemm_nt.
+template <typename ARow, typename TB, typename Epi>
+__device__ __forceinline__ void gemm_f32(int M, int N, int K, ARow arow, int ask,
+                                         const TB* __restrict__ B, int bsn, int bsk,
+                                         Epi epi) {
+  const int ncol = (N + 3) >> 2;
+  const int ntile = ncol * ((M + 3) >> 2);
+  for (int tile = threadIdx.x; tile < ntile; tile += blockDim.x) {
+    const int nl = tile % ncol;
+    const int m0 = (tile / ncol) * 4;
+    const float* a[4];
+    const TB* bp[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = arow(min(m0 + i, M - 1));
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bp[j] = B + (size_t)min(nl + j * ncol, N - 1) * bsn;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int k = 0; k < K; ++k) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = a[i][(size_t)k * ask];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = to_f(bp[j][(size_t)k * bsk]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int m = m0 + i, n = nl + j * ncol;
+        if (m < M && n < N) epi(m, n, acc[i][j]);
+      }
+  }
+}
+
+// epi(m, n, sum_k A(m, k) B(k, n)) for operands of the compute type T in
+// shared memory (B may be a weight in global memory), with A row- or
+// column-major (AL) and B row- or column-major (BL) as in gemm_tc: the
+// tensor cores for bf16 (M, N, K multiples of 16), the CUDA cores for f32.
+template <typename T, typename AL, typename BL, typename Epi>
+__device__ __forceinline__ void mm(int M, int N, int K, const T* A, int lda, const T* B,
+                                   int ldb, float* scratch, Epi epi) {
+  if constexpr (std::is_same_v<T, bf16>) {
+    gemm_tc<BL, AL>(M, M, N, K, A, lda, B, ldb, scratch, epi);
+  } else {
+    constexpr bool arow = std::is_same_v<AL, wmma::row_major>;
+    constexpr bool brow = std::is_same_v<BL, wmma::row_major>;
+    gemm_f32(M, N, K, [&](int m) { return A + (size_t)m * (arow ? lda : 1); },
+             arow ? 1 : lda, B, brow ? 1 : ldb, brow ? ldb : 1, epi);
+  }
+}
+
+// The derivative of gelu_tanh, as autodiff of jax.nn.gelu gives it:
+// gelu(x) = x * cdf, cdf = 0.5 (1 + tanh(u)), u = k (x + 0.044715 x^3).
+__device__ __forceinline__ float gelu_tanh_grad(float x) {
+  const float k = 0.7978845608028654f;
+  const float t = tanhf(k * (x + 0.044715f * (x * x * x)));
+  const float cdf = 0.5f * (1.0f + t);
+  return cdf + x * (0.5f * (1.0f - t * t)) * (k * (1.0f + 3.0f * 0.044715f * (x * x)));
 }
 
 }  // namespace fbanet

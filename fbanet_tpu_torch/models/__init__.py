@@ -1,6 +1,6 @@
 from torch import nn
 
-from fbanet_tpu.config import ModelConfig  # the JAX package's pure dataclass
+from fbanet_tpu_torch.config import ModelConfig
 from fbanet_tpu_torch.models.fbanet import FBANet, create_model, init_parameters
 
 

@@ -3,6 +3,8 @@ Federated Affinity Fusion block, SwinGroup and the x4 tail."""
 
 from __future__ import annotations
 
+from collections.abc import Sequence
+
 import numpy as np
 import torch
 from torch import nn
@@ -80,21 +82,30 @@ class FAFBlock(nn.Module):
 
 
 class SwinGroup(nn.Module):
-    """`depth` SwinLayers alternating shift 0 / window // 2
+    """`depth` SwinLayers alternating shift 0 / window // 2, layer i with
+    drop_path rate `drop_path_rates[i]` (all 0 when empty)
     (blocks.py:354-407)."""
 
     def __init__(self, dim: int, input_resolution: tuple[int, int],
-                 depth: int, heads: int, window_size: int = 8, **layer_kw):
+                 depth: int, heads: int, window_size: int = 8,
+                 drop_path_rates: Sequence[float] = (), **layer_kw):
         super().__init__()
+        rates = list(drop_path_rates) or [0.0] * depth
+        if len(rates) != depth:
+            raise ValueError(f"{len(rates)} drop_path rates for {depth} layers")
         self.depth = depth
         for i in range(depth):
             self.add_module(f"layer{i}", SwinLayer(
                 dim, input_resolution, heads, window_size=window_size,
-                shift_size=0 if i % 2 == 0 else window_size // 2, **layer_kw))
+                shift_size=0 if i % 2 == 0 else window_size // 2,
+                drop_path_rate=float(rates[i]), **layer_kw))
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, plain: bool = False, *,
+                train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         for i in range(self.depth):
-            x = getattr(self, f"layer{i}")(x, plain=plain)
+            x = getattr(self, f"layer{i}")(x, plain=plain, train=train,
+                                           generator=generator)
         return x
 
 

@@ -1,16 +1,18 @@
 """The FBANet model in PyTorch (counterpart of fbanet_tpu/models/fbanet.py):
 per-frame features -> FAF fusion -> two window-attention hourglasses ->
-x4 tail + bilinear base. `[B, F, H, W, 3] -> [B, 4H, 4W, 3]`, inference."""
+x4 tail + bilinear base. `[B, F, H, W, 3] -> [B, 4H, 4W, 3]`; eval by
+default, training (stochastic depth) with `train=True` and a generator."""
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fbanet_tpu.config import ModelConfig
+from fbanet_tpu_torch.config import ModelConfig
 from fbanet_tpu_torch.models.blocks import (
     FAFBlock,
     ResBlock,
@@ -47,9 +49,22 @@ class FBANet(nn.Module):
             token_projection=cfg.token_projection, token_mlp=cfg.token_mlp,
             use_se_layer=cfg.use_se_layer)
 
+        # stochastic-depth schedule (fbanet.py:69-72): linear over the
+        # encoder, constant in the bottleneck, the encoder's reversed in the
+        # decoder
+        dp = cfg.drop_path_rate
+        enc = [float(r) for r in np.linspace(
+            0, dp, sum(cfg.depths[:len(cfg.depths) // 2]))]
+        dec = enc[::-1]
+        dd = cfg.depths
+        rates = {0: enc[:dd[0]], 1: enc[dd[0]:dd[0] + dd[1]],
+                 4: [float(dp)] * dd[4], 5: dec[:dd[5]],
+                 6: dec[dd[5]:dd[5] + dd[6]]}
+
         def swin(dim: int, res: int, idx: int) -> SwinGroup:
             return SwinGroup(dim, (res, res), cfg.depths[idx], cfg.heads[idx],
-                             window_size=cfg.window_size, **layer_kw)
+                             window_size=cfg.window_size,
+                             drop_path_rates=rates[idx], **layer_kw)
 
         for tag in ("HG1", "HG2"):
             mods = {
@@ -73,32 +88,38 @@ class FBANet(nn.Module):
         self.tail_upsampler = TailUpsampler(d)
         self.tail_conv = Conv(d, cin, 3, padding=1)
 
-    def _hourglass(self, tag: str, y: torch.Tensor, cross, plain: bool):
+    def _hourglass(self, tag: str, y: torch.Tensor, cross, plain: bool,
+                   swin_kw: dict):
         """One encoder/bottleneck/decoder hourglass (fbanet.py:90-132);
         `cross` carries HG1's (up0, conv1, up1, conv0) into HG2."""
         m = lambda name: getattr(self, f"{tag}_{name}")  # noqa: E731
         dt = self.dtype
-        conv0 = m("enc0")(y, plain)
-        conv1 = m("enc1")(m("down0")(conv0, dt), plain)
-        conv2 = m("bottleneck")(m("down1")(conv1, dt), plain)
+        conv0 = m("enc0")(y, plain, **swin_kw)
+        conv1 = m("enc1")(m("down0")(conv0, dt), plain, **swin_kw)
+        conv2 = m("bottleneck")(m("down1")(conv1, dt), plain, **swin_kw)
         up0 = m("up0")(conv2, dt)
         if cross is None:
             dec0_in = torch.cat([up0, conv1], -1)
         else:
             dec0_in = m("proj0")(torch.cat([cross[0], cross[1], up0, conv1], -1), dt)
-        dec0 = m("dec0")(dec0_in, plain)
+        dec0 = m("dec0")(dec0_in, plain, **swin_kw)
         up1 = m("up1")(dec0, dt)
         if cross is None:
             dec1_in = torch.cat([up1, conv0], -1)
         else:
             dec1_in = m("proj1")(torch.cat([cross[2], cross[3], up1, conv0], -1), dt)
-        return m("dec1")(dec1_in, plain), (up0, conv1, up1, conv0)
+        return (m("dec1")(dec1_in, plain, **swin_kw),
+                (up0, conv1, up1, conv0))
 
-    def forward_with_features(self, burst: torch.Tensor, plain: bool = False
+    def forward_with_features(self, burst: torch.Tensor, plain: bool = False,
+                              *, train: bool = False,
+                              generator: torch.Generator | None = None
                               ) -> tuple[torch.Tensor, torch.Tensor]:
         """(output [B, 4H, 4W, cin] f32, HG2 features before the tail
-        [B, H, W, D]). `plain=True` runs K1/K2's plain versions on any
-        device (the kernel-vs-plain comparison of the whole slice)."""
+        [B, H, W, D]). `plain=True` runs the fused operators' plain versions
+        on any device (the kernel-vs-plain comparison of the whole slice).
+        `train=True` applies stochastic depth with masks drawn from
+        `generator` (the JAX model's `deterministic=False`)."""
         cfg, dt = self.cfg, self.dtype
         b, f, h, w, cin = burst.shape
         if (f, h, w, cin) != (cfg.num_frames, cfg.img_size, cfg.img_size,
@@ -112,9 +133,10 @@ class FBANet(nn.Module):
         fused = self.fusion(xf.reshape(b, f, h, w, d), dt)
         y = self.input_proj(fused, dt)
 
-        deconv1, cross = self._hourglass("HG1", y, None, plain)
+        swin_kw = dict(train=train, generator=generator)
+        deconv1, cross = self._hourglass("HG1", y, None, plain, swin_kw)
         y_1 = self.output_proj(deconv1, dt)
-        deconv1_2, _ = self._hourglass("HG2", y_1, cross, plain)
+        deconv1_2, _ = self._hourglass("HG2", y_1, cross, plain, swin_kw)
         y_2 = self.output_proj_2(deconv1_2, dt)
 
         t = self.tail_upsampler
@@ -126,8 +148,11 @@ class FBANet(nn.Module):
                              align_corners=False).permute(0, 2, 3, 1)
         return out.float() + base, y_2
 
-    def forward(self, burst: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        return self.forward_with_features(burst, plain)[0]
+    def forward(self, burst: torch.Tensor, plain: bool = False, *,
+                train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        return self.forward_with_features(burst, plain, train=train,
+                                          generator=generator)[0]
 
 
 @torch.no_grad()

@@ -9,8 +9,9 @@ checkpoint loads with `strict=True`. Parameters are f32; each forward casts
 them to the compute dtype, as flax's `dtype=` does.
 
 `SwinLayer` takes the published options only (linear token projection, LeFF,
-no SE, no qk_scale, no dropout) and runs inference: both of its branches go
-through the fused operators K1 (`ops.attention`) and K2 (`ops.leff`).
+no SE, no qk_scale, no dropout, any drop_path rate): both of its branches go
+through the fused operators K1 (`ops.attention`) and K2 (`ops.leff`), whose
+backwards are K3 and K4.
 """
 
 from __future__ import annotations
@@ -152,17 +153,43 @@ class LeFF(nn.Module):
         self.linear2 = Dense(hidden_dim, dim)
 
 
+class DropPath(nn.Module):
+    """Per-sample stochastic depth (layers.py:69-85): in training, one
+    Bernoulli(1 - rate) draw per sample from the caller's generator; kept
+    samples are scaled by 1 / (1 - rate), dropped ones are zero. The
+    identity in eval or at rate 0. torch's generator does not give
+    jax.random's bits: the same seed gives other masks, the same law."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if not train or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        device = generator.device if generator is not None else x.device
+        bits = torch.empty(x.shape[0], device=device).bernoulli_(
+            keep, generator=generator)
+        mask = bits.to(x.device).bool().reshape(-1, *([1] * (x.dim() - 1)))
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                       device=x.device))
+
+
 class SwinLayer(nn.Module):
     """One (shifted-)window transformer layer on `[B, H, W, C]`
-    (layers.py:470-607, inference): roll by -shift, K1 with the residual,
-    roll back, K2 with the residual. Windows of inputs no larger than the
-    window are clamped to the input, unshifted (layers.py:517-518)."""
+    (layers.py:470-607): roll by -shift, K1, roll back, K2. When drop_path
+    is the identity (eval, or rate 0) both kernels add the residual
+    themselves; in training with a rate they return the branch and the
+    layer adds `skip + drop_path(branch)`. Windows of inputs no larger than
+    the window are clamped to the input, unshifted (layers.py:517-518)."""
 
     def __init__(self, dim: int, input_resolution: tuple[int, int],
                  heads: int, window_size: int = 8, shift_size: int = 0,
                  mlp_ratio: float = 4.0, use_qkv_bias: bool = True,
                  qk_scale: float | None = None, drop_rate: float = 0.0,
-                 attn_drop_rate: float = 0.0,
+                 attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
                  token_projection: str = "linear", token_mlp: str = "leff",
                  use_se_layer: bool = False):
         super().__init__()
@@ -194,11 +221,15 @@ class SwinLayer(nn.Module):
         mask = (torch.from_numpy(shift_attention_mask(h, w, ws, shift))
                 if shift > 0 else None)
         self.register_buffer("mask", mask, persistent=False)
+        self.drop_path = DropPath(drop_path_rate)
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, plain: bool = False, *,
+                train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         if tuple(x.shape[1:]) != (*self.input_resolution, self.dim):
             raise ValueError(f"SwinLayer expects [B, {self.input_resolution}, "
                              f"{self.dim}], got {tuple(x.shape)}")
+        dp_identity = not train or self.drop_path.rate == 0.0
         s = self.shift
         y = torch.roll(x, (-s, -s), (1, 2)) if s else x
         a = self.attn
@@ -206,14 +237,20 @@ class SwinLayer(nn.Module):
             y, self.norm1.weight, self.norm1.bias, a.to_q.weight, a.to_q.bias,
             a.to_kv.weight, a.to_kv.bias, a.proj.weight, a.proj.bias,
             a.bias(), self.mask, heads=self.heads,
-            window_size=self.window_size, residual=True, plain=plain)
+            window_size=self.window_size, residual=dp_identity, plain=plain)
         if s:
             y = torch.roll(y, (s, s), (1, 2))
+        if not dp_identity:
+            y = x + self.drop_path(y, train=train, generator=generator)
         m = self.mlp
-        return fused_leff(
+        out = fused_leff(
             y, self.norm2.weight, self.norm2.bias, m.linear1.weight,
             m.linear1.bias, m.depthwise.weight, m.depthwise.bias,
-            m.linear2.weight, m.linear2.bias, residual=True, plain=plain)
+            m.linear2.weight, m.linear2.bias, residual=dp_identity,
+            plain=plain)
+        if dp_identity:
+            return out
+        return y + self.drop_path(out, train=train, generator=generator)
 
 
 class Downsample(nn.Module):

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
 
-The sources in `fbanet_tpu_torch/csrc/*.cu` compile with nvcc for `sm_90a`
-into one shared library with a plain C interface. The build happens at first
-use, into `build/fbanet_tpu_torch/<hash>/` at the repository root (listed in
+The sources in `fbanet_tpu_torch/csrc/*.cu` compile with nvcc for `sm_90a`,
+one process per source in parallel, into one shared library with a plain C
+interface. The build happens at first use, into
+`build/fbanet_tpu_torch/<hash>/` at the repository root (listed in
 `.gitignore`), keyed by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one loads in milliseconds. Nothing here runs at
 import: the CPU tests import every module on a machine without nvcc.
@@ -43,6 +44,21 @@ SIGNATURES = {
     # and (C, Ch, bf16)
     "fbanet_window_attention_smem": [_I, _I, _I, _I],
     "fbanet_leff_smem": [_I, _I, _I],
+    # K3: x, g, dx, y/o/dq/dkv scratch, partial sums, ln_s, ln_b, wq, bq,
+    # wkv, bkv, wproj, bias, mask, B, H, W, C, heads, ws, residual, bf16,
+    # stream; and its head-group width, 0 for a shape it does not take:
+    # (tokens per window, C, heads, bf16)
+    "fbanet_window_attention_bwd": [_P] * 17 + [_I] * 8 + [_P],
+    "fbanet_window_attention_bwd_group": [_I, _I, _I, _I],
+    # K4: x, g, dx, y/h2/dz1 scratch, partial sums, ln_s, ln_b, w1, b1, wdw,
+    # bdw, w2, B, H, W, C, Ch, residual, bf16, stream; and its hidden chunk,
+    # 0 for a shape it does not take: (C, Ch, bf16)
+    "fbanet_leff_bwd": [_P] * 14 + [_I] * 7 + [_P],
+    "fbanet_leff_bwd_chunk": [_I, _I, _I],
+    # the backward kernels' fixed-order sums: a, b, partials, T, M, N,
+    # tokens per slice, bf16, stream; and p, out, R, M, stream
+    "fbanet_token_matmul": [_P] * 3 + [_I] * 5 + [_P],
+    "fbanet_column_sum": [_P] * 2 + [_I] * 2 + [_P],
 }
 
 
@@ -67,22 +83,45 @@ def _source_hash(sources: list[Path]) -> str:
 
 def build() -> Path:
     """Compile the kernels if this source hash has no library yet; return
-    the library's path. Raises with nvcc's output when the build fails."""
+    the library's path. Each source compiles in its own nvcc process, all
+    started together, then one nvcc links the objects. Raises with nvcc's
+    output when a step fails."""
     sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
     out_dir = BUILD_ROOT / _source_hash(sources)
     lib = out_dir / "libfbanet_kernels.so"
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libfbanet_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-           *[str(s) for s in sources if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    pid = os.getpid()
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    jobs = []
+    for src in (s for s in sources if s.suffix == ".cu"):
+        obj = out_dir / f"{src.stem}.{pid}.o"
+        cmd = [_nvcc(), *compile_flags, "-Xptxas", "-v", "-c", "-o", str(obj),
+               str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _obj, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} ({proc.returncode}):\n{out}")
+    tmp = out_dir / f"libfbanet_kernels.{pid}.so"
+    if not failed:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *[str(obj) for _c, obj, _p in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stdout}"
+                          f"{proc.stderr}")
+    (out_dir / "build.log").write_text("\n".join(log))
+    for _c, obj, _p in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     tmp.replace(lib)  # atomic: a concurrent loader never sees half a file
     return lib
 

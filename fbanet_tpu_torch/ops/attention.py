@@ -1,21 +1,34 @@
-"""K1 — fused window attention (norm1 + W-MSA) on the 4-D feature map.
+"""K1 and K3 — fused window attention (norm1 + W-MSA) on the 4-D feature map,
+and its backward.
 
 `fused_window_attention_2d` is the dispatcher (the counterpart of
-fbanet_tpu/ops/attention_pallas.py::fused_window_attention_2d). For a CUDA
-tensor it launches the hand-written kernel in `csrc/attention.cu`, which
-replaces the TPU kernel `_attention2d_kernel`, or raises for a shape the
-kernel does not take. For a CPU tensor, or with `plain=True`, it runs the
-plain PyTorch version below. There is no silent fallback.
+fbanet_tpu/ops/attention_pallas.py::fused_window_attention_2d). It is a
+`torch.autograd.Function`: its forward is K1 and its backward K3. For CUDA
+tensors the forward launches the hand-written kernel in `csrc/attention.cu`
+(which replaces the TPU kernel `_attention2d_kernel`) and the backward the
+one in `csrc/attention_bwd.cu` (which replaces `_attention_bwd_kernel`),
+followed by the fixed-order sums of `ops/reduce.py`; either raises for a
+shape its kernel does not take. For CPU tensors, or with `plain=True`, both
+run the plain PyTorch versions below. There is no silent fallback. As in the
+JAX custom_vjp (`_fused2d_fwd`), the forward saves only the layer input and
+the parameters; the backward recomputes the rest.
 
-The plain version follows the TPU kernel's rounding points
+The plain forward follows the TPU kernel's rounding points
 (`_attn_block_math`, attention_pallas.py:153-231): LN in f32 rounded to the
 compute dtype; q scaled in f32 after its bias, then rounded; f32 logits +
 relative-position bias + shift mask; max-subtracted exp, probabilities
 rounded for the AV product and the division by the f32 row sum applied after
 it; f32-accumulated projections. Products of rounded operands are taken in
-f32, which is what "bf16 inputs, f32 accumulation" means.
+f32, which is what "bf16 inputs, f32 accumulation" means. The plain backward,
+`window_attention_bwd_reference`, follows `_attention_bwd_kernel`
+(attention_pallas.py:334-473) step by step at its own rounding points.
 
-`fused_window_attention_2d.launches` counts kernel launches.
+Gradients come back in torch Linear layouts ([out, in]); the bias gradient
+is that of the gathered `[heads, N, N]` bias, which autograd carries to the
+relative-position table through the index gather. The mask gets none.
+
+`fused_window_attention_2d.launches` counts K1 launches,
+`window_attention_bwd.launches` K3 launches.
 """
 
 from __future__ import annotations
@@ -23,7 +36,8 @@ from __future__ import annotations
 import torch
 
 from fbanet_tpu_torch.ops import _build
-from fbanet_tpu_torch.ops.norm import layer_norm_f32
+from fbanet_tpu_torch.ops.norm import LN_EPS, layer_norm_f32
+from fbanet_tpu_torch.ops.reduce import column_sum, token_matmul
 
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on the H100
 
@@ -98,33 +112,101 @@ def _plain_2d(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj, bias,
     return out.to(x4.dtype)
 
 
+def window_attention_bwd_reference(x, g, ln_scale, ln_bias, wq, bq, wkv, bkv,
+                                   wproj, bias, mask, *, heads: int):
+    """Plain backward on pre-partitioned windows, computed in x's dtype:
+    x and the incoming gradient g are [G, N, C]. Follows
+    `_attention_bwd_kernel` (attention_pallas.py:334-473) step by step:
+    recompute the forward, dp = do v^T, dv = p^T do, dlogits = p (dp -
+    sum(dp p)), dq = dlogits k scaled, dk = dlogits^T q, dy = dq Wq + dkv Wkv,
+    LN backward. Returns (dx [G, N, C] in x's dtype, then f32 gradients of
+    ln scale, ln bias, wq [C, C], bq, wkv [2C, C], bkv, wproj [C, C], bproj,
+    bias [heads, N, N]), weights in torch Linear layouts."""
+    cd = x.dtype
+    gsz, n, c = x.shape
+    dh = c // heads
+    scale = dh ** -0.5
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mu * mu, min=0.0)
+    inv = torch.rsqrt(var + LN_EPS)
+    xhat = (xf - mu) * inv
+    lns = ln_scale.float()
+    y = _rounded(xhat * lns + ln_bias.float(), cd)
+    wq_c, wkv_c, wproj_c = (_rounded(w, cd) for w in (wq, wkv, wproj))
+    q = _rounded((y @ wq_c.t() + bq.float()) * scale, cd)
+    kv = _rounded(y @ wkv_c.t() + bkv.float(), cd)
+    g2 = _rounded(g, cd)
+    do = _rounded(g2 @ wproj_c, cd)
+
+    def split(a):  # [G, N, C] -> [G, heads, N, dh]
+        return a.reshape(gsz, n, heads, dh).transpose(1, 2)
+
+    def merge(a):  # inverse of split
+        return a.transpose(1, 2).reshape(gsz, n, c)
+
+    qh, kh, vh, doh = split(q), split(kv[..., :c]), split(kv[..., c:]), split(do)
+    logits = qh @ kh.transpose(-1, -2) + bias.float()[None]
+    if mask is not None:
+        nw = mask.shape[0]
+        logits = (logits.reshape(gsz // nw, nw, heads, n, n)
+                  + mask.float()[None, :, None]).reshape(gsz, heads, n, n)
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    p = e * (1.0 / e.sum(-1, keepdim=True))
+    pc = _rounded(p, cd)
+    o = pc @ vh
+    dp = doh @ vh.transpose(-1, -2)
+    dv = pc.transpose(-1, -2) @ doh
+    dlogits = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dlc = _rounded(dlogits, cd)
+    dq = dlc @ kh
+    dk = dlc.transpose(-1, -2) @ qh
+
+    o2 = _rounded(merge(o), cd)
+    dq2 = merge(dq) * scale
+    dkv2 = torch.cat([merge(dk), merge(dv)], -1)
+    dq2c, dkv2c = _rounded(dq2, cd), _rounded(dkv2, cd)
+    dy = dq2c @ wq_c + dkv2c @ wkv_c
+    dxh = dy * lns
+    m1 = dxh.mean(-1, keepdim=True)
+    m2 = (dxh * xhat).mean(-1, keepdim=True)
+    dx = inv * (dxh - m1 - xhat * m2)
+
+    def flat(a):
+        return a.reshape(-1, a.shape[-1])
+
+    return (dx.to(cd), flat(dy * xhat).sum(0), flat(dy).sum(0),
+            flat(dq2c).t() @ flat(y), flat(dq2).sum(0),
+            flat(dkv2c).t() @ flat(y), flat(dkv2).sum(0),
+            flat(g2).t() @ flat(o2), flat(g2).sum(0), dlogits.sum(0))
+
+
+def _plain_bwd_2d(x4, g4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bias,
+                  mask, heads, ws, residual):
+    """The 4-D backward through the windowed one (`_fused2d_bwd`,
+    attention_pallas.py:693-718): partition, backward, reverse dx, and with
+    the residual add the incoming gradient in x's dtype."""
+    _b, h, w, _c = x4.shape
+    dxw, *rest = window_attention_bwd_reference(
+        window_partition(x4, ws), window_partition(g4, ws), ln_scale, ln_bias,
+        wq, bq, wkv, bkv, wproj, bias, mask, heads=heads)
+    dx = window_reverse(dxw, ws, h, w)
+    if residual:
+        dx = dx + g4.to(dx.dtype)
+    return (dx, *rest)
+
+
 def _unsupported(why: str, x4: torch.Tensor, heads: int, ws: int):
     raise ValueError(
         f"fused_window_attention_2d kernel does not take x {tuple(x4.shape)} "
         f"{x4.dtype}, heads={heads}, window={ws}: {why}")
 
 
-def fused_window_attention_2d(x4: torch.Tensor, ln_scale, ln_bias, wq, bq,
-                              wkv, bkv, wproj, bproj, bias, mask, *,
-                              heads: int, window_size: int,
-                              residual: bool = False,
-                              plain: bool = False) -> torch.Tensor:
-    """Fused norm1 + window attention on the post-roll map `[B, H, W, C]`,
-    computed in x4's dtype (the model's compute dtype).
-
-    Returns the attention branch in image layout, or `x4 + branch` with
-    `residual=True` (valid for shifted layers too: the roll is a
-    permutation). Weights are torch Linear layouts: wq [C, C], wkv [2C, C],
-    wproj [C, C]. `plain=True` forces the plain version on any device; the
-    kernel-vs-plain comparisons use it.
-    """
-    ws = window_size
-    if plain or x4.device.type == "cpu":
-        return _plain_2d(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
-                         bproj, bias, mask, heads, ws, residual)
+def _check_kernel_shape(x4, heads, ws, mask):
+    """Raise for what neither K1 nor K3 takes (device, dtype, layout)."""
     if x4.device.type != "cuda":
         _unsupported(f"no kernel for device {x4.device}", x4, heads, ws)
-    b, h, w, c = x4.shape
+    _b, h, w, c = x4.shape
     if x4.dtype not in (torch.float32, torch.bfloat16):
         _unsupported("dtype must be float32 or bfloat16", x4, heads, ws)
     if not x4.is_contiguous():
@@ -132,6 +214,31 @@ def fused_window_attention_2d(x4: torch.Tensor, ln_scale, ln_bias, wq, bq,
     if h % ws or w % ws or c % heads:
         _unsupported("H and W must divide by the window and C by heads",
                       x4, heads, ws)
+    n = ws * ws
+    if mask is not None and tuple(mask.shape) != ((h // ws) * (w // ws), n, n):
+        _unsupported(f"mask shape {tuple(mask.shape)}", x4, heads, ws)
+
+
+def _kernel_args(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj, bias,
+                 mask):
+    """Parameters as the kernels take them: f32 vectors and bias/mask,
+    compute-dtype weights, all contiguous on x4's device."""
+    def f32(t):
+        return t.to(device=x4.device, dtype=torch.float32).contiguous()
+
+    def wt(t):
+        return t.to(device=x4.device, dtype=x4.dtype).contiguous()
+
+    return [f32(ln_scale), f32(ln_bias), wt(wq), f32(bq), wt(wkv), f32(bkv),
+            wt(wproj), None if bproj is None else f32(bproj), f32(bias),
+            None if mask is None else f32(mask)]
+
+
+def _kernel_forward(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
+                    bias, mask, heads, ws, residual):
+    """Launch K1."""
+    _check_kernel_shape(x4, heads, ws, mask)
+    b, h, w, c = x4.shape
     lib = _build.library()
     n = ws * ws
     bf16 = int(x4.dtype == torch.bfloat16)
@@ -143,18 +250,8 @@ def fused_window_attention_2d(x4: torch.Tensor, ln_scale, ln_bias, wq, bq,
     if smem > _SMEM_LIMIT:
         _unsupported(f"needs {smem} B of shared memory per block "
                      f"(limit {_SMEM_LIMIT})", x4, heads, ws)
-    if mask is not None and tuple(mask.shape) != ((h // ws) * (w // ws), n, n):
-        _unsupported(f"mask shape {tuple(mask.shape)}", x4, heads, ws)
-
-    def f32(t):
-        return t.to(device=x4.device, dtype=torch.float32).contiguous()
-
-    def wt(t):
-        return t.to(device=x4.device, dtype=x4.dtype).contiguous()
-
-    args = [f32(ln_scale), f32(ln_bias), wt(wq), f32(bq), wt(wkv), f32(bkv),
-            wt(wproj), f32(bproj), f32(bias),
-            None if mask is None else f32(mask)]
+    args = _kernel_args(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
+                        bias, mask)
     out = torch.empty_like(x4)
     err = lib.fbanet_window_attention(
         x4.data_ptr(), out.data_ptr(),
@@ -164,6 +261,111 @@ def fused_window_attention_2d(x4: torch.Tensor, ln_scale, ln_bias, wq, bq,
     _build.check(err, "fused_window_attention_2d")
     fused_window_attention_2d.launches += 1
     return out
+
+
+def window_attention_bwd(x4, g4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
+                         bias, mask, *, heads: int, window_size: int,
+                         residual: bool = False):
+    """K3 on CUDA tensors: the backward of `fused_window_attention_2d` for
+    the incoming gradient g4 [B, H, W, C] (x4's dtype). Returns what
+    `_plain_bwd_2d` returns. The kernel writes dx, per-token scratch and
+    per-window partial sums; `ops.reduce` sums those in a fixed order."""
+    ws = window_size
+    _check_kernel_shape(x4, heads, ws, mask)
+    b, h, w, c = x4.shape
+    n = ws * ws
+    lib = _build.library()
+    bf16 = int(x4.dtype == torch.bfloat16)
+    if lib.fbanet_window_attention_bwd_group(n, c, heads, bf16) == 0:
+        _unsupported("the backward kernel takes no head group of this shape "
+                     "(bfloat16 needs tokens, C and the head size in "
+                     "multiples of 16, and a group must fit shared memory)",
+                     x4, heads, ws)
+    g4 = g4.to(x4.dtype).contiguous()
+    ln_s, ln_b, wq_, bq_, wkv_, bkv_, wproj_, _, bias_, mask_ = _kernel_args(
+        x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, None, bias, mask)
+    windows = b * (h // ws) * (w // ws)
+    dx = torch.empty_like(x4)
+    ys, os_, dqs = (torch.empty_like(x4) for _ in range(3))
+    dkvs = torch.empty(b, h, w, 2 * c, device=x4.device, dtype=x4.dtype)
+    part = torch.empty(windows, 6 * c + heads * n * n, device=x4.device,
+                       dtype=torch.float32)
+    err = lib.fbanet_window_attention_bwd(
+        x4.data_ptr(), g4.data_ptr(), dx.data_ptr(), ys.data_ptr(),
+        os_.data_ptr(), dqs.data_ptr(), dkvs.data_ptr(), part.data_ptr(),
+        ln_s.data_ptr(), ln_b.data_ptr(), wq_.data_ptr(), bq_.data_ptr(),
+        wkv_.data_ptr(), bkv_.data_ptr(), wproj_.data_ptr(), bias_.data_ptr(),
+        None if mask_ is None else mask_.data_ptr(),
+        b, h, w, c, heads, ws, int(residual), bf16,
+        torch.cuda.current_stream(x4.device).cuda_stream)
+    _build.check(err, "window_attention_bwd")
+    window_attention_bwd.launches += 1
+    t = b * h * w
+    sums = column_sum(part)
+    dwq = token_matmul(dqs.view(t, c), ys.view(t, c))
+    dwkv = token_matmul(dkvs.view(t, 2 * c), ys.view(t, c))
+    dwproj = token_matmul(g4.view(t, c), os_.view(t, c))
+    dlns, dlnb, dbq, dbkv, dbproj, dbias = torch.split(
+        sums, [c, c, c, 2 * c, c, heads * n * n])
+    return (dx, dlns, dlnb, dwq, dbq, dwkv, dbkv, dwproj, dbproj,
+            dbias.reshape(heads, n, n))
+
+
+window_attention_bwd.launches = 0
+
+
+class _FusedAttention(torch.autograd.Function):
+    """K1 forward, K3 backward (or both plain versions)."""
+
+    @staticmethod
+    def forward(ctx, x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
+                bias, mask, heads, ws, residual, plain):
+        ctx.save_for_backward(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
+                              bproj, bias, mask)
+        ctx.cfg = (heads, ws, residual, plain)
+        if plain or x4.device.type == "cpu":
+            return _plain_2d(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
+                             bproj, bias, mask, heads, ws, residual)
+        return _kernel_forward(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
+                               bproj, bias, mask, heads, ws, residual)
+
+    @staticmethod
+    def backward(ctx, g4):
+        x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj, bias, mask = \
+            ctx.saved_tensors
+        heads, ws, residual, plain = ctx.cfg
+        if plain or x4.device.type == "cpu":
+            grads = _plain_bwd_2d(x4, g4.to(x4.dtype), ln_scale, ln_bias, wq,
+                                  bq, wkv, bkv, wproj, bias, mask, heads, ws,
+                                  residual)
+        else:
+            grads = window_attention_bwd(
+                x4, g4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bias,
+                mask, heads=heads, window_size=ws, residual=residual)
+        dx, *dparams = grads
+        params = (ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj, bias)
+        return (dx, *(d.to(p.dtype) for d, p in zip(dparams, params)),
+                None, None, None, None, None)
+
+
+def fused_window_attention_2d(x4: torch.Tensor, ln_scale, ln_bias, wq, bq,
+                              wkv, bkv, wproj, bproj, bias, mask, *,
+                              heads: int, window_size: int,
+                              residual: bool = False,
+                              plain: bool = False) -> torch.Tensor:
+    """Fused norm1 + window attention on the post-roll map `[B, H, W, C]`,
+    computed in x4's dtype (the model's compute dtype), differentiable
+    (backward: K3 on the card, the plain backward on the CPU).
+
+    Returns the attention branch in image layout, or `x4 + branch` with
+    `residual=True` (valid for shifted layers too: the roll is a
+    permutation). Weights are torch Linear layouts: wq [C, C], wkv [2C, C],
+    wproj [C, C]. `plain=True` forces the plain versions on any device; the
+    kernel-vs-plain comparisons use it.
+    """
+    return _FusedAttention.apply(x4, ln_scale, ln_bias, wq, bq, wkv, bkv,
+                                 wproj, bproj, bias, mask, heads, window_size,
+                                 residual, plain)
 
 
 fused_window_attention_2d.launches = 0

@@ -25,6 +25,6 @@ def affinity_gate(x: torch.Tensor, wsum: torch.Tensor,
     xn = xd.reshape(b * f, h, w, c).permute(0, 3, 1, 2)  # channels_last NCHW view
     z = F.conv2d(xn, wsum.to(compute_dtype)[:, None], padding=1, groups=c)
     s = z.sum(dim=1, dtype=torch.float32).reshape(b, f, h, w)
-    gate = torch.sigmoid((s - s[:, :1]).abs()).to(compute_dtype)
-    gate[:, 0] = 1
+    gate = torch.sigmoid((s[:, 1:] - s[:, :1]).abs()).to(compute_dtype)
+    gate = torch.cat([torch.ones_like(gate[:, :1]), gate], 1)  # frame 0: 1
     return xd * gate[..., None]

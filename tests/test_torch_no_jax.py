@@ -1,10 +1,11 @@
 """The port runs where JAX is not installed (GPU hosts need not have it).
 
 1. Static: no module of fbanet_tpu_torch/ (nor chip_smoke.py) imports jax,
-   flax, optax or jaxtyping, and from the JAX package only the
-   pure-dataclass `fbanet_tpu.config`.
-2. Dynamic: a subprocess whose import system refuses those packages runs a
-   tiny CPU forward, registration and evaluation step of the port.
+   flax, optax, jaxtyping or any module of the JAX package `fbanet_tpu`
+   (the port keeps its own configuration, `fbanet_tpu_torch.config`).
+2. Dynamic: a subprocess whose import system refuses those packages and all
+   of `fbanet_tpu` runs a tiny CPU forward, registration, evaluation step
+   and training step of the port.
 """
 
 import ast
@@ -14,7 +15,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "jaxtyping")
-ALLOWED_FROM_JAX_PACKAGE = {"fbanet_tpu.config"}
+ALLOWED_FROM_JAX_PACKAGE: set[str] = set()
 
 
 def _imports(path: Path):
@@ -53,8 +54,7 @@ for name in list(sys.modules):
 class Refuse:
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
-        if top in BLOCKED or (top == "fbanet_tpu" and name not in
-                              ("fbanet_tpu", "fbanet_tpu.config")):
+        if top in BLOCKED or top == "fbanet_tpu":
             raise ImportError("blocked in this test: " + name)
         return None
 
@@ -75,6 +75,15 @@ aligned, mats, _ = align_burst(burst, eps=1e-5)
 pred, psnr, ssim, _ = eval_step(model, burst, torch.rand(1, 64, 64, 3),
                                 boundary_ignore=8)
 assert pred.shape == (1, 64, 64, 3) and torch.isfinite(psnr).all()
+
+from fbanet_tpu_torch.config import TrainConfig
+from fbanet_tpu_torch.train import make_optimizer, make_train_step
+tcfg = TrainConfig(lr_initial=1e-3)
+step = make_train_step(model, make_optimizer(model.parameters(), tcfg), tcfg)
+before = model.head.weight.detach().clone()
+loss = step(burst, torch.rand(1, 64, 64, 3), torch.Generator().manual_seed(0),
+            1e-3)
+assert torch.isfinite(loss) and not torch.equal(before, model.head.weight)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED
                 or m.startswith("fbanet_tpu."))
 print("LOADED", loaded)
@@ -86,4 +95,4 @@ def test_port_runs_with_jax_blocked():
         [sys.executable, "-c", _SCRIPT.format(blocked=set(BLOCKED))],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "LOADED ['fbanet_tpu.config']" in proc.stdout, proc.stdout
+    assert "LOADED []" in proc.stdout, proc.stdout
