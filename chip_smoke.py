@@ -20,14 +20,27 @@ non-zero:
    every gradient within its limit, and bitwise equal over two runs.
 5. reduce: the two reduction kernels against their plain versions, timed
    beside one library call each.
-6. slice: FBANet-64, 14 frames, 160 px, bf16 compute, every parameter drawn
+6. registration: K5 (homography warp) and K6 (dense-coords warp) against
+   their plain versions on the published burst, B=8 x 13 non-reference
+   frames of 160 x 160 x 3 f32, nearest and constant mode (K6 at the three
+   ECC pyramid sizes), timed beside one grid_sample call each. Then
+   `align_burst(motion="homography")` at B=8, 3 levels x 25 iterations, on
+   bursts made at known homographies: frame 0 bit-identical, corners
+   within 0.35 px of the truth and 2e-3 px of the plain path, 1 launch of
+   K5 and 75 of K6. Then the alignment CLI's card path, `align_stream`,
+   over 4 of those bursts held in memory (no PNG work): each handed back
+   in order and overlapped, equal to `align_burst` on it alone, 1 K5 and
+   75 K6 launches per burst, ms per burst overlapped and serial. Then
+   align ms at B=8 for euclidean, affine and homography (plain path too),
+   and a torch.profiler table of one homography align.
+7. slice: FBANet-64, 14 frames, 160 px, bf16 compute, every parameter drawn
    from a seed, serves 3 batches of 4 bursts through `eval_step` (ECC
    registration + forward + clamp + PSNR/SSIM). Checks finite [0, 1]
    outputs of shape [4, 640, 640, 3], K1 and K2 launch counts of exactly 20
    per forward, and agreement with the same slice on the plain versions.
    Then times align and forward at B=8 and prints a torch.profiler table
    of one such step by device time.
-7. train: the same model with drop_path 0.1 takes 5 AdamW steps at B=8
+8. train: the same model with drop_path 0.1 takes 5 AdamW steps at B=8
    through `train.make_train_step` (Charbonnier + 3 GW loss). Checks finite
    losses, that every parameter moved, 20 launches per step of each of
    K1-K4, and every f32 parameter gradient of one B=2 step against the
@@ -35,10 +48,11 @@ non-zero:
    prints a torch.profiler table of one step.
 
 Each kernel wrapper counts its launches; the counts are set to 0 just
-before the serving and the training runs and read just after. The line
-before the last is a JSON object {"kernels": [...]} (launches on those
-runs; error, times and bound from phases 3-5), preceded by the nvidia-smi
-name/power-limit line; the last line is {"ok": true, "device": {...}}.
+before the registration, the CLI stream, the serving and the training runs
+and read just after. The line before the last is a JSON object {"kernels": [...]}
+(launches on those runs; error, times and bound from phases 3-6), preceded
+by the nvidia-smi name/power-limit line; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -172,6 +186,63 @@ def make_realistic_bursts(batch, frames, size, seed=0, hr_scale=0):
                 "k,kij->ij", amp, np.sin(arg + phase[:, c, None, None]))
     hr = np.clip(0.5 + 0.45 * hr / norm, 0.0, 1.0, dtype=np.float32)
     return lr, hr
+
+
+def make_homography_bursts(batch, frames, size, seed=0, shift=3.0,
+                           degrees=0.5, perspective=1e-5):
+    """[B, F, S, S, 3] bursts in [0, 1] whose frame f shows the scene of
+    frame 0 through a known homography T_f (T_0 = I): pixel (x, y) of frame
+    f is make_realistic_bursts' sinusoid field evaluated at T_f (x, y, 1),
+    then sensor noise, so no resampling blurs the truth. T_f rotates by up
+    to `degrees` about the centre, shifts by up to `shift` px and has
+    perspective terms of up to `perspective`. Returns (bursts, T [B, F, 3, 3]); the matrix that aligns
+    frame f to frame 0 is inv(T_f)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(size, dtype=np.float64),
+                         np.arange(size, dtype=np.float64), indexing="ij")
+    pts = np.stack([xx.ravel(), yy.ravel(), np.ones(size * size)])
+    c = (size - 1) / 2.0
+    k = 16
+    out = np.empty((batch, frames, size, size, 3), np.float32)
+    truth = np.tile(np.eye(3), (batch, frames, 1, 1))
+    for b in range(batch):
+        freq = rng.uniform(-0.35, 0.35, size=(k, 2))
+        phase = rng.uniform(0, 2 * np.pi, size=(k, 3))
+        amp = rng.uniform(0.3, 1.0, size=(k,)) * (2.0 / k)
+        for f in range(1, frames):
+            th = np.deg2rad(rng.uniform(-degrees, degrees))
+            tx, ty = rng.uniform(-shift, shift, size=2)
+            co, si = np.cos(th), np.sin(th)
+            truth[b, f] = [[co, -si, c - co * c + si * c + tx],
+                           [si, co, c - si * c - co * c + ty],
+                           [*rng.uniform(-perspective, perspective, size=2),
+                            1.0]]
+        for f in range(frames):
+            q = truth[b, f] @ pts
+            qx, qy = (q[0] / q[2]).reshape(size, size), (q[1] / q[2]).reshape(
+                size, size)
+            arg = freq[:, 0, None, None] * qy[None] + freq[:, 1, None, None] * qx[None]
+            for ch in range(3):
+                out[b, f, :, :, ch] = np.einsum(
+                    "k,kij->ij", amp, np.sin(arg + phase[:, ch, None, None]))
+    out = 0.5 + 0.45 * out / max(1.0, np.abs(out).max())
+    out += rng.normal(scale=0.01, size=out.shape).astype(np.float32)
+    return np.clip(out, 0.0, 1.0, dtype=np.float32), truth.astype(np.float32)
+
+
+def corner_error(mats, truth, size) -> float:
+    """Max px distance between where `mats` and inv(`truth`) [..., 3, 3]
+    send the four corners of a size x size frame."""
+    import numpy as np
+
+    pts = np.array([[0, 0, 1], [size - 1, 0, 1], [0, size - 1, 1],
+                    [size - 1, size - 1, 1]], np.float64).T
+    ours = np.asarray(mats, np.float64) @ pts
+    ref = np.linalg.inv(np.asarray(truth, np.float64)) @ pts
+    return float(np.abs(ours[..., :2, :] / ours[..., 2:, :]
+                        - ref[..., :2, :] / ref[..., 2:, :]).max())
 
 
 def time_ms(fn, iters: int = 10, repeats: int = 3) -> float:
@@ -467,6 +538,302 @@ def phase_reduce() -> dict:
     return res
 
 
+# the registration slice: K5/K6 against their plain versions at the
+# published burst (B=8 x 13 non-reference frames of 160 x 160 x 3), K6 at
+# the three ECC pyramid sizes; the whole homography align_burst against
+# the known truth (corner error <= 0.35 px, tests/test_registration.py's
+# limit) and against the plain path (<= 2e-3 px at the corners and on the
+# aligned pixels: the same f32 math with sums in another order, carried
+# through 75 ECC iterations).
+REG_B, REG_F, REG_SIZE, REG_LEVELS, REG_ITERS = 8, 14, 160, 3, 25
+REG_TRUTH_PX, REG_PLAIN_PX = 0.35, 2e-3
+
+
+def warp_matrices(count, size, seed):
+    """[count, 3, 3] near-identity inverse-map homographies: shifts of up to
+    4 px, rotations of up to 1 degree about the centre, perspective terms of
+    ~1e-5; across the frames some positions fall outside every side."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    th = np.deg2rad(r.uniform(-1.0, 1.0, count))
+    t = r.uniform(-4.0, 4.0, (count, 2))
+    c = (size - 1) / 2.0
+    m = np.zeros((count, 3, 3))
+    m[:, 0, 0] = m[:, 1, 1] = np.cos(th)
+    m[:, 0, 1], m[:, 1, 0] = -np.sin(th), np.sin(th)
+    m[:, 0, 2] = c - np.cos(th) * c + np.sin(th) * c + t[:, 0]
+    m[:, 1, 2] = c - np.sin(th) * c - np.cos(th) * c + t[:, 1]
+    m[:, 2, :2] = r.uniform(-1e-5, 1e-5, (count, 2))
+    m[:, 2, 2] = 1.0
+    return m.astype(np.float32)
+
+
+def _grid(cy, cx, h, w):
+    """grid_sample's [-1, 1] (x, y) grid of pixel positions, corners
+    aligned."""
+    import torch
+
+    return torch.stack([2 * cx / (w - 1) - 1, 2 * cy / (h - 1) - 1], -1)
+
+
+def phase_registration(card: str) -> tuple[dict, dict]:
+    """K5 and K6 against their plain versions, then the non-translation
+    align_burst at the published width. Returns (per-kernel results, the
+    launch counts of the homography align_burst on the kernel path)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as tf
+
+    from fbanet_tpu_torch.metrics import psnr
+    from fbanet_tpu_torch.ops import warp_kernels as wk
+    from fbanet_tpu_torch.ops.registration import _scale_matrix, align_burst
+    from fbanet_tpu_torch.ops.warp import homography_coords
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("ECC's normal equations need full f32 matrix "
+                             "products; allow_tf32 is on")
+    frames = torch.from_numpy(make_realistic_bursts(
+        REG_B, REG_F, REG_SIZE, seed=50)[:, 1:].reshape(
+            -1, REG_SIZE, REG_SIZE, 3).copy()).cuda()
+    n = frames.shape[0]
+    mats = torch.from_numpy(warp_matrices(n, REG_SIZE, seed=51)).cuda()
+    res = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
+           for k in ("K5", "K6")}
+    bounds = {"K5": Bound(), "K6": Bound()}
+    failures = []
+
+    def compare(name, line, fn):
+        got, ref = fn(False), fn(True)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+        line += f": max_abs_err={err:.3e} rel={rel:.3e}"
+        if not (rel <= TOL["float32"]) or not torch.isfinite(got).all():
+            failures.append(line)
+        return line
+
+    def timed(name, line, fn, lib, work):
+        """Times of the kernel, its plain version and the library call
+        (grid_sample computes nearest mode's function, channels-first)."""
+        ms, pms, lms = time_ms(lambda: fn(False)), time_ms(lambda: fn(True)), \
+            time_ms(lib)
+        res[name]["ms"] += ms
+        res[name]["plain_ms"] += pms
+        res[name]["library_ms"] += lms
+        bounds[name].add(0, *work)
+        lib_err = float((lib().permute(0, 2, 3, 1) - fn(True)).abs().max())
+        return (line + f" kernel_ms={ms:.4f} plain_ms={pms:.4f} "
+                f"grid_sample_ms={lms:.4f} (grid_sample vs plain "
+                f"{lib_err:.2e})")
+
+    h = w = REG_SIZE
+    for mode in ("nearest", "constant"):
+        def k5(plain, mode=mode):
+            return wk.warp_burst_bilinear(frames, mats, mode=mode, cval=0.5,
+                                          plain=plain)
+        line = compare("K5", f"K5 warp_burst_bilinear {n}x{h}x{w}x3 {mode}",
+                       k5)
+        if mode == "nearest":
+            co = homography_coords(mats, h, w)
+            inp = frames.permute(0, 3, 1, 2).contiguous()
+            grid = _grid(co[..., 0], co[..., 1], h, w)
+
+            def lib5():
+                return tf.grid_sample(inp, grid, mode="bilinear",
+                                      padding_mode="border",
+                                      align_corners=True)
+            # per pixel: positions 12 + divide 2, blend 6 per channel
+            line = timed("K5", line, k5, lib5,
+                         (n * h * w * (14 + 6 * 3),
+                          2 * frames.numel() * 4 + mats.numel() * 4))
+        log(line)
+    # K6 at the three pyramid sizes, on positions of the same homographies
+    for lvl in range(REG_LEVELS):
+        s = REG_SIZE >> lvl
+        fr = frames[:, ::1 << lvl, ::1 << lvl].contiguous()
+        coords = homography_coords(_scale_matrix(mats, 0.5 ** lvl), s, s)
+        for mode in ("nearest", "constant"):
+            def k6(plain, mode=mode, fr=fr, coords=coords):
+                return wk.warp_burst_coords(fr, coords, mode=mode, cval=0.5,
+                                            plain=plain)
+            line = compare("K6", f"K6 warp_burst_coords {n}x{s}x{s}x3 {mode}",
+                           k6)
+            if mode == "nearest":
+                inp = fr.permute(0, 3, 1, 2).contiguous()
+                grid = _grid(coords[..., 0], coords[..., 1], s, s)
+
+                def lib6(inp=inp, grid=grid):
+                    return tf.grid_sample(inp, grid, mode="bilinear",
+                                          padding_mode="border",
+                                          align_corners=True)
+                line = timed("K6", line, k6, lib6,
+                             (n * s * s * 6 * 3,
+                              (2 * fr.numel() + coords.numel()) * 4))
+            log(line)
+    if failures:
+        raise AssertionError("warp kernel disagrees with its plain "
+                             "version:\n" + "\n".join(failures))
+    for k in res:
+        res[k].update(bounds[k].fields())
+    del frames, mats
+
+    # the slice: homography align_burst on bursts with known homographies
+    bursts, truth = make_homography_bursts(REG_B, REG_F, REG_SIZE, seed=40)
+    x = torch.from_numpy(bursts).cuda()
+    kw = dict(levels=REG_LEVELS, iters_per_level=REG_ITERS, eps=0.0)
+    torch.cuda.synchronize()
+    wk.warp_burst_bilinear.launches = wk.warp_burst_coords.launches = 0
+    aligned, m, rhos = align_burst(x, motion="homography", **kw)
+    torch.cuda.synchronize()
+    launches = {"K5": wk.warp_burst_bilinear.launches,
+                "K6": wk.warp_burst_coords.launches}
+    aligned_p, m_p, _ = align_burst(x, motion="homography", plain=True, **kw)
+    torch.cuda.synchronize()
+    m, m_p = m.cpu().numpy(), m_p.cpu().numpy()
+    truth_px = corner_error(m[:, 1:], truth[:, 1:], REG_SIZE)
+    plain_px = corner_error(m, np.linalg.inv(m_p), REG_SIZE)
+    pix = float((aligned - aligned_p).abs().max())
+    crop = slice(16, -16)
+    before = float(psnr(x[:, 1:, crop, crop], x[:, :1, crop, crop]).mean())
+    after = float(psnr(aligned[:, 1:, crop, crop], x[:, :1, crop, crop]).mean())
+    log(f"registration: homography align_burst B={REG_B} F={REG_F} "
+        f"{REG_SIZE}px, {REG_LEVELS}x{REG_ITERS} iterations: launches "
+        f"{launches}; corners vs truth {truth_px:.4f} px (limit "
+        f"{REG_TRUTH_PX}), kernel vs plain {plain_px:.3e} px and "
+        f"{pix:.3e} on the pixels (limit {REG_PLAIN_PX}); min rho "
+        f"{float(rhos.min()):.5f}; interior PSNR to frame 0 {before:.2f} -> "
+        f"{after:.2f} dB")
+    if launches != {"K5": 1, "K6": REG_LEVELS * REG_ITERS}:
+        raise AssertionError(f"registration launches {launches}, expected "
+                             f"K5 1 and K6 {REG_LEVELS * REG_ITERS}")
+    if not torch.equal(aligned[:, 0], x[:, 0]):
+        raise AssertionError("frame 0 is not bit-identical")
+    if not (truth_px <= REG_TRUTH_PX and plain_px <= REG_PLAIN_PX
+            and pix <= REG_PLAIN_PX and after > before):
+        raise AssertionError("homography registration is off its truth or "
+                             "its plain path, or did not align")
+
+    stream_launches = phase_align_stream(card, bursts, truth, kw)
+    launches = {k: launches[k] + stream_launches[k] for k in launches}
+
+    def align_ms(motion, plain=False):
+        def run():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            align_burst(x, motion=motion, plain=plain, **kw)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+        run()
+        return statistics.median(run() for _ in range(3))
+
+    times = {mo: align_ms(mo) for mo in ("euclidean", "affine", "homography")}
+    times["homography plain"] = align_ms("homography", plain=True)
+    log(f"registration B={REG_B} on {card}: align ms "
+        f"{ {k: round(v, 3) for k, v in times.items()} }")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        align_burst(x, motion="homography", **kw)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    log(events.table(sort_by="cuda_time_total", row_limit=15,
+                     max_name_column_width=60))
+    total, ours = _device_ms(events)
+    log(f"registration homography B={REG_B} profile: device {total:.3f} ms "
+        f"of {times['homography']:.3f} ms, port kernels (ms) "
+        f"{ {k: round(v, 3) for k, v in ours.items()} }")
+    # the ECC products by operand shape: one row per pyramid level and
+    # product (g^T g, and the g^T-vector products)
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key == "aten::bmm":
+            us = getattr(e, "device_time_total",
+                         getattr(e, "cuda_time_total", 0.0))
+            log(f"registration profile aten::bmm {e.input_shapes}: "
+                f"{e.count} calls, device {us / 1e3:.3f} ms")
+    return res, launches
+
+
+# the CLI's card path: align_stream over CLI_BURSTS in-memory bursts (no
+# PNG work), with a fixed host wait of CLI_HOST_MS as each burst is drawn,
+# standing in for its decode (a stand-in, not a measured decode time)
+CLI_BURSTS, CLI_HOST_MS = 4, 20.0
+
+
+def phase_align_stream(card: str, bursts, truth, kw) -> dict:
+    """Drive `align.align_stream` (what `python -m fbanet_tpu_torch.align`
+    runs per burst directory) on the card: each burst handed back in order,
+    equal within REG_PLAIN_PX to `align_burst` on it alone and within
+    REG_TRUTH_PX of the truth, through K5 once and K6 75 times per burst;
+    then times overlapped against serial. Returns the launch counts of the
+    overlapped run."""
+    import numpy as np
+    import torch
+
+    from fbanet_tpu_torch.align import align_stream
+    from fbanet_tpu_torch.ops import warp_kernels as wk
+    from fbanet_tpu_torch.ops.registration import align_burst
+
+    if not torch.ones(2, device="cuda").to("cpu", non_blocking=True).is_pinned():
+        raise AssertionError("a non-blocking copy from the card did not land "
+                             "in pinned memory")
+    kw = dict(kw, motion="homography")
+    got, order = {}, []
+
+    def draw():
+        for i in range(CLI_BURSTS):
+            time.sleep(CLI_HOST_MS / 1e3)
+            order.append(("draw", i))
+            yield i, bursts[i]
+
+    def on_aligned(key, frames, aligned, rhos, seconds):
+        order.append(("back", key))
+        got[key] = aligned
+
+    torch.cuda.synchronize()
+    wk.warp_burst_bilinear.launches = wk.warp_burst_coords.launches = 0
+    n = align_stream(draw(), on_aligned, **kw)
+    torch.cuda.synchronize()
+    launches = {"K5": wk.warp_burst_bilinear.launches,
+                "K6": wk.warp_burst_coords.launches}
+    alone = [align_burst(torch.from_numpy(bursts[i]).cuda(), **kw)
+             for i in range(CLI_BURSTS)]
+    err = max(float(np.abs(got[i] - a[0].cpu().numpy()).max())
+              for i, a in enumerate(alone))
+    mats = np.stack([a[1].cpu().numpy() for a in alone])
+    truth_px = corner_error(mats[:, 1:], truth[:CLI_BURSTS, 1:], REG_SIZE)
+    expect = [("back", i) for i in range(CLI_BURSTS)]
+    backs = [e for e in order if e[0] == "back"]
+    overlapped = all(order.index(("back", i)) > order.index(("draw", i + 1))
+                     for i in range(CLI_BURSTS - 1))
+
+    def run(overlap):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        align_stream(draw(), lambda *a: None, overlap=overlap, **kw)
+        return (time.perf_counter() - t0) * 1e3 / CLI_BURSTS
+
+    run(True)
+    ms = {name: statistics.median(run(ov) for _ in range(3))
+          for name, ov in (("overlapped", True), ("serial", False))}
+    log(f"align_stream: {n} homography bursts of {REG_F} x {REG_SIZE}px "
+        f"on {card}: launches {launches}; vs align_burst alone {err:.3e} "
+        f"(limit {REG_PLAIN_PX}); corners vs truth {truth_px:.4f} px; "
+        f"handed back in order {backs == expect}, burst N after N+1 was "
+        f"drawn {overlapped}; ms per burst with a {CLI_HOST_MS} ms host "
+        f"stand-in { {k: round(v, 3) for k, v in ms.items()} }")
+    per = REG_LEVELS * REG_ITERS
+    if launches != {"K5": CLI_BURSTS, "K6": CLI_BURSTS * per}:
+        raise AssertionError(f"align_stream launches {launches}, expected K5 "
+                             f"{CLI_BURSTS} and K6 {CLI_BURSTS * per}")
+    if not (n == CLI_BURSTS and backs == expect and overlapped
+            and err <= REG_PLAIN_PX and truth_px <= REG_TRUTH_PX):
+        raise AssertionError("align_stream lost a burst, its order or its "
+                             "overlap, or disagrees with align_burst")
+    return launches
+
+
 def phase_slice(card: str) -> dict:
     """The serving path at the published width; ends with a torch.profiler
     table of one B=8 align + forward step by device time. Returns the launch
@@ -579,12 +946,14 @@ def phase_slice(card: str) -> dict:
 
 def _counters():
     """name -> the wrapper whose `.launches` counts that kernel."""
-    from fbanet_tpu_torch.ops import attention, leff, reduce
+    from fbanet_tpu_torch.ops import attention, leff, reduce, warp_kernels
 
     return {"K1": attention.fused_window_attention_2d,
             "K2": leff.fused_leff, "K3": attention.window_attention_bwd,
             "K4": leff.leff_bwd, "R1": reduce.token_matmul,
-            "R2": reduce.column_sum}
+            "R2": reduce.column_sum,
+            "K5": warp_kernels.warp_burst_bilinear,
+            "K6": warp_kernels.warp_burst_coords}
 
 
 def _device_ms(events) -> tuple[float, dict]:
@@ -598,7 +967,8 @@ def _device_ms(events) -> tuple[float, dict]:
                      getattr(e, "self_cuda_time_total", 0.0))
         total += us
         for key in ("window_attention_bwd", "window_attention_bf16",
-                    "leff_bwd", "leff_bf16", "token_matmul", "column_sum"):
+                    "leff_bwd", "leff_bf16", "token_matmul", "column_sum",
+                    "warp_homography", "warp_coords"):
             if key in e.key:
                 ours[key] = ours.get(key, 0.0) + us / 1e3
     return total / 1e3, ours
@@ -624,7 +994,8 @@ def phase_train(card: str) -> dict:
     cfg = ModelConfig(num_frames=14, img_size=160, embed_dim=64,
                       window_size=8, dtype="bfloat16", drop_path_rate=0.1)
     tcfg = TrainConfig(batch_size=8, lr_initial=1e-4, optimizer="adamw")
-    state = random_state_dict(create_model(cfg, seed=0), seed=2)
+    state = random_state_dict(create_model(cfg, device="cpu", seed=0),
+                              seed=2)
     model = create_model(cfg, device="cuda", seed=0)
     model.load_state_dict(state, strict=True)
     layers = sum(cfg.depths[i] for i in (0, 1, 4, 5, 6)) * 2
@@ -746,10 +1117,14 @@ def main() -> None:
     kres = phase_kernels(MAIN_SHAPES)
     kres.update(phase_backward(MAIN_SHAPES))
     kres.update(phase_reduce())
+    reg, registered = phase_registration(card)
+    kres.update(reg)
     served = phase_slice(card)
     trained = phase_train(card)
-    # launches on the main paths: serving (K1, K2) plus training (all)
-    launches = {k: served.get(k, 0) + trained[k] for k in trained}
+    # launches on the main paths: registration (K5, K6), serving (K1, K2)
+    # and training (K1-K4, R1, R2)
+    launches = {k: registered.get(k, 0) + served.get(k, 0) + trained.get(k, 0)
+                for k in kres}
     table = (
         ("K1", "K1 fused window attention", "attention.cu",
          "fbanet_tpu/ops/attention_pallas.py:250"),
@@ -763,6 +1138,10 @@ def main() -> None:
          "fbanet_tpu/ops/attention_pallas.py:465 and leff_pallas.py:394"),
         ("R2", "K3/K4 partial sums (column_sum)", "reduce.cu",
          "fbanet_tpu/ops/attention_pallas.py:463 and leff_pallas.py:392"),
+        ("K5", "K5 homography bilinear warp", "warp.cu",
+         "fbanet_tpu/ops/warp_pallas.py:102"),
+        ("K6", "K6 dense-coords bilinear warp", "warp.cu",
+         "fbanet_tpu/ops/warp_pallas.py:128"),
     )
     kernels = [{"name": name, "route": "cuda",
                 "source": f"fbanet_tpu_torch/csrc/{src}", "replaces": where,

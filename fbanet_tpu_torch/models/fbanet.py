@@ -181,7 +181,14 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> None:
 
 def create_model(cfg: ModelConfig, device: torch.device | str | None = None,
                  seed: int = 0) -> FBANet:
-    """FBANet with seeded parameters, on `device` (default CPU), in eval mode."""
+    """FBANet with seeded parameters, in eval mode, on `device`: the card
+    unless the caller asks for another (`device="cpu"`). Raises when no CUDA
+    device is present and none was named."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("create_model: no CUDA device; pass "
+                               "device='cpu' to build the model on the CPU")
+        device = "cuda"
     model = FBANet(cfg)
     init_parameters(model, torch.Generator().manual_seed(seed))
-    return model.to(device or "cpu").eval()
+    return model.to(device).eval()

@@ -1,2 +1,4 @@
-"""The port's operators: the two CUDA kernels of the inference path
-(`attention`, `leff`), the FAF gate and translation ECC registration."""
+"""The port's operators: the attention and LeFF kernels with their
+backwards (`attention`, `leff`, `reduce`), the FAF gate, warping (`warp`,
+with the K5/K6 kernels in `warp_kernels`), ECC registration and optical
+flow."""

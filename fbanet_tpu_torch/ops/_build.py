@@ -9,9 +9,9 @@ rebuilds and an unchanged one loads in milliseconds. Nothing here runs at
 import: the CPU tests import every module on a machine without nvcc.
 
 Every C entry point takes device pointers and the CUDA stream as
-`c_void_p`, ints as `c_int`, launches on that stream without synchronising,
-and returns `cudaGetLastError()` as an int; `check` turns a non-zero return
-into an exception.
+`c_void_p`, ints as `c_int` and floats as `c_float`, launches on that stream
+without synchronising, and returns `cudaGetLastError()` as an int; `check`
+turns a non-zero return into an exception.
 """
 
 from __future__ import annotations
@@ -59,6 +59,10 @@ SIGNATURES = {
     # tokens per slice, bf16, stream; and p, out, R, M, stream
     "fbanet_token_matmul": [_P] * 3 + [_I] * 5 + [_P],
     "fbanet_column_sum": [_P] * 2 + [_I] * 2 + [_P],
+    # K5, K6: frames, matrices [F, 3, 3] or coords [F, H, W, 2], out,
+    # F, H, W, C, constant mode, cval, stream
+    "fbanet_warp_homography": [_P] * 3 + [_I] * 5 + [ctypes.c_float, _P],
+    "fbanet_warp_coords": [_P] * 3 + [_I] * 5 + [ctypes.c_float, _P],
 }
 
 

@@ -24,7 +24,7 @@ from fbanet_tpu_torch.utils.weights import random_state_dict
 
 
 def test_eval_step_matches_jax():
-    tmodel = create_model(TINY)
+    tmodel = create_model(TINY, device="cpu")
     sd = random_state_dict(tmodel, seed=21)
     tmodel.load_state_dict(sd, strict=True)
     lr = np.asarray(bench.make_realistic_bursts(2, 3, 32, seed=9))

@@ -28,7 +28,7 @@ from fbanet_tpu_torch.utils.weights import (
 def _jax_pair(cfg, batch: int):
     """(torch model, flax params, burst, JAX output, JAX HG2 features), both
     models holding the same random parameters."""
-    tmodel = create_model(cfg, seed=3)
+    tmodel = create_model(cfg, device="cpu", seed=3)
     sd = random_state_dict(tmodel, seed=11)
     tmodel.load_state_dict(sd, strict=True)
     size = cfg.img_size
@@ -88,7 +88,7 @@ def test_weights_converter_matches_flax_export(pair):
     assert sorted(ours) == sorted(theirs)
     for k, v in theirs.items():
         np.testing.assert_array_equal(ours[k].numpy(), v, err_msg=k)
-    fresh = create_model(TINY)
+    fresh = create_model(TINY, device="cpu")
     fresh.load_state_dict(ours, strict=True)  # no rename table
     for k, v in tmodel.state_dict().items():
         np.testing.assert_array_equal(fresh.state_dict()[k].numpy(), v.numpy())
@@ -99,7 +99,7 @@ def test_weights_converter_matches_flax_export(pair):
 def test_fresh_model_is_exactly_the_bilinear_base():
     """tail_conv starts at zero (fbanet.py:148-160), so an untouched model
     returns its bilinear base — which must equal jax.image.resize."""
-    model = create_model(TINY, seed=0)
+    model = create_model(TINY, device="cpu", seed=0)
     assert model.tail_conv.weight.abs().sum() == 0
     assert ARCHS["BaseModel"] is create_model and count_parameters(model) > 0
     burst = rng(2).uniform(0, 1, (1, 3, 32, 32, 3)).astype(np.float32)
@@ -129,3 +129,13 @@ def test_tail_x4_direct_matches_jax(composed):
                          t(bt), torch.float32)
     assert got.shape == (2, 40, 48, co)
     assert max_err(got, ref) <= 1e-4
+
+
+def test_create_model_defaults_to_the_card(monkeypatch):
+    """The model goes to the card unless the caller names another device;
+    with no CUDA device and none named, create_model says how to ask for
+    the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_model(TINY)
+    assert next(create_model(TINY, device="cpu").parameters()).is_cpu

@@ -4,8 +4,9 @@
    flax, optax, jaxtyping or any module of the JAX package `fbanet_tpu`
    (the port keeps its own configuration, `fbanet_tpu_torch.config`).
 2. Dynamic: a subprocess whose import system refuses those packages and all
-   of `fbanet_tpu` runs a tiny CPU forward, registration, evaluation step
-   and training step of the port.
+   of `fbanet_tpu` runs a tiny CPU forward, registration (translation and
+   homography ECC, optical flow), evaluation step and training step of the
+   port.
 """
 
 import ast
@@ -68,10 +69,15 @@ from fbanet_tpu_torch.utils.weights import random_state_dict
 
 cfg = ModelConfig(num_frames=2, img_size=16, embed_dim=8, window_size=4,
                   heads=(1, 2, 4, 8, 4, 4, 2, 2, 2), dtype="float32")
-model = create_model(cfg)
+model = create_model(cfg, device="cpu")
 model.load_state_dict(random_state_dict(model, 0))
 burst = torch.rand(1, 2, 16, 16, 3, generator=torch.Generator().manual_seed(0))
 aligned, mats, _ = align_burst(burst, eps=1e-5)
+aligned, mats, _ = align_burst(burst, motion="homography", levels=2,
+                               iters_per_level=5)
+assert torch.isfinite(mats).all() and torch.equal(aligned[:, 0], burst[:, 0])
+from fbanet_tpu_torch.ops.registration import online_register
+assert online_register(burst, "flow").shape == burst.shape
 pred, psnr, ssim, _ = eval_step(model, burst, torch.rand(1, 64, 64, 3),
                                 boundary_ignore=8)
 assert pred.shape == (1, 64, 64, 3) and torch.isfinite(psnr).all()

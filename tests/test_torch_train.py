@@ -170,7 +170,7 @@ def test_drop_path_schedule_matches_jax():
     """The per-layer rates: linspace over the encoder, constant in the
     bottleneck, reversed in the decoder (fbanet.py:69-72)."""
     cfg = dataclasses.replace(PORT_TINY, drop_path_rate=0.1)
-    model = create_model(cfg)
+    model = create_model(cfg, device="cpu")
     enc = list(np.linspace(0, 0.1, 8))
     rates = [getattr(getattr(model, f"HG1_{g}"), f"layer{i}").drop_path.rate
              for g in ("enc0", "enc1", "bottleneck", "dec0", "dec1")
@@ -184,7 +184,7 @@ def test_drop_path_schedule_matches_jax():
 def _setup(batch=2, seed=0):
     """Port model with random parameters, the flax tree holding them, a
     burst and an HR target."""
-    tmodel = create_model(PORT_TINY, seed=3)
+    tmodel = create_model(PORT_TINY, device="cpu", seed=3)
     sd = random_state_dict(tmodel, seed=21)
     tmodel.load_state_dict(sd, strict=True)
     r = rng(seed)
