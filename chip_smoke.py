@@ -46,12 +46,24 @@ non-zero:
    K1-K4, and every f32 parameter gradient of one B=2 step against the
    plain versions; times the B=8 step against the plain versions and
    prints a torch.profiler table of one step.
+9. measure: K1b (window attention on [G, N, C] windows) against its plain
+   version at the five shapes (B=2, f32 and bf16, masked and not) and
+   bitwise against K1 on the partitioned map; its backward (K3's windowed
+   entry) against the plain backward on every gradient plus a bitwise
+   repeat. K9, K10 and K11, every variant, against their plain versions on
+   the tools' B=8 inputs (bf16, 3e-2 of max(1, |out|)), each `full`
+   bitwise against the production K1 / K2 / K3 launch on the same inputs.
+   Then the slice's main path: both kernel-measurement tools at B=8
+   (`measure_swin_rates attn leff ablate`, `measure_bwd check groups
+   plainref leffabl merged ablate`, their tables printed) and K1b forward +
+   backward through autograd at the five shapes.
 
 Each kernel wrapper counts its launches; the counts are set to 0 just
-before the registration, the CLI stream, the serving and the training runs
-and read just after. The line before the last is a JSON object {"kernels": [...]}
-(launches on those runs; error, times and bound from phases 3-6), preceded
-by the nvidia-smi name/power-limit line; the last line is
+before the registration, the CLI stream, the serving, the training and the
+measurement runs and read just after. The line before the last is a JSON
+object {"kernels": [...]} (launches on those runs; error, times and bound
+from phases 3-6 and 9; K9-K11 also per variant), preceded by the
+nvidia-smi name/power-limit line; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -109,13 +121,13 @@ class Bound:
                 if self.ops_ms >= self.bytes_ms else "bytes"}
 
 
-def attention_work(h, c, heads, masked, backward=False):
+def attention_work(h, c, heads, masked, backward=False, batch=2):
     """(tensor-core flops, CUDA-core flops, bytes) of one K1 (or K3) call
     at B=2, bf16 activations, f32 parameters: each input read once, each
     output written once. Forward: Q, K, V, proj 8 T C^2, logits and AV
     4 T n C. Backward: recompute 6 T C^2 + 4 T n C, do 2 T C^2, dv, dp, dq,
     dk 8 T n C, dy 6 T C^2, dWq, dWkv, dWproj 8 T C^2."""
-    t, n = 2 * h * h, WS * WS
+    t, n = batch * h * h, WS * WS
     params = 4 * (4 * c * c + 6 * c + heads * n * n
                   + (h // WS) ** 2 * n * n * masked)
     if not backward:
@@ -125,11 +137,11 @@ def attention_work(h, c, heads, masked, backward=False):
         6 * t * c + params + 4 * (4 * c * c + 6 * c + heads * n * n)
 
 
-def leff_work(h, c, backward=False):
+def leff_work(h, c, backward=False, batch=2):
     """(tensor-core flops, CUDA-core flops, bytes) of one K2 (or K4) call at
     B=2: dense1 and dense2 4 T C Ch, depthwise 18 T Ch; the backward adds
     dh2, dy, dW1, dW2 (6 T C Ch) and dh1 and the tap gradients (36 T Ch)."""
-    t, ch = 2 * h * h, 4 * c
+    t, ch = batch * h * h, 4 * c
     params = 4 * (2 * c * ch + 11 * ch + 3 * c)
     if not backward:
         return 4 * t * c * ch, 18 * t * ch, 4 * t * c + params
@@ -944,16 +956,282 @@ def phase_slice(card: str) -> dict:
     return launches
 
 
+# the measurement slice: K1b at B=2 (as K1), the tools and their ablation
+# kernels at the scripts' B=8
+MEASURE_B = 8
+RATES_MODES = ["attn", "leff", "ablate"]
+BWD_MODES = ["check", "groups", "plainref", "leffabl", "merged", "ablate"]
+
+
+def ablation_work(kernel, variant, h, c, heads):
+    """(tensor-core flops, CUDA-core flops, bytes) of one K9 / K10 / K11
+    call at the tools' B=8: the unablated kernel's work (attention_work /
+    leff_work, mask-free) less what the variant no longer does. K9: nocore
+    drops the logits and AV products (4 T n C) and the softmax for 2 T C
+    adds; nosoftmax keeps one multiply per logit. K10: nodw drops the
+    depthwise taps (GELU is counted in neither). K11: norecompute drops the
+    q/k/v products (6 T C^2), nodx the dy product (6 T C^2), nowgrads the
+    weight-gradient products (8 T C^2) and the gradients' bytes, nocore the
+    core products (12 T n C) and its softmax work; nodsoftmax keeps one
+    multiply per logit of the softmax backward's five."""
+    t, n = MEASURE_B * h * h, WS * WS
+    if kernel == "K10":
+        tc, f32, nbytes = leff_work(h, c, batch=MEASURE_B)
+        return tc, 0 if variant == "nodw" else f32, nbytes
+    if kernel == "K9":
+        tc, f32, nbytes = attention_work(h, c, heads, False, batch=MEASURE_B)
+        if variant == "nocore":
+            return tc - 4 * t * n * c, 2 * t * c, nbytes
+        if variant == "nosoftmax":
+            return tc, t * n * heads, nbytes
+        return tc, f32, nbytes
+    tc, f32, nbytes = attention_work(h, c, heads, False, backward=True,
+                                     batch=MEASURE_B)
+    if variant in ("norecompute", "nodx"):
+        tc -= 6 * t * c * c
+    elif variant == "nowgrads":
+        tc -= 8 * t * c * c
+        nbytes -= 4 * (4 * c * c + 6 * c + heads * n * n)
+    elif variant == "nocore":
+        tc, f32 = tc - 12 * t * n * c, 0
+    elif variant == "nodsoftmax":
+        f32 = 6 * t * n * heads
+    return tc, f32, nbytes
+
+
+def phase_measure(card: str) -> tuple[dict, dict]:
+    """The measurement slice. K1b (`fused_window_attention`) against its
+    plain version and against K1 on the partitioned map (bitwise), and its
+    backward (K3's windowed entry) against the plain backward on every
+    gradient plus a bitwise repeat, at the five SwinGroup shapes, B=2, f32
+    and bf16, masked and not. K9, K10 and K11, every variant, against their
+    plain versions at the tools' B=8 inputs, bf16, and each `full` variant
+    bitwise against the production K1 / K2 / K3 launch on the same inputs.
+    Then the main path: both tools' modes at B=8 and K1b forward + backward
+    through autograd at the five shapes, with the counts set to 0 just
+    before and read just after. Returns (per-kernel results, launches)."""
+    import torch
+
+    from fbanet_tpu_torch.ops import attention
+    from fbanet_tpu_torch.ops.attention import (
+        fused_window_attention,
+        fused_window_attention_2d,
+        window_partition,
+    )
+    from fbanet_tpu_torch.ops.leff import fused_leff
+    from fbanet_tpu_torch.tools import measure_bwd as mb
+    from fbanet_tpu_torch.tools import measure_swin_rates as mr
+
+    failures = []
+    k1b = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, backward_ms=0.0,
+               backward_plain_ms=0.0)
+    k1b_bound = Bound()
+
+    def gradient_check(line, got, again, ref, dname):
+        errs = _grad_errors(got, ref)
+        abs_err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(got, ref))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        line += (f": max rel err {max(errs):.3e} (dx {errs[0]:.3e}) "
+                 f"max_abs_err {abs_err:.3e} bitwise_repeat={same}")
+        if not (max(errs) <= BWD_TOL[dname]) or not same or not finite:
+            failures.append(line)
+        return line, abs_err
+
+    for i, (h, c, heads) in enumerate(MAIN_SHAPES):
+        nw = (h // WS) ** 2
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            for masked in (False, True):
+                x4, a = attention_case(h, c, heads, dtype, masked, 800 + i)
+                xw = window_partition(x4, WS).contiguous()
+
+                def fwd(plain=False, xw=xw, a=a, heads=heads, nw=nw):
+                    return fused_window_attention(
+                        xw, **a, heads=heads, windows_per_image=nw,
+                        plain=plain)
+
+                got, ref = fwd(), fwd(True)
+                on_map = window_partition(fused_window_attention_2d(
+                    x4, **a, heads=heads, window_size=WS), WS)
+                torch.cuda.synchronize()
+                err, rel = rel_err(got, ref)
+                same = torch.equal(got, on_map)
+                k1b["max_abs_err"] = max(k1b["max_abs_err"], err)
+                line = (f"K1b windows G={xw.shape[0]} C={c} heads={heads} "
+                        f"{dname} masked={masked}: max_abs_err={err:.3e} "
+                        f"rel={rel:.3e} equal_to_K1_on_the_map={same}")
+                if dname == "bfloat16" and masked:
+                    ms, pms = time_ms(fwd), time_ms(lambda: fwd(True))
+                    k1b["ms"] += ms
+                    k1b["plain_ms"] += pms
+                    k1b_bound.add(*attention_work(h, c, heads, masked))
+                    line += f" kernel_ms={ms:.4f} plain_ms={pms:.4f}"
+                log(line)
+                if not (rel <= TOL[dname]) or not same \
+                        or not torch.isfinite(got).all():
+                    failures.append(line)
+
+                gw = _normal_fn(900 + i)(tuple(xw.shape), 1.0).to(dtype)
+                p = {k: v for k, v in a.items() if k != "bproj"}
+
+                def k3w(xw=xw, gw=gw, p=p, heads=heads, nw=nw):
+                    return attention.window_attention_bwd_windows(
+                        xw, gw, **p, heads=heads, windows_per_image=nw)
+
+                def k3w_plain(xw=xw, gw=gw, p=p, heads=heads):
+                    return attention.window_attention_bwd_reference(
+                        xw, gw, **p, heads=heads)
+
+                got, again, ref = k3w(), k3w(), k3w_plain()
+                torch.cuda.synchronize()
+                line, abs_err = gradient_check(
+                    f"K1b backward (K3 on windows) G={xw.shape[0]} C={c} "
+                    f"heads={heads} {dname} masked={masked}", got, again,
+                    ref, dname)
+                if dname == "bfloat16" and masked:
+                    ms, pms = time_ms(k3w), time_ms(k3w_plain)
+                    k1b["backward_ms"] += ms
+                    k1b["backward_plain_ms"] += pms
+                    line += f" kernel_ms={ms:.4f} plain_ms={pms:.4f}"
+                log(line)
+    k1b.update(k1b_bound.fields(), library_ms=None)
+
+    # K9, K10, K11 against their plain versions at the tools' B=8 inputs;
+    # each `full` bitwise against the production kernel
+    abl = {k: dict(max_abs_err=0.0, plain_ms=0.0, variants={})
+           for k in ("K9", "K10", "K11")}
+    bounds = {}
+    for name, c, res, heads in mr.GROUPS:
+        cases = (
+            ("K9", mr.ATTN_ABLATIONS,
+             mr._attn_args(c, res, heads, batch=MEASURE_B),
+             lambda kw, c=c, res=res, heads=heads:
+             mr.abl_attention(c, res, heads, **kw)),
+            ("K10", mr.LEFF_ABLATIONS, mr._leff_args(c, res, batch=MEASURE_B),
+             lambda kw, c=c, res=res: mr.abl_leff(c, res, **kw)),
+            ("K11", mb.BWD_ABLATIONS,
+             mb._win_args(c, res, heads, batch=MEASURE_B),
+             lambda kw, c=c, res=res, heads=heads:
+             mb.abl_backward(c, res, heads, **kw)))
+        for kernel, table, args, make in cases:
+            for vname, kw in table:
+                fn = make(kw)
+                got, ref = fn(*args), fn(*args, plain=True)
+                torch.cuda.synchronize()
+                if kernel == "K11":
+                    errs = _grad_errors(got, ref)
+                    rel = max(errs)
+                    err = max(float((a.float() - b.float()).abs().max())
+                              for a, b in zip(got, ref))
+                    finite = all(bool(torch.isfinite(a).all()) for a in got)
+                else:
+                    err, rel = rel_err(got, ref)
+                    finite = bool(torch.isfinite(got).all())
+                entry = abl[kernel]["variants"].setdefault(
+                    vname, dict(max_abs_err=0.0))
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                abl[kernel]["max_abs_err"] = max(abl[kernel]["max_abs_err"],
+                                                 err)
+                bounds.setdefault((kernel, vname), Bound()).add(
+                    *ablation_work(kernel, vname, res, c, heads))
+                line = (f"{kernel} {vname} {name} c{c}@{res} B={MEASURE_B} "
+                        f"bf16: max_abs_err={err:.3e} rel={rel:.3e}")
+                if vname == "full":
+                    pms = time_ms(lambda fn=fn: fn(*args, plain=True),
+                                  iters=3, repeats=3)
+                    abl[kernel]["plain_ms"] += pms
+                    line += f" plain_ms={pms:.4f}"
+                    if kernel == "K9":
+                        prod = fused_window_attention_2d(
+                            *args, None, heads=heads, window_size=WS)
+                        same = torch.equal(got, prod)
+                    elif kernel == "K10":
+                        same = torch.equal(got, fused_leff(*args))
+                    else:  # K3 on the map of one window per image
+                        x, g, *params = args
+                        prod = attention.window_attention_bwd(
+                            x.view(-1, WS, WS, c), g.view(-1, WS, WS, c),
+                            *params, None, heads=heads, window_size=WS)
+                        same = all(torch.equal(a.reshape(b.shape), b)
+                                   for a, b in zip(prod, got))
+                    line += f" bitwise_equal_to_production={same}"
+                    if not same:
+                        failures.append(line)
+                log(line)
+                if not (rel <= TOL["bfloat16"]) or not finite:
+                    failures.append(line)
+    if failures:
+        raise AssertionError("measurement slice disagrees with its plain "
+                             "versions or production kernels:\n"
+                             + "\n".join(failures))
+
+    # the main path: both tools at B=8, K1b forward + backward by autograd
+    counters = _counters()
+    torch.cuda.synchronize()
+    for cnt in counters.values():
+        cnt.launches = 0
+    t0 = time.perf_counter()
+    rates = mr.main(RATES_MODES)
+    bwd = mb.main(BWD_MODES)
+    for i, (h, c, heads) in enumerate(MAIN_SHAPES):
+        x4, a = attention_case(h, c, heads, torch.bfloat16, True, 950 + i)
+        a = dict(a)
+        mask = a.pop("mask")
+        xw = window_partition(
+            x4.repeat(MEASURE_B // 2, 1, 1, 1), WS).contiguous()
+        sums = mb.grad_wrapper(
+            lambda *t, mask=mask, heads=heads, nw=(h // WS) ** 2:
+            fused_window_attention(*t, mask, heads=heads,
+                                   windows_per_image=nw), 10)(
+            xw, *a.values())
+        if not torch.isfinite(sums).all():
+            raise AssertionError("non-finite K1b gradients")
+    torch.cuda.synchronize()
+    launches = {k: cnt.launches for k, cnt in counters.items()}
+    log(f"measure: tools and K1b at B={MEASURE_B} in "
+        f"{time.perf_counter() - t0:.1f} s on {card}; launches {launches}")
+
+    res = {"K1b": k1b}
+    for kernel, key, table in (("K9", "abl-attn", mr.ATTN_ABLATIONS),
+                               ("K10", "abl-leff", mr.LEFF_ABLATIONS),
+                               ("K11", "ablbwd", mb.BWD_ABLATIONS)):
+        entry = abl[kernel]
+        for vname, _kw in table:
+            v = entry["variants"][vname]
+            v["ms"] = sum(ms for nm, ms in (rates | bwd).items()
+                          if nm.startswith(f"{key}/")
+                          and nm.endswith(f" {vname}"))
+            v.update(bounds[(kernel, vname)].fields())
+        full = entry["variants"]["full"]
+        res[kernel] = dict(max_abs_err=entry["max_abs_err"], ms=full["ms"],
+                           plain_ms=entry["plain_ms"],
+                           bound_ms=full["bound_ms"],
+                           bound_by=full["bound_by"], library_ms=None,
+                           variants=entry["variants"])
+        log(f"{kernel} at B={MEASURE_B}, summed over the five groups: "
+            + "; ".join(f"{v} {d['ms']:.4f} ms (bound {d['bound_ms']:.4f}, "
+                        f"{d['bound_by']})"
+                        for v, d in entry["variants"].items()))
+    return res, launches
+
+
 def _counters():
     """name -> the wrapper whose `.launches` counts that kernel."""
     from fbanet_tpu_torch.ops import attention, leff, reduce, warp_kernels
+    from fbanet_tpu_torch.tools import measure_bwd, measure_swin_rates
 
     return {"K1": attention.fused_window_attention_2d,
             "K2": leff.fused_leff, "K3": attention.window_attention_bwd,
             "K4": leff.leff_bwd, "R1": reduce.token_matmul,
             "R2": reduce.column_sum,
             "K5": warp_kernels.warp_burst_bilinear,
-            "K6": warp_kernels.warp_burst_coords}
+            "K6": warp_kernels.warp_burst_coords,
+            "K1b": attention.fused_window_attention,
+            "K9": measure_swin_rates.ablation_attention,
+            "K10": measure_swin_rates.ablation_leff,
+            "K11": measure_bwd.ablation_backward}
 
 
 def _device_ms(events) -> tuple[float, dict]:
@@ -1114,17 +1392,30 @@ def main() -> None:
         f"cached) -> {lib_path.relative_to(ROOT)}")
     log((lib_path.parent / "build.log").read_text())
 
-    kres = phase_kernels(MAIN_SHAPES)
-    kres.update(phase_backward(MAIN_SHAPES))
-    kres.update(phase_reduce())
-    reg, registered = phase_registration(card)
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    kres = timed("kernels", phase_kernels, MAIN_SHAPES)
+    kres.update(timed("backward", phase_backward, MAIN_SHAPES))
+    kres.update(timed("reduce", phase_reduce))
+    reg, registered = timed("registration", phase_registration, card)
     kres.update(reg)
-    served = phase_slice(card)
-    trained = phase_train(card)
-    # launches on the main paths: registration (K5, K6), serving (K1, K2)
-    # and training (K1-K4, R1, R2)
+    served = timed("slice", phase_slice, card)
+    trained = timed("train", phase_train, card)
+    mres, measured = timed("measure", phase_measure, card)
+    kres.update(mres)
+    # launches on the main paths: registration (K5, K6), serving (K1, K2),
+    # training (K1-K4, R1, R2) and measurement (K1b, K9-K11 and, through
+    # the tools, K1-K4, R1, R2)
     launches = {k: registered.get(k, 0) + served.get(k, 0) + trained.get(k, 0)
-                for k in kres}
+                + measured.get(k, 0) for k in kres}
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on a main path: "
+                             f"{missing}")
     table = (
         ("K1", "K1 fused window attention", "attention.cu",
          "fbanet_tpu/ops/attention_pallas.py:250"),
@@ -1142,6 +1433,14 @@ def main() -> None:
          "fbanet_tpu/ops/warp_pallas.py:102"),
         ("K6", "K6 dense-coords bilinear warp", "warp.cu",
          "fbanet_tpu/ops/warp_pallas.py:128"),
+        ("K1b", "K1b fused window attention on [G, N, C] windows",
+         "attention.cu", "fbanet_tpu/ops/attention_pallas.py:234"),
+        ("K9", "K9 attention ablation (measure_swin_rates)", "attention.cu",
+         "scripts/measure_swin_rates.py:136"),
+        ("K10", "K10 LeFF ablation (measure_swin_rates)", "leff.cu",
+         "scripts/measure_swin_rates.py:253"),
+        ("K11", "K11 attention backward ablation (measure_bwd)",
+         "attention_bwd_ablation.cu", "scripts/measure_bwd.py:182"),
     )
     kernels = [{"name": name, "route": "cuda",
                 "source": f"fbanet_tpu_torch/csrc/{src}", "replaces": where,

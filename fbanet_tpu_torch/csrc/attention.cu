@@ -24,6 +24,22 @@
 // register-tiled FMAs on the CUDA cores (f32 has no tensor-core path of the
 // same precision). A wgmma/TMA pipeline with weights staged in shared
 // memory is later work.
+//
+// K1b (fbanet_window_attention_windows) is the same block body on
+// pre-partitioned windows [G, N, C]: it replaces the TPU kernel
+// attention_pallas.py::_attention_kernel (launched by _pallas_forward, API
+// fused_window_attention). Only the addressing changes: window g reads and
+// writes rows g * N .. g * N + N - 1, its mask is mask[g % windows per
+// image], and there is no residual.
+//
+// K9 (fbanet_window_attention_ablation) is K1's bf16 kernel with one stage
+// removed at compile time, the counterpart of the ablation copy
+// scripts/measure_swin_rates.py::_abl_kernel: mask-free, no residual;
+// nosoftmax (p = logits / n, rounded), nocore (o = q + k + v in the compute
+// type, no per-head stage), notrans (window g is n consecutive tokens of the
+// row-major map: K1b's addressing over the map's memory). Its `full` variant
+// is K1's own instantiation. The changed math is deliberate: the variants
+// exist to split K1's time by stage.
 #include "common.cuh"
 
 namespace fbanet {
@@ -91,6 +107,11 @@ __device__ __forceinline__ void softmax_rows(int n, const float* sS, int lds,
   }
 }
 
+// Six ints only: three more (a 132-byte parameter block instead of 120)
+// made K1 ~11 % slower on the H100, with its body unchanged (the A/B runs
+// in PERF.md). Map mode: H, W and the window ws of the post-roll map.
+// Windowed mode (ws == 0, K1b and K9's notrans): H is the mask's window
+// count and W the tokens per window.
 struct Args {
   const void* x;
   void* out;
@@ -100,6 +121,12 @@ struct Args {
   int H, W, C, heads, ws, residual;
 };
 
+// The token lookup of a block (common.cuh's WinBlock) from Args' six ints.
+__device__ __forceinline__ WinBlock window_block(int H, int W, int C, int ws) {
+  if (ws == 0) return WinBlock(WinGeom{0, 0, C, 0, W, H, 1});
+  return WinBlock(WinGeom{H, W, C, ws, ws * ws, (H / ws) * (W / ws), 0});
+}
+
 __global__ void __launch_bounds__(kThreads) window_attention_f32_kernel(Args a) {
   extern __shared__ float smem[];
   const float* __restrict__ x = (const float*)a.x;
@@ -107,7 +134,7 @@ __global__ void __launch_bounds__(kThreads) window_attention_f32_kernel(Args a) 
   const float* wq = (const float*)a.wq;
   const float* wkv = (const float*)a.wkv;
   const float* wproj = (const float*)a.wproj;
-  const int C = a.C, ws = a.ws, n = ws * ws;
+  const int C = a.C, n = a.ws ? a.ws * a.ws : a.W;
   const int dh = C / a.heads;
   const int gw = group_width(C, a.heads);
   const int ldc = C + 1, ldg = gw + 1, lds = n + 1;
@@ -119,21 +146,15 @@ __global__ void __launch_bounds__(kThreads) window_attention_f32_kernel(Args a) 
   float* sS = sV + n * ldg;     // [n][lds] logits, then probabilities
   float* sInv = sS + n * lds;   // [n] 1 / row sum
 
-  const int nwh = a.H / ws, nww = a.W / ws;
-  const int win = blockIdx.x % (nwh * nww);  // window index within the image
-  const int b = blockIdx.x / (nwh * nww);
-  const int wr = win / nww, wc = win % nww;
-  auto tok = [&](int t) -> size_t {  // offset of token t's channel 0
-    const int r = wr * ws + t / ws, c = wc * ws + t % ws;
-    return (((size_t)b * a.H + r) * a.W + c) * C;
-  };
+  const WinBlock wb = window_block(a.H, a.W, C, a.ws);
+  auto tok = [&](int t) -> size_t { return wb.pix(t) * C; };  // token t's channel 0
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int t = warp; t < n; t += kThreads / 32)
     layernorm_row<float>(x + tok(t), C, a.ln_s, a.ln_b, sY + t * ldc, lane);
   __syncthreads();
 
   const float scale = 1.0f / sqrtf((float)dh);
-  const float* mw = a.mask ? a.mask + (size_t)win * n * n : nullptr;
+  const float* mw = a.mask ? a.mask + (size_t)wb.win * n * n : nullptr;
   for (int g0 = 0; g0 < C; g0 += gw) {
     gemm_nt(n, gw, C, sY, ldc, wq + (size_t)g0 * C, C, 1, [&](int m, int j, float v) {
       sQ[m * ldg + j] = (v + a.bq[g0 + j]) * scale;
@@ -168,6 +189,20 @@ __global__ void __launch_bounds__(kThreads) window_attention_f32_kernel(Args a) 
   });
 }
 
+// o = p v divides by the row sum after the product: 1 / (row sum) from
+// softmax_rows, or 1 for K9's nosoftmax, whose probabilities are the logits
+// times 1 / n, rounded (the script's `(attn * (1.0 / n)).astype(cdtype)`).
+__device__ __forceinline__ void uniform_rows(int n, const float* sS, int lds, bf16* sP,
+                                             int ldp, float* sInv) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int m = warp; m < n; m += kThreads / 32) {
+    for (int s = lane; s < n; s += 32) sP[m * ldp + s] = __float2bfloat16(sS[m * lds + s] * (1.0f / n));
+    if (lane == 0) sInv[m] = 1.0f;
+  }
+}
+
+// kSoftmax / kCore false: K9's nosoftmax / nocore (K1 itself is <true, true>).
+template <bool kSoftmax, bool kCore>
 __global__ void __launch_bounds__(kThreads) window_attention_bf16_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const bf16* __restrict__ x = (const bf16*)a.x;
@@ -175,7 +210,7 @@ __global__ void __launch_bounds__(kThreads) window_attention_bf16_kernel(Args a)
   const bf16* wq = (const bf16*)a.wq;
   const bf16* wkv = (const bf16*)a.wkv;
   const bf16* wproj = (const bf16*)a.wproj;
-  const int C = a.C, ws = a.ws, n = ws * ws;
+  const int C = a.C, n = a.ws ? a.ws * a.ws : a.W;
   const int dh = C / a.heads;
   const int gw = group_width(C, a.heads);
   const int ldc = C + 8, ldg = gw + 8, ldp = n + 8, lds = n + 1;
@@ -190,21 +225,15 @@ __global__ void __launch_bounds__(kThreads) window_attention_bf16_kernel(Args a)
   float* sInv = (float*)(smem_raw + L.inv);
   float* scratch = (float*)(smem_raw + L.scratch);
 
-  const int nwh = a.H / ws, nww = a.W / ws;
-  const int win = blockIdx.x % (nwh * nww);
-  const int b = blockIdx.x / (nwh * nww);
-  const int wr = win / nww, wc = win % nww;
-  auto tok = [&](int t) -> size_t {
-    const int r = wr * ws + t / ws, c = wc * ws + t % ws;
-    return (((size_t)b * a.H + r) * a.W + c) * C;
-  };
+  const WinBlock wb = window_block(a.H, a.W, C, a.ws);
+  auto tok = [&](int t) -> size_t { return wb.pix(t) * C; };
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int t = warp; t < n; t += kThreads / 32)
     layernorm_row<bf16>(x + tok(t), C, a.ln_s, a.ln_b, sY + t * ldc, lane);
   __syncthreads();
 
   const float scale = 1.0f / sqrtf((float)dh);
-  const float* mw = a.mask ? a.mask + (size_t)win * n * n : nullptr;
+  const float* mw = a.mask ? a.mask + (size_t)wb.win * n * n : nullptr;
   using col = wmma::col_major;
   for (int g0 = 0; g0 < C; g0 += gw) {
     gemm_tc<col>(n, n, gw, C, sY, ldc, wq + (size_t)g0 * C, C, scratch,
@@ -220,6 +249,17 @@ __global__ void __launch_bounds__(kThreads) window_attention_bf16_kernel(Args a)
                    sV[m * ldg + j] = __float2bfloat16(v + a.bkv[C + g0 + j]);
                  });
     __syncthreads();
+    if constexpr (!kCore) {
+      // K9 nocore: o = (q + k) + v, each sum rounded as bf16 arrays add
+      for (int i = threadIdx.x; i < n * gw; i += kThreads) {
+        const int m = i / gw, j = i % gw;
+        const float qk = round_to<bf16>(__bfloat162float(sQ[m * ldg + j]) +
+                                        __bfloat162float(sK[m * ldg + j]));
+        sO[m * ldc + g0 + j] = __float2bfloat16(qk + __bfloat162float(sV[m * ldg + j]));
+      }
+      __syncthreads();
+      continue;
+    }
     for (int hh = 0; hh < gw / dh; ++hh) {
       const int h = g0 / dh + hh;
       const float* bh = a.bias + (size_t)h * n * n;
@@ -229,7 +269,10 @@ __global__ void __launch_bounds__(kThreads) window_attention_bf16_kernel(Args a)
                      sS[m * lds + s] = v + bh[m * n + s] + (mw ? mw[m * n + s] : 0.f);
                    });
       __syncthreads();
-      softmax_rows(n, sS, lds, sP, ldp, sInv);
+      if constexpr (kSoftmax)
+        softmax_rows(n, sS, lds, sP, ldp, sInv);
+      else
+        uniform_rows(n, sS, lds, sP, ldp, sInv);
       __syncthreads();
       gemm_tc<wmma::row_major>(n, n, dh, n, sP, ldp, sV + hh * dh, ldg, scratch,
                                [&](int m, int d, float v) {
@@ -252,6 +295,39 @@ size_t smem_bytes(int n, int C, int heads, int bf16) {
               : attention_f32_smem(n, C, heads);
 }
 
+using Kernel = void (*)(Args);
+
+// K1's own instantiation for the compute type (K1b's too).
+Kernel production_kernel(int use_bf16) {
+  if (use_bf16) return window_attention_bf16_kernel<true, true>;
+  return window_attention_f32_kernel;
+}
+
+Kernel ablation_kernel(int variant) {
+  switch (variant) {
+    case 1: return window_attention_bf16_kernel<false, true>;
+    case 2: return window_attention_bf16_kernel<true, false>;
+    default: return window_attention_bf16_kernel<true, true>;
+  }
+}
+
+int launch(Kernel kern, const Args& a, unsigned grid, int smem, void* stream) {
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// H, W, ws as Args takes them (ws == 0: H mask windows, W tokens).
+Args make_args(const void* x, void* out, const void* ln_s, const void* ln_b, const void* wq,
+               const void* bq, const void* wkv, const void* bkv, const void* wproj,
+               const void* bproj, const void* bias, const void* mask, int H, int W, int C,
+               int heads, int ws, int residual) {
+  return Args{x, out, (const float*)ln_s, (const float*)ln_b, wq, wkv, wproj,
+              (const float*)bq, (const float*)bkv, (const float*)bproj,
+              (const float*)bias, (const float*)mask, H, W, C, heads, ws, residual};
+}
+
 }  // namespace
 }  // namespace fbanet
 
@@ -265,25 +341,58 @@ int fbanet_window_attention_smem(int n, int C, int heads, int bf16) {
   return (int)fbanet::smem_bytes(n, C, heads, bf16);
 }
 
+// K1 on the post-roll map [B, H, W, C].
 int fbanet_window_attention(const void* x, void* out, const void* ln_s,
                             const void* ln_b, const void* wq, const void* bq,
                             const void* wkv, const void* bkv, const void* wproj,
                             const void* bproj, const void* bias, const void* mask,
                             int B, int H, int W, int C, int heads, int ws,
                             int residual, int bf16, void* stream) {
-  const int smem = fbanet_window_attention_smem(ws * ws, C, heads, bf16);
+  using namespace fbanet;
+  const int n = ws * ws, nw = (H / ws) * (W / ws);
+  const int smem = fbanet_window_attention_smem(n, C, heads, bf16);
   if (smem == 0) return (int)cudaErrorInvalidValue;
-  fbanet::Args a{x, out, (const float*)ln_s, (const float*)ln_b, wq, wkv, wproj,
-                 (const float*)bq, (const float*)bkv, (const float*)bproj,
-                 (const float*)bias, (const float*)mask, H, W, C, heads, ws, residual};
-  auto kern = bf16 ? fbanet::window_attention_bf16_kernel
-                   : fbanet::window_attention_f32_kernel;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  const unsigned grid = (unsigned)B * (H / ws) * (W / ws);
-  kern<<<grid, fbanet::kThreads, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  const Args a = make_args(x, out, ln_s, ln_b, wq, bq, wkv, bkv, wproj, bproj, bias, mask,
+                           H, W, C, heads, ws, residual);
+  return launch(production_kernel(bf16), a, (unsigned)B * nw, smem, stream);
+}
+
+// K1b on pre-partitioned windows [G, n, C]: mask [nw, n, n] or null, window
+// g masked by mask[g % nw]; no residual.
+int fbanet_window_attention_windows(const void* x, void* out, const void* ln_s,
+                                    const void* ln_b, const void* wq, const void* bq,
+                                    const void* wkv, const void* bkv, const void* wproj,
+                                    const void* bproj, const void* bias, const void* mask,
+                                    int G, int n, int C, int heads, int nw, int bf16,
+                                    void* stream) {
+  using namespace fbanet;
+  const int smem = fbanet_window_attention_smem(n, C, heads, bf16);
+  if (smem == 0 || nw < 1) return (int)cudaErrorInvalidValue;
+  const Args a = make_args(x, out, ln_s, ln_b, wq, bq, wkv, bkv, wproj, bproj, bias, mask,
+                           nw, n, C, heads, 0, 0);
+  return launch(production_kernel(bf16), a, (unsigned)G, smem, stream);
+}
+
+// K9 on a bf16 map [B, H, W, C], mask-free, no residual. variant: 0 full
+// (K1's instantiation), 1 nosoftmax, 2 nocore, 3 notrans (K1b's addressing
+// over the map: window g = tokens g * n .. g * n + n - 1). `mask` is ignored.
+int fbanet_window_attention_ablation(const void* x, void* out, const void* ln_s,
+                                     const void* ln_b, const void* wq, const void* bq,
+                                     const void* wkv, const void* bkv, const void* wproj,
+                                     const void* bproj, const void* bias, const void* mask,
+                                     int B, int H, int W, int C, int heads, int ws,
+                                     int variant, void* stream) {
+  using namespace fbanet;
+  (void)mask;
+  const int n = ws * ws, nw = (H / ws) * (W / ws);
+  const int smem = fbanet_window_attention_smem(n, C, heads, 1);
+  if (smem == 0 || variant < 0 || variant > 3) return (int)cudaErrorInvalidValue;
+  const Args a = variant == 3
+                     ? make_args(x, out, ln_s, ln_b, wq, bq, wkv, bkv, wproj, bproj, bias,
+                                 nullptr, 1, n, C, heads, 0, 0)
+                     : make_args(x, out, ln_s, ln_b, wq, bq, wkv, bkv, wproj, bproj, bias,
+                                 nullptr, H, W, C, heads, ws, 0);
+  return launch(ablation_kernel(variant), a, (unsigned)B * nw, smem, stream);
 }
 
 const char* fbanet_error_string(int err) {

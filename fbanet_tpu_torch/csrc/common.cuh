@@ -127,6 +127,40 @@ __device__ __forceinline__ void gemm_nt(int M, int N, int K,
   }
 }
 
+// Where the window-attention kernels (K1, K3 and their windowed entries)
+// find their tokens. Block g handles window g of the post-roll map
+// [B, H, W, C] (window-partition order: image, window row, window column),
+// or, with `windowed`, rows g * n .. g * n + n - 1 of pre-partitioned windows
+// [G, n, C]. Its mask window is g % nw (in map mode nw is the number of
+// windows per image, so that is the window's place in its image).
+struct WinGeom {
+  int H, W, C, ws, n, nw, windowed;
+};
+
+struct WinBlock {
+  int win;              // mask window
+  size_t base;          // pixel index of token 0
+  int rowlen, rowstride;  // token t sits t / rowlen rows of rowstride on
+  __device__ explicit WinBlock(const WinGeom& g) {
+    win = blockIdx.x % g.nw;
+    if (g.windowed) {
+      base = (size_t)blockIdx.x * g.n;
+      rowlen = g.n;
+      rowstride = 0;
+    } else {
+      const int nww = g.W / g.ws;
+      base = ((size_t)(blockIdx.x / g.nw) * g.H + (win / nww) * g.ws) * g.W +
+             (win % nww) * g.ws;
+      rowlen = g.ws;
+      rowstride = g.W;
+    }
+  }
+  // pixel (token row) index of the block's token t
+  __device__ __forceinline__ size_t pix(int t) const {
+    return base + (size_t)(t / rowlen) * rowstride + t % rowlen;
+  }
+};
+
 // Shared-memory carving: each array starts on a 128-byte boundary (WMMA
 // loads and stores need 32-byte aligned tiles).
 __host__ __device__ inline size_t align128(size_t bytes) {

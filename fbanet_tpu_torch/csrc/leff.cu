@@ -21,6 +21,14 @@
 // the 100 halo rows pad to 112); in f32 they are register-tiled FMAs on the
 // CUDA cores. The halo recompute costs 100/64 of dense1; larger tiles and a
 // wgmma pipeline are later work.
+//
+// K10 (fbanet_leff_ablation) is the bf16 kernel with one stage changed at
+// compile time, the counterpart of the ablation copy
+// scripts/measure_swin_rates.py::_leff_abl_kernel (no residual): nogelu
+// (both GELUs become x 0.7) and nodw (no depthwise 3x3: h2 = act(h1) on the
+// tile's own tokens; dense1 still runs on the halo, as the script's does).
+// Its `full` variant is K2's own instantiation. The changed math is
+// deliberate: the variants exist to split K2's time by stage.
 #include "common.cuh"
 
 namespace fbanet {
@@ -85,9 +93,16 @@ struct Tile {
   }
 };
 
-// h2[t][j] = round(gelu(bdw + sum_taps h1 * w)) for the 64 interior tokens
+// The hidden activation: tanh-GELU, or K10's nogelu stand-in x * 0.7.
+template <bool kGelu>
+__device__ __forceinline__ float act(float v) {
+  if constexpr (kGelu) return gelu_tanh(v);
+  return v * 0.7f;
+}
+
+// h2[t][j] = round(act(bdw + sum_taps h1 * w)) for the 64 interior tokens
 // of hidden channels k0 .. k0 + kc (f32 taps, accumulated in this order).
-template <typename T, typename TH>
+template <typename T, bool kGelu, typename TH>
 __device__ __forceinline__ void depthwise_gelu(const Args& a, int k0, int kc,
                                                const TH* sH1, TH* sH2, int ldk) {
   for (int i = threadIdx.x; i < kOut * kc; i += blockDim.x) {
@@ -100,7 +115,18 @@ __device__ __forceinline__ void depthwise_gelu(const Args& a, int k0, int kc,
 #pragma unroll
       for (int kx = 0; kx < 3; ++kx)
         acc += to_f(sH1[((r + ky) * kInW + c + kx) * ldk + j]) * wk[ky * 3 + kx];
-    sH2[t * ldk + j] = from_f<TH>(round_to<T>(gelu_tanh(acc)));
+    sH2[t * ldk + j] = from_f<TH>(round_to<T>(act<kGelu>(acc)));
+  }
+}
+
+// K10 nodw: h2 = round(act(h1)) on the 64 interior tokens.
+template <bool kGelu>
+__device__ __forceinline__ void pointwise_act(int kc, const bf16* sH1, bf16* sH2, int ldk) {
+  for (int i = threadIdx.x; i < kOut * kc; i += blockDim.x) {
+    const int t = i / kc, j = i % kc;
+    const int r = t / kTileW, c = t % kTileW;
+    const float h1 = __bfloat162float(sH1[((r + 1) * kInW + c + 1) * ldk + j]);
+    sH2[t * ldk + j] = __float2bfloat16(act<kGelu>(h1));
   }
 }
 
@@ -151,7 +177,7 @@ __global__ void __launch_bounds__(kThreads) leff_f32_kernel(Args a) {
       sH1[t * ldk + j] = tile.inside(a, t) ? gelu_tanh(v + a.b1[k0 + j]) : 0.f;
     });
     __syncthreads();
-    depthwise_gelu<float>(a, k0, kc, sH1, sH2, ldk);
+    depthwise_gelu<float, true>(a, k0, kc, sH1, sH2, ldk);
     __syncthreads();
     // dense2 partial: B[o][j] = w2[o * Ch + k0 + j]
     gemm_nt(kOut, C, kc, sH2, ldk, w2 + k0, a.Ch, 1, [&](int t, int o, float v) {
@@ -162,6 +188,8 @@ __global__ void __launch_bounds__(kThreads) leff_f32_kernel(Args a) {
   write_out<float>(a, tile, sAcc, ldc);
 }
 
+// kGelu / kDw false: K10's nogelu / nodw (K2 itself is <true, true>).
+template <bool kGelu, bool kDw>
 __global__ void __launch_bounds__(kThreads) leff_bf16_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const int C = a.C, ldc = C + 8, ldacc = C + 4, ldk = kChunkBf16 + 8;
@@ -192,16 +220,43 @@ __global__ void __launch_bounds__(kThreads) leff_bf16_kernel(Args a) {
     gemm_tc<wmma::col_major>(kIn, kInPad, kc, C, sY, ldc, w1 + (size_t)k0 * C, C, scratch,
                              [&](int t, int j, float v) {
                                sH1[t * ldk + j] = tile.inside(a, t)
-                                   ? __float2bfloat16(gelu_tanh(v + a.b1[k0 + j]))
+                                   ? __float2bfloat16(act<kGelu>(v + a.b1[k0 + j]))
                                    : __float2bfloat16(0.f);
                              });
     __syncthreads();
-    depthwise_gelu<bf16>(a, k0, kc, sH1, sH2, ldk);
+    if constexpr (kDw)
+      depthwise_gelu<bf16, kGelu>(a, k0, kc, sH1, sH2, ldk);
+    else
+      pointwise_act<kGelu>(kc, sH1, sH2, ldk);
     __syncthreads();
     gemm_tc_acc(kOut, C, kc, sH2, ldk, w2 + k0, a.Ch, sAcc, ldacc);
     __syncthreads();
   }
   write_out<bf16>(a, tile, sAcc, ldacc);
+}
+
+using Kernel = void (*)(Args);
+
+int launch(Kernel kern, const Args& a, int B, int smem, void* stream) {
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned grid = (unsigned)B * ((a.H + kTileH - 1) / kTileH) *
+                        ((a.W + kTileW - 1) / kTileW);
+  kern<<<grid, kThreads, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+Kernel production_kernel(int use_bf16) {
+  if (use_bf16) return leff_bf16_kernel<true, true>;
+  return leff_f32_kernel;
+}
+
+Kernel ablation_kernel(int variant) {
+  switch (variant) {
+    case 1: return leff_bf16_kernel<false, true>;
+    case 2: return leff_bf16_kernel<true, false>;
+    default: return leff_bf16_kernel<true, true>;
+  }
 }
 
 }  // namespace
@@ -222,17 +277,24 @@ int fbanet_leff(const void* x, void* out, const void* ln_s, const void* ln_b,
                 int residual, int bf16, void* stream) {
   const int smem = fbanet_leff_smem(C, Ch, bf16);
   if (smem == 0) return (int)cudaErrorInvalidValue;
-  fbanet::Args a{x, out, (const float*)ln_s, (const float*)ln_b, w1, w2,
-                 (const float*)b1, (const float*)wdw, (const float*)bdw,
-                 (const float*)b2, H, W, C, Ch, residual};
-  auto kern = bf16 ? fbanet::leff_bf16_kernel : fbanet::leff_f32_kernel;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  const unsigned grid = (unsigned)B * ((H + fbanet::kTileH - 1) / fbanet::kTileH) *
-                        ((W + fbanet::kTileW - 1) / fbanet::kTileW);
-  kern<<<grid, fbanet::kThreads, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  const fbanet::Args a{x, out, (const float*)ln_s, (const float*)ln_b, w1, w2,
+                       (const float*)b1, (const float*)wdw, (const float*)bdw,
+                       (const float*)b2, H, W, C, Ch, residual};
+  return fbanet::launch(fbanet::production_kernel(bf16), a, B, smem, stream);
+}
+
+// K10 on a bf16 map, no residual. variant: 0 full (K2's instantiation),
+// 1 nogelu, 2 nodw.
+int fbanet_leff_ablation(const void* x, void* out, const void* ln_s, const void* ln_b,
+                         const void* w1, const void* b1, const void* wdw, const void* bdw,
+                         const void* w2, const void* b2, int B, int H, int W, int C,
+                         int Ch, int variant, void* stream) {
+  const int smem = fbanet_leff_smem(C, Ch, 1);
+  if (smem == 0 || variant < 0 || variant > 2) return (int)cudaErrorInvalidValue;
+  const fbanet::Args a{x, out, (const float*)ln_s, (const float*)ln_b, w1, w2,
+                       (const float*)b1, (const float*)wdw, (const float*)bdw,
+                       (const float*)b2, H, W, C, Ch, 0};
+  return fbanet::launch(fbanet::ablation_kernel(variant), a, B, smem, stream);
 }
 
 }  // extern "C"

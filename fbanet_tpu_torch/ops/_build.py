@@ -22,6 +22,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -36,9 +38,16 @@ SIGNATURES = {
     # x, out, ln_s, ln_b, wq, bq, wkv, bkv, wproj, bproj, bias, mask,
     # B, H, W, C, heads, ws, residual, bf16, stream
     "fbanet_window_attention": [_P] * 12 + [_I] * 8 + [_P],
+    # K1b: the same pointers, then G, tokens per window, C, heads, mask
+    # windows, bf16, stream; K9: the same pointers (mask ignored), then B, H,
+    # W, C, heads, ws, variant, stream
+    "fbanet_window_attention_windows": [_P] * 12 + [_I] * 6 + [_P],
+    "fbanet_window_attention_ablation": [_P] * 12 + [_I] * 7 + [_P],
     # x, out, ln_s, ln_b, w1, b1, wdw, bdw, w2, b2,
     # B, H, W, C, Ch, residual, bf16, stream
     "fbanet_leff": [_P] * 10 + [_I] * 7 + [_P],
+    # K10: the same pointers, then B, H, W, C, Ch, variant, stream
+    "fbanet_leff_ablation": [_P] * 10 + [_I] * 6 + [_P],
     # dynamic shared-memory bytes of one block, 0 for a shape the kernel
     # does not take (host functions): (tokens per window, C, heads, bf16)
     # and (C, Ch, bf16)
@@ -47,9 +56,14 @@ SIGNATURES = {
     # K3: x, g, dx, y/o/dq/dkv scratch, partial sums, ln_s, ln_b, wq, bq,
     # wkv, bkv, wproj, bias, mask, B, H, W, C, heads, ws, residual, bf16,
     # stream; and its head-group width, 0 for a shape it does not take:
-    # (tokens per window, C, heads, bf16)
+    # (tokens per window, C, heads, bf16, stages skipped)
     "fbanet_window_attention_bwd": [_P] * 17 + [_I] * 8 + [_P],
-    "fbanet_window_attention_bwd_group": [_I, _I, _I, _I],
+    "fbanet_window_attention_bwd_group": [_I] * 5,
+    # K3 on windows: the same pointers, then G, tokens per window, C, heads,
+    # mask windows, bf16, stream; K11: the same pointers (mask ignored),
+    # then G, tokens per window, C, heads, stages skipped, stream
+    "fbanet_window_attention_bwd_windows": [_P] * 17 + [_I] * 6 + [_P],
+    "fbanet_window_attention_bwd_ablation": [_P] * 17 + [_I] * 5 + [_P],
     # K4: x, g, dx, y/h2/dz1 scratch, partial sums, ln_s, ln_b, w1, b1, wdw,
     # bdw, w2, B, H, W, C, Ch, residual, bf16, stream; and its hidden chunk,
     # 0 for a shape it does not take: (C, Ch, bf16)
@@ -99,6 +113,7 @@ def build() -> Path:
     pid = os.getpid()
     compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     jobs = []
+    t0 = time.perf_counter()
     for src in (s for s in sources if s.suffix == ".cu"):
         obj = out_dir / f"{src.stem}.{pid}.o"
         cmd = [_nvcc(), *compile_flags, "-Xptxas", "-v", "-c", "-o", str(obj),
@@ -106,10 +121,16 @@ def build() -> Path:
         jobs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
+
+    def finish(job):
+        out, _ = job[2].communicate()
+        return out, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max(1, len(jobs))) as pool:
+        done = list(pool.map(finish, jobs))
     log, failed = [], []
-    for cmd, _obj, proc in jobs:
-        out, _ = proc.communicate()
-        log.append(" ".join(cmd) + "\n" + out)
+    for (cmd, _obj, proc), (out, seconds) in zip(jobs, done):
+        log.append(f"{' '.join(cmd)}\n({seconds:.1f} s)\n{out}")
         if proc.returncode != 0:
             failed.append(f"{cmd[-1]} ({proc.returncode}):\n{out}")
     tmp = out_dir / f"libfbanet_kernels.{pid}.so"

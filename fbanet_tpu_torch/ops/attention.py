@@ -1,5 +1,5 @@
-"""K1 and K3 — fused window attention (norm1 + W-MSA) on the 4-D feature map,
-and its backward.
+"""K1, K1b and K3 — fused window attention (norm1 + W-MSA) on the 4-D
+feature map and on pre-partitioned windows, and its backward.
 
 `fused_window_attention_2d` is the dispatcher (the counterpart of
 fbanet_tpu/ops/attention_pallas.py::fused_window_attention_2d). It is a
@@ -12,6 +12,14 @@ shape its kernel does not take. For CPU tensors, or with `plain=True`, both
 run the plain PyTorch versions below. There is no silent fallback. As in the
 JAX custom_vjp (`_fused2d_fwd`), the forward saves only the layer input and
 the parameters; the backward recomputes the rest.
+
+`fused_window_attention` (the counterpart of attention_pallas.py::
+fused_window_attention) is the same pair on `[G, N, C]` windows: K1b, the
+second entry of `csrc/attention.cu` (which replaces `_attention_kernel`),
+and K3's windowed entry as its backward. Its plain versions are
+`window_attention_reference` and `window_attention_bwd_reference`. Where the
+JAX API falls back to XLA for a shape its kernel does not take
+(attention_pallas.py:785-788), the port raises on CUDA, naming the shape.
 
 The plain forward follows the TPU kernel's rounding points
 (`_attn_block_math`, attention_pallas.py:153-231): LN in f32 rounded to the
@@ -28,7 +36,8 @@ is that of the gathered `[heads, N, N]` bias, which autograd carries to the
 relative-position table through the index gather. The mask gets none.
 
 `fused_window_attention_2d.launches` counts K1 launches,
-`window_attention_bwd.launches` K3 launches.
+`fused_window_attention.launches` K1b launches and
+`window_attention_bwd.launches` K3 launches (both entries).
 """
 
 from __future__ import annotations
@@ -122,22 +131,42 @@ def window_attention_bwd_reference(x, g, ln_scale, ln_bias, wq, bq, wkv, bkv,
     LN backward. Returns (dx [G, N, C] in x's dtype, then f32 gradients of
     ln scale, ln bias, wq [C, C], bq, wkv [2C, C], bkv, wproj [C, C], bproj,
     bias [heads, N, N]), weights in torch Linear layouts."""
+    return attention_bwd_math(x, g, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
+                              bias, mask, heads=heads)
+
+
+def attention_bwd_math(x, g, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bias,
+                       mask, *, heads: int, recompute: bool = True,
+                       dsoftmax: bool = True, wgrads: bool = True,
+                       dxchain: bool = True, core: bool = True):
+    """`window_attention_bwd_reference` with stages removable, as the
+    ablation copy scripts/measure_bwd.py::_abl_bwd_kernel removes them
+    (wrong values by design; every switch True is the backward itself):
+    recompute=False uses inv = 1, xhat = x, y = q = k = v = x; dsoftmax=False
+    takes dlogits = dp / n; core=False skips the per-head stage (o = dq =
+    dk = dv = do, bias gradient 0); dxchain=False gives dx = x and dy = x
+    for the LN gradients; wgrads=False returns zero parameter gradients."""
     cd = x.dtype
     gsz, n, c = x.shape
     dh = c // heads
     scale = dh ** -0.5
     xf = x.float()
-    mu = xf.mean(-1, keepdim=True)
-    var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mu * mu, min=0.0)
-    inv = torch.rsqrt(var + LN_EPS)
-    xhat = (xf - mu) * inv
     lns = ln_scale.float()
-    y = _rounded(xhat * lns + ln_bias.float(), cd)
     wq_c, wkv_c, wproj_c = (_rounded(w, cd) for w in (wq, wkv, wproj))
-    q = _rounded((y @ wq_c.t() + bq.float()) * scale, cd)
-    kv = _rounded(y @ wkv_c.t() + bkv.float(), cd)
+    if recompute:
+        mu = xf.mean(-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mu * mu, min=0.0)
+        inv = torch.rsqrt(var + LN_EPS)
+        xhat = (xf - mu) * inv
+        y = _rounded(xhat * lns + ln_bias.float(), cd)
+        q = _rounded((y @ wq_c.t() + bq.float()) * scale, cd)
+        kv = _rounded(y @ wkv_c.t() + bkv.float(), cd)
+    else:
+        inv, xhat = 1.0, xf
+        y = q = _rounded(xf, cd)
+        kv = torch.cat([y, y], -1)
     g2 = _rounded(g, cd)
-    do = _rounded(g2 @ wproj_c, cd)
+    do = g2 @ wproj_c
 
     def split(a):  # [G, N, C] -> [G, heads, N, dh]
         return a.reshape(gsz, n, heads, dh).transpose(1, 2)
@@ -145,40 +174,56 @@ def window_attention_bwd_reference(x, g, ln_scale, ln_bias, wq, bq, wkv, bkv,
     def merge(a):  # inverse of split
         return a.transpose(1, 2).reshape(gsz, n, c)
 
-    qh, kh, vh, doh = split(q), split(kv[..., :c]), split(kv[..., c:]), split(do)
-    logits = qh @ kh.transpose(-1, -2) + bias.float()[None]
-    if mask is not None:
-        nw = mask.shape[0]
-        logits = (logits.reshape(gsz // nw, nw, heads, n, n)
-                  + mask.float()[None, :, None]).reshape(gsz, heads, n, n)
-    e = torch.exp(logits - logits.amax(-1, keepdim=True))
-    p = e * (1.0 / e.sum(-1, keepdim=True))
-    pc = _rounded(p, cd)
-    o = pc @ vh
-    dp = doh @ vh.transpose(-1, -2)
-    dv = pc.transpose(-1, -2) @ doh
-    dlogits = p * (dp - (dp * p).sum(-1, keepdim=True))
-    dlc = _rounded(dlogits, cd)
-    dq = dlc @ kh
-    dk = dlc.transpose(-1, -2) @ qh
-
-    o2 = _rounded(merge(o), cd)
-    dq2 = merge(dq) * scale
-    dkv2 = torch.cat([merge(dk), merge(dv)], -1)
+    if core:
+        qh, kh, vh = split(q), split(kv[..., :c]), split(kv[..., c:])
+        doh = split(_rounded(do, cd))
+        logits = qh @ kh.transpose(-1, -2) + bias.float()[None]
+        if mask is not None:
+            nw = mask.shape[0]
+            logits = (logits.reshape(gsz // nw, nw, heads, n, n)
+                      + mask.float()[None, :, None]).reshape(gsz, heads, n, n)
+        e = torch.exp(logits - logits.amax(-1, keepdim=True))
+        p = e * (1.0 / e.sum(-1, keepdim=True))
+        pc = _rounded(p, cd)
+        o = pc @ vh
+        dp = doh @ vh.transpose(-1, -2)
+        dv = pc.transpose(-1, -2) @ doh
+        if dsoftmax:
+            dlogits = p * (dp - (dp * p).sum(-1, keepdim=True))
+        else:
+            dlogits = dp * (1.0 / n)
+        dlc = _rounded(dlogits, cd)
+        dq = dlc @ kh
+        dk = dlc.transpose(-1, -2) @ qh
+        o2 = _rounded(merge(o), cd)
+        dq2 = merge(dq) * scale
+        dkv2 = torch.cat([merge(dk), merge(dv)], -1)
+        dbias = dlogits.sum(0)
+    else:
+        o2 = _rounded(do, cd)
+        dq2 = do
+        dkv2 = torch.cat([do, do], -1)
+        dbias = torch.zeros(heads, n, n, device=x.device)
     dq2c, dkv2c = _rounded(dq2, cd), _rounded(dkv2, cd)
-    dy = dq2c @ wq_c + dkv2c @ wkv_c
-    dxh = dy * lns
-    m1 = dxh.mean(-1, keepdim=True)
-    m2 = (dxh * xhat).mean(-1, keepdim=True)
-    dx = inv * (dxh - m1 - xhat * m2)
+    if dxchain:
+        dy = dq2c @ wq_c + dkv2c @ wkv_c
+        dxh = dy * lns
+        m1 = dxh.mean(-1, keepdim=True)
+        m2 = (dxh * xhat).mean(-1, keepdim=True)
+        dx = (inv * (dxh - m1 - xhat * m2)).to(cd)
+    else:
+        dy, dx = xf, x
 
     def flat(a):
         return a.reshape(-1, a.shape[-1])
 
-    return (dx.to(cd), flat(dy * xhat).sum(0), flat(dy).sum(0),
-            flat(dq2c).t() @ flat(y), flat(dq2).sum(0),
-            flat(dkv2c).t() @ flat(y), flat(dkv2).sum(0),
-            flat(g2).t() @ flat(o2), flat(g2).sum(0), dlogits.sum(0))
+    grads = (flat(dy * xhat).sum(0), flat(dy).sum(0),
+             flat(dq2c).t() @ flat(y), flat(dq2).sum(0),
+             flat(dkv2c).t() @ flat(y), flat(dkv2).sum(0),
+             flat(g2).t() @ flat(o2), flat(g2).sum(0), dbias)
+    if not wgrads:
+        grads = tuple(torch.zeros_like(t) for t in grads)
+    return (dx, *grads)
 
 
 def _plain_bwd_2d(x4, g4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bias,
@@ -276,7 +321,7 @@ def window_attention_bwd(x4, g4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
     n = ws * ws
     lib = _build.library()
     bf16 = int(x4.dtype == torch.bfloat16)
-    if lib.fbanet_window_attention_bwd_group(n, c, heads, bf16) == 0:
+    if lib.fbanet_window_attention_bwd_group(n, c, heads, bf16, 0) == 0:
         _unsupported("the backward kernel takes no head group of this shape "
                      "(bfloat16 needs tokens, C and the head size in "
                      "multiples of 16, and a group must fit shared memory)",
@@ -286,10 +331,7 @@ def window_attention_bwd(x4, g4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
         x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, None, bias, mask)
     windows = b * (h // ws) * (w // ws)
     dx = torch.empty_like(x4)
-    ys, os_, dqs = (torch.empty_like(x4) for _ in range(3))
-    dkvs = torch.empty(b, h, w, 2 * c, device=x4.device, dtype=x4.dtype)
-    part = torch.empty(windows, 6 * c + heads * n * n, device=x4.device,
-                       dtype=torch.float32)
+    ys, os_, dqs, dkvs, part = _bwd_scratch(x4, windows, heads, n, True)
     err = lib.fbanet_window_attention_bwd(
         x4.data_ptr(), g4.data_ptr(), dx.data_ptr(), ys.data_ptr(),
         os_.data_ptr(), dqs.data_ptr(), dkvs.data_ptr(), part.data_ptr(),
@@ -300,18 +342,168 @@ def window_attention_bwd(x4, g4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
         torch.cuda.current_stream(x4.device).cuda_stream)
     _build.check(err, "window_attention_bwd")
     window_attention_bwd.launches += 1
-    t = b * h * w
-    sums = column_sum(part)
-    dwq = token_matmul(dqs.view(t, c), ys.view(t, c))
-    dwkv = token_matmul(dkvs.view(t, 2 * c), ys.view(t, c))
-    dwproj = token_matmul(g4.view(t, c), os_.view(t, c))
-    dlns, dlnb, dbq, dbkv, dbproj, dbias = torch.split(
-        sums, [c, c, c, 2 * c, c, heads * n * n])
-    return (dx, dlns, dlnb, dwq, dbq, dwkv, dbkv, dwproj, dbproj,
-            dbias.reshape(heads, n, n))
+    return (dx, *_bwd_sums(g4, ys, os_, dqs, dkvs, part, heads, n))
 
 
 window_attention_bwd.launches = 0
+
+
+def _bwd_scratch(x, windows: int, heads: int, n: int, wgrads: bool):
+    """K3's per-token scratch (y, o, dq, dk|dv in x's dtype and layout) and
+    per-window partial sums; without `wgrads` only dq and dk|dv, which its
+    dx chain reads back."""
+    c = x.shape[-1]
+    dqs = torch.empty_like(x)
+    dkvs = torch.empty(*x.shape[:-1], 2 * c, device=x.device, dtype=x.dtype)
+    if not wgrads:
+        return None, None, dqs, dkvs, None
+    part = torch.empty(windows, 6 * c + heads * n * n, device=x.device,
+                       dtype=torch.float32)
+    return torch.empty_like(x), torch.empty_like(x), dqs, dkvs, part
+
+
+def _bwd_sums(g, ys, os_, dqs, dkvs, part, heads: int, n: int):
+    """The parameter gradients from K3's scratch, by the fixed-order sums
+    of ops.reduce: (ln scale, ln bias, wq, bq, wkv, bkv, wproj, bproj,
+    bias [heads, n, n])."""
+    c = g.shape[-1]
+    t = g.numel() // c
+    sums = column_sum(part)
+    dwq = token_matmul(dqs.view(t, c), ys.view(t, c))
+    dwkv = token_matmul(dkvs.view(t, 2 * c), ys.view(t, c))
+    dwproj = token_matmul(g.view(t, c), os_.view(t, c))
+    dlns, dlnb, dbq, dbkv, dbproj, dbias = torch.split(
+        sums, [c, c, c, 2 * c, c, heads * n * n])
+    return (dlns, dlnb, dwq, dbq, dwkv, dbkv, dwproj, dbproj,
+            dbias.reshape(heads, n, n))
+
+
+def _unsupported_windows(why: str, x: torch.Tensor, heads: int):
+    raise ValueError(
+        f"fused_window_attention kernel does not take x {tuple(x.shape)} "
+        f"{x.dtype}, heads={heads}: {why}")
+
+
+def _check_windows(x, heads: int, mask, windows_per_image: int):
+    """Raise for windows `fused_window_attention` does not take on any
+    device: not [G, N, C], or a mask that does not fit."""
+    if x.dim() != 3:
+        _unsupported_windows("x must be [G, N, C]", x, heads)
+    g, n, _c = x.shape
+    if mask is not None and (
+            tuple(mask.shape) != (windows_per_image, n, n)
+            or g % windows_per_image):
+        _unsupported_windows(
+            f"mask {tuple(mask.shape)} must be [windows_per_image="
+            f"{windows_per_image}, N, N] and G a multiple of it", x, heads)
+
+
+def _check_windows_kernel(x, heads: int, mask, windows_per_image: int):
+    """Raise for windows K1b and K3's windowed entry do not take."""
+    _check_windows(x, heads, mask, windows_per_image)
+    if x.device.type != "cuda":
+        _unsupported_windows(f"no kernel for device {x.device}", x, heads)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        _unsupported_windows("dtype must be float32 or bfloat16", x, heads)
+    if not x.is_contiguous():
+        _unsupported_windows("x must be contiguous", x, heads)
+    if x.shape[-1] % heads:
+        _unsupported_windows("C must divide by heads", x, heads)
+
+
+def _launch_windows(x, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
+                    bias, mask, heads: int, windows_per_image: int):
+    """Launch K1b (uncounted)."""
+    _check_windows_kernel(x, heads, mask, windows_per_image)
+    g, n, c = x.shape
+    lib = _build.library()
+    bf16 = int(x.dtype == torch.bfloat16)
+    smem = lib.fbanet_window_attention_smem(n, c, heads, bf16)
+    if smem == 0:
+        _unsupported_windows("in bfloat16 the window's token count, C and the "
+                             "head size must be multiples of 16 (tensor-core "
+                             "tiles)", x, heads)
+    if smem > _SMEM_LIMIT:
+        _unsupported_windows(f"needs {smem} B of shared memory per block "
+                             f"(limit {_SMEM_LIMIT})", x, heads)
+    args = _kernel_args(x, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
+                        bias, mask)
+    out = torch.empty_like(x)
+    err = lib.fbanet_window_attention_windows(
+        x.data_ptr(), out.data_ptr(),
+        *[None if a is None else a.data_ptr() for a in args],
+        g, n, c, heads, windows_per_image if mask is not None else 1, bf16,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "fused_window_attention")
+    return out
+
+
+def launch_bwd_windows(x, g, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bias,
+                       mask, *, heads: int, windows_per_image: int,
+                       skip: int = 0, what: str = "window_attention_bwd"):
+    """K3's windowed entry on CUDA windows [G, N, C], uncounted: with
+    `skip` 0 K1b's backward, else K11, the variant without the stages in the
+    bit mask `skip` (csrc/attention_bwd.cuh's kNo* bits; bfloat16). Returns
+    what `attention_bwd_math` returns; with the kNoWgrads bit the parameter
+    gradients are zeros and no sums run."""
+    _check_windows_kernel(x, heads, mask, windows_per_image)
+    gsz, n, c = x.shape
+    lib = _build.library()
+    bf16 = int(x.dtype == torch.bfloat16)
+    if lib.fbanet_window_attention_bwd_group(n, c, heads, bf16, skip) == 0:
+        _unsupported_windows(
+            "the backward kernel takes no head group of this shape (bfloat16 "
+            "needs tokens, C and the head size in multiples of 16, and a "
+            "group must fit shared memory)", x, heads)
+    g = g.to(x.dtype).contiguous()
+    ln_s, ln_b, wq_, bq_, wkv_, bkv_, wproj_, _, bias_, mask_ = _kernel_args(
+        x, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, None, bias, mask)
+    wgrads = not skip & _NO_WGRADS
+    dx = torch.empty_like(x)
+    ys, os_, dqs, dkvs, part = _bwd_scratch(x, gsz, heads, n, wgrads)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    ptrs = (x.data_ptr(), g.data_ptr(), dx.data_ptr(), ptr(ys), ptr(os_),
+            dqs.data_ptr(), dkvs.data_ptr(), ptr(part), ln_s.data_ptr(),
+            ln_b.data_ptr(), wq_.data_ptr(), bq_.data_ptr(), wkv_.data_ptr(),
+            bkv_.data_ptr(), wproj_.data_ptr(), bias_.data_ptr(), ptr(mask_))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if skip:
+        if bf16 == 0 or mask is not None:
+            _unsupported_windows("the ablation variants take bfloat16 "
+                                 "windows without a mask", x, heads)
+        err = lib.fbanet_window_attention_bwd_ablation(
+            *ptrs, gsz, n, c, heads, skip, stream)
+    else:
+        err = lib.fbanet_window_attention_bwd_windows(
+            *ptrs, gsz, n, c, heads,
+            windows_per_image if mask is not None else 1, bf16, stream)
+    _build.check(err, what)
+    if wgrads:
+        return (dx, *_bwd_sums(g, ys, os_, dqs, dkvs, part, heads, n))
+    zeros = [torch.zeros(s, device=x.device) for s in (
+        (c,), (c,), (c, c), (c,), (2 * c, c), (2 * c,), (c, c), (c,),
+        (heads, n, n))]
+    return (dx, *zeros)
+
+
+_NO_WGRADS = 4  # csrc/attention_bwd.cuh: kNoWgrads
+
+
+def window_attention_bwd_windows(x, g, ln_scale, ln_bias, wq, bq, wkv, bkv,
+                                 wproj, bias, mask, *, heads: int,
+                                 windows_per_image: int):
+    """K3's windowed entry on CUDA tensors: the backward of
+    `fused_window_attention` for the incoming gradient g [G, N, C]. Returns
+    what `window_attention_bwd_reference` returns. Counts in
+    `window_attention_bwd.launches`."""
+    out = launch_bwd_windows(x, g, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
+                             bias, mask, heads=heads,
+                             windows_per_image=windows_per_image)
+    window_attention_bwd.launches += 1
+    return out
 
 
 class _FusedAttention(torch.autograd.Function):
@@ -369,3 +561,59 @@ def fused_window_attention_2d(x4: torch.Tensor, ln_scale, ln_bias, wq, bq,
 
 
 fused_window_attention_2d.launches = 0
+
+
+class _WindowAttention(torch.autograd.Function):
+    """K1b forward, K3's windowed entry backward (or both plain versions)."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
+                bias, mask, heads, windows_per_image, plain):
+        ctx.save_for_backward(x, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
+                              bproj, bias, mask)
+        ctx.cfg = (heads, windows_per_image, plain)
+        if plain or x.device.type == "cpu":
+            return window_attention_reference(
+                x, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj, bias,
+                mask, heads=heads)
+        out = _launch_windows(x, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
+                              bproj, bias, mask, heads, windows_per_image)
+        fused_window_attention.launches += 1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj, bias, mask = \
+            ctx.saved_tensors
+        heads, nw, plain = ctx.cfg
+        if plain or x.device.type == "cpu":
+            grads = window_attention_bwd_reference(
+                x, g.to(x.dtype), ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
+                bias, mask, heads=heads)
+        else:
+            grads = window_attention_bwd_windows(
+                x, g, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bias, mask,
+                heads=heads, windows_per_image=nw)
+        dx, *dparams = grads
+        params = (ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj, bias)
+        return (dx, *(d.to(p.dtype) for d, p in zip(dparams, params)),
+                None, None, None, None)
+
+
+def fused_window_attention(x: torch.Tensor, ln_scale, ln_bias, wq, bq, wkv,
+                           bkv, wproj, bproj, bias, mask, *, heads: int,
+                           windows_per_image: int,
+                           plain: bool = False) -> torch.Tensor:
+    """Fused norm1 + window attention on `[G, N, C]` windows (no residual),
+    computed in x's dtype, differentiable (backward: K3's windowed entry on
+    the card, the plain backward on the CPU). `mask` is the shift mask
+    `[windows_per_image, N, N]` or None; window g takes mask[g %
+    windows_per_image], so G must be a multiple of it. Weights are torch
+    Linear layouts. `plain=True` forces the plain versions on any device."""
+    _check_windows(x, heads, mask, windows_per_image)
+    return _WindowAttention.apply(x, ln_scale, ln_bias, wq, bq, wkv, bkv,
+                                  wproj, bproj, bias, mask, heads,
+                                  windows_per_image, plain)
+
+
+fused_window_attention.launches = 0

@@ -1,0 +1,432 @@
+"""Per-kernel rates of the fused Swin attention (K1) and LeFF (K2) kernels on
+the card, and the ablation kernels K9 and K10 that split their time by stage:
+the counterpart of scripts/measure_swin_rates.py.
+
+    python -m fbanet_tpu_torch.tools.measure_swin_rates [attn leff ablate]
+        [--device cpu]
+
+Modes (default `attn leff`), each at the five SwinGroup shapes of the
+published model (embed 64, 160 px), B = 8, window 8, bf16 activations, f32
+parameters, as the script:
+
+- attn: K1 (`ops.attention.fused_window_attention_2d`, mask-free, no
+  residual);
+- leff: K2 (`ops.leff.fused_leff`, no residual);
+- ablate: K9 full / nosoftmax / nocore / notrans and K10 full / nogelu /
+  nodw, each line with its delta from `full` (the time the removed stage
+  costs, and its share of the kernel).
+
+Every line is the script's: name, ms per call, GFLOP of the unablated
+function, TFLOP/s. `time_fn` times with CUDA events: three warm-up calls,
+then the median of 20 launches, each between its own pair of events. The
+script times the slope of a chained `fori_loop` instead, which only keeps XLA
+from hoisting a loop-invariant kernel out of the loop; eager PyTorch launches
+every call it is given, so no such device is needed here. With
+`--device cpu` the same lines time the plain versions on the host clock (a
+CPU number; the header line names the device).
+
+Inputs come from `np.random.default_rng(key)` in the script's order and
+scale (`_attn_args`, `_leff_args`), so both tools see the same numbers; the
+dense kernels are transposed to torch Linear layouts ([out, in]) and the
+depthwise kernel to a torch depthwise Conv2d weight.
+
+The ablation kernels (wrong math by design; they bound where the time goes):
+
+- K9, `ablation_attention` (csrc/attention.cu, fbanet_window_attention_
+  ablation): K1's bf16 kernel, mask-free, no residual, with one stage
+  changed at compile time, as the script's `_abl_kernel`
+  (measure_swin_rates.py:136-199): nosoftmax (p = logits / n, rounded),
+  nocore (o = q + k + v in bf16, no per-head stage), notrans (window g is
+  tokens g * 64 .. g * 64 + 63 of each image's row-major map, which is what
+  the script's `x4.reshape(gb, n, c)` of a block of whole rows reads). Its
+  plain version is `abl_attention` / `_abl_attention_plain`. The script's
+  `full` normalises before the AV product (`jax.nn.softmax`, probabilities
+  rounded to bf16), and so does the plain version; the kernel's `full` is
+  K1's own instantiation, which divides after it (attention_pallas.py:
+  217-223). The two differ by bf16 rounding only, within the bf16 limit.
+- K10, `ablation_leff` (csrc/leff.cu, fbanet_leff_ablation): K2's bf16
+  kernel, no residual, as `_leff_abl_kernel` (measure_swin_rates.py:
+  253-293): nogelu (both GELUs become x * 0.7), nodw (no depthwise 3x3:
+  h2 = act(h1) on the tile's own tokens). Plain version `abl_leff`.
+
+Each kernel's variants are flags of the production kernel, so `full` is
+bitwise K1 (K2) and each variant is the production kernel minus one stage.
+On the card each wrapper launches its kernel or raises; on the CPU (or with
+`plain=True`) it runs the plain version. `.launches` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import argparse
+import functools
+import statistics
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from fbanet_tpu_torch.ops import _build
+from fbanet_tpu_torch.ops.attention import (
+    _kernel_args,
+    _rounded,
+    fused_window_attention_2d,
+    window_partition,
+    window_reverse,
+)
+from fbanet_tpu_torch.ops.leff import _taps, fused_leff
+from fbanet_tpu_torch.ops.leff import _kernel_args as _leff_kernel_args
+from fbanet_tpu_torch.ops.norm import layer_norm_f32
+
+B = 8
+WS = 8
+N = WS * WS
+
+# (name, channels, resolution, heads): the five SwinGroups of the published
+# model
+GROUPS = [
+    ("enc0", 64, 160, 1),
+    ("enc1", 128, 80, 2),
+    ("bott", 256, 40, 16),
+    ("dec0", 256, 80, 16),
+    ("dec1", 128, 160, 8),
+]
+
+WARMUP, ITERS = 3, 20
+
+
+def attn_gflops(c: int, res: int) -> float:
+    nw = (res // WS) ** 2
+    return B * nw * (8 * N * c * c + 4 * N * N * c) / 1e9
+
+
+def leff_gflops(c: int, res: int) -> float:
+    ch = 4 * c
+    return B * res * res * (4 * c * ch + 18 * ch) / 1e9
+
+
+def _draw(key: int, device):
+    """u(*shape): the script's 0.1 * N(0, 1) f32 draws, in call order."""
+    rng = np.random.default_rng(key)
+    return lambda *s: torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32) * 0.1).to(device)
+
+
+def _attn_args(c: int, res: int, heads: int, key: int = 0, *,
+               batch: int | None = None, device="cuda"):
+    """(x4 bf16 [B, res, res, c], ln scale, ln bias, wq, bq, wkv, bkv,
+    wproj, bproj, bias [heads, N, N]): the script's numbers, weights in
+    torch Linear layouts."""
+    u = _draw(key, device)
+    x4 = u(batch or B, res, res, c).to(torch.bfloat16)
+    lns, lnb, wq, bq, wkv, bkv, wproj, bproj, bias = (
+        u(c), u(c), u(c, c), u(c), u(c, 2 * c), u(2 * c), u(c, c), u(c),
+        u(heads, N, N))
+    return (x4, lns, lnb, wq.t().contiguous(), bq, wkv.t().contiguous(), bkv,
+            wproj.t().contiguous(), bproj, bias)
+
+
+def _leff_args(c: int, res: int, key: int = 0, *, batch: int | None = None,
+               device="cuda"):
+    """(x bf16 [B, res, res, c], ln scale, ln bias, w1 [4c, c], b1,
+    wdw [4c, 1, 3, 3], bdw, w2 [c, 4c], b2): the script's numbers in torch
+    layouts."""
+    u = _draw(key, device)
+    ch = 4 * c
+    x = u(batch or B, res, res, c).to(torch.bfloat16)
+    lns, lnb, w1, b1, wdw, bdw, w2, b2 = (
+        u(c), u(c), u(c, ch), u(ch), u(3, 3, 1, ch), u(ch), u(ch, c), u(c))
+    return (x, lns, lnb, w1.t().contiguous(), b1,
+            wdw.permute(3, 2, 0, 1).contiguous(), bdw, w2.t().contiguous(), b2)
+
+
+def time_fn(name: str, fn, args, gf: float) -> float:
+    """Median ms per call of fn(*args): CUDA events around each of ITERS
+    launches after WARMUP calls (the host clock for CPU tensors). Prints the
+    script's line and returns the ms."""
+    cuda = args[0].is_cuda
+    for _ in range(WARMUP):
+        fn(*args)
+    times = []
+    if cuda:
+        torch.cuda.synchronize()
+        marks = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) for _ in range(ITERS)]
+        for start, end in marks:
+            start.record()
+            fn(*args)
+            end.record()
+        torch.cuda.synchronize()
+        times = [s.elapsed_time(e) for s, e in marks]
+    else:
+        for _ in range(ITERS):
+            t0 = time.perf_counter()
+            fn(*args)
+            times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    print(f"{name:34s} {ms:8.4f} ms  {gf:7.1f} GF  {gf / ms:6.1f} TF/s",
+          flush=True)
+    return ms
+
+
+# ---------------------------------------------------------------------------
+# K9: the attention ablation kernel and its plain version
+# ---------------------------------------------------------------------------
+
+def _abl_attention_plain(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
+                         bproj, bias, *, heads: int, softmax: bool,
+                         perhead: bool, trans: bool) -> torch.Tensor:
+    """The script's `_abl_kernel` (measure_swin_rates.py:136-199) in plain
+    PyTorch, computed in x4's dtype: LN, q (scaled) / kv rounded; per head
+    softmax(q k^T + bias) (or logits / n) rounded, times v, rounded; or
+    o = q + k + v; then the f32-accumulated projection."""
+    b, h, w, c = x4.shape
+    cd = x4.dtype
+    dh = c // heads
+    xw = window_partition(x4, WS) if trans else x4.reshape(-1, N, c)
+    g = xw.shape[0]
+    y = _rounded(layer_norm_f32(xw, ln_scale, ln_bias), cd)
+    q = _rounded((y @ _rounded(wq, cd).t() + bq.float()) * dh ** -0.5, cd)
+    kv = _rounded(y @ _rounded(wkv, cd).t() + bkv.float(), cd)
+    if perhead:
+        def split(a):
+            return a.reshape(g, N, heads, dh).transpose(1, 2)
+
+        logits = split(q) @ split(kv[..., :c]).transpose(-1, -2) \
+            + bias.float()[None]
+        p = _rounded(torch.softmax(logits, -1) if softmax
+                     else logits * (1.0 / N), cd)
+        o = _rounded(p @ split(kv[..., c:]), cd).transpose(1, 2).reshape(
+            g, N, c)
+    else:
+        o = _rounded(_rounded(q + kv[..., :c], cd) + kv[..., c:], cd)
+    out = o @ _rounded(wproj, cd).t() + bproj.float()
+    out = window_reverse(out, WS, h, w) if trans else out.reshape(b, h, w, c)
+    return out.to(cd)
+
+
+_ATTN_VARIANTS = {(True, True, True): 0, (False, True, True): 1,
+                  (True, False, True): 2, (True, True, False): 3}
+
+
+def ablation_attention(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
+                       bias, *, heads: int, softmax: bool = True,
+                       perhead: bool = True, trans: bool = True,
+                       plain: bool = False) -> torch.Tensor:
+    """K9 on a bf16 CUDA map [B, H, W, C] (at most one stage off), or its
+    plain version for CPU tensors or with `plain=True`."""
+    key = (softmax, perhead, trans)
+    if key not in _ATTN_VARIANTS:
+        raise ValueError(f"ablation_attention takes one stage off at a time, "
+                         f"not softmax={softmax} perhead={perhead} "
+                         f"trans={trans}")
+    if plain or x4.device.type == "cpu":
+        return _abl_attention_plain(
+            x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj, bias,
+            heads=heads, softmax=softmax, perhead=perhead, trans=trans)
+    b, h, w, c = x4.shape
+    if (x4.device.type != "cuda" or x4.dtype != torch.bfloat16
+            or not x4.is_contiguous() or h % WS or w % WS or c % heads):
+        raise ValueError(
+            f"ablation_attention kernel does not take x {tuple(x4.shape)} "
+            f"{x4.dtype} {x4.device}, heads={heads}: a contiguous bfloat16 "
+            f"CUDA map with H, W multiples of {WS} and C of heads")
+    lib = _build.library()
+    if lib.fbanet_window_attention_smem(N, c, heads, 1) == 0:
+        raise ValueError(f"ablation_attention kernel does not take C={c}, "
+                         f"heads={heads}: C and the head size must be "
+                         f"multiples of 16")
+    args = _kernel_args(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
+                        bias, None)
+    out = torch.empty_like(x4)
+    err = lib.fbanet_window_attention_ablation(
+        x4.data_ptr(), out.data_ptr(),
+        *[None if a is None else a.data_ptr() for a in args],
+        b, h, w, c, heads, WS, _ATTN_VARIANTS[key],
+        torch.cuda.current_stream(x4.device).cuda_stream)
+    _build.check(err, "ablation_attention")
+    ablation_attention.launches += 1
+    return out
+
+
+ablation_attention.launches = 0
+
+
+def abl_attention(c: int, res: int, heads: int, *, softmax: bool = True,
+                  perhead: bool = True, trans: bool = True):
+    """The script's factory: call(x4, lns, lnb, wq, bq, wkv, bkv, wproj,
+    bproj, bias) runs K9 (or its plain version on the CPU) on a
+    [batch, res, res, c] map, mask-free."""
+    def call(x4, *params, plain: bool = False):
+        if tuple(x4.shape[1:]) != (res, res, c):
+            raise ValueError(f"abl_attention({c}, {res}, {heads}) got x "
+                             f"{tuple(x4.shape)}")
+        return ablation_attention(x4, *params, heads=heads, softmax=softmax,
+                                  perhead=perhead, trans=trans, plain=plain)
+    return call
+
+
+# ---------------------------------------------------------------------------
+# K10: the LeFF ablation kernel and its plain version
+# ---------------------------------------------------------------------------
+
+def _abl_leff_plain(x, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, b2, *,
+                    gelu: bool, dw: bool) -> torch.Tensor:
+    """The script's `_leff_abl_kernel` (measure_swin_rates.py:253-293) in
+    plain PyTorch, computed in x's dtype: LN rounded; h1 = act(dense1)
+    rounded; h2 = act(depthwise 3x3 of h1 + bias) rounded (or act(h1));
+    the f32-accumulated dense2. act is the tanh GELU or x * 0.7."""
+    cd = x.dtype
+    ch = w1.shape[0]
+
+    def act(v):
+        return F.gelu(v, approximate="tanh") if gelu else v * 0.7
+
+    y = _rounded(layer_norm_f32(x, ln_scale, ln_bias), cd)
+    h1 = _rounded(act(y @ _rounded(w1, cd).t() + b1.float()), cd)
+    if dw:
+        taps = wdw.float().reshape(ch, 9)
+        z2 = bdw.float().expand_as(h1)
+        for tap, h1s in _taps(h1):
+            z2 = z2 + h1s * taps[:, tap]
+        h2 = _rounded(act(z2), cd)
+    else:
+        h2 = _rounded(act(h1), cd)
+    return (h2 @ _rounded(w2, cd).t() + b2.float()).to(cd)
+
+
+_LEFF_VARIANTS = {(True, True): 0, (False, True): 1, (True, False): 2}
+
+
+def ablation_leff(x, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, b2, *,
+                  gelu: bool = True, dw: bool = True,
+                  plain: bool = False) -> torch.Tensor:
+    """K10 on a bf16 CUDA map [B, H, W, C] (at most one stage off), or its
+    plain version for CPU tensors or with `plain=True`."""
+    if (gelu, dw) not in _LEFF_VARIANTS:
+        raise ValueError("ablation_leff takes one stage off at a time")
+    if plain or x.device.type == "cpu":
+        return _abl_leff_plain(x, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, b2,
+                               gelu=gelu, dw=dw)
+    b, h, w, c = x.shape
+    ch = w1.shape[0]
+    if (x.device.type != "cuda" or x.dtype != torch.bfloat16
+            or not x.is_contiguous() or tuple(wdw.shape) != (ch, 1, 3, 3)):
+        raise ValueError(f"ablation_leff kernel does not take x "
+                         f"{tuple(x.shape)} {x.dtype} {x.device}, hidden "
+                         f"{ch}: a contiguous bfloat16 CUDA map")
+    lib = _build.library()
+    if lib.fbanet_leff_smem(c, ch, 1) == 0:
+        raise ValueError(f"ablation_leff kernel does not take C={c}, hidden "
+                         f"{ch}: both must be multiples of 16")
+    args = _leff_kernel_args(x, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, b2)
+    out = torch.empty_like(x)
+    err = lib.fbanet_leff_ablation(
+        x.data_ptr(), out.data_ptr(), *[a.data_ptr() for a in args],
+        b, h, w, c, ch, _LEFF_VARIANTS[(gelu, dw)],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "ablation_leff")
+    ablation_leff.launches += 1
+    return out
+
+
+ablation_leff.launches = 0
+
+
+def abl_leff(c: int, res: int, *, gelu: bool = True, dw: bool = True):
+    """The script's factory: call(x, lns, lnb, w1, b1, wdw, bdw, w2, b2)
+    runs K10 (or its plain version on the CPU) on a [batch, res, res, c]
+    map."""
+    def call(x, *params, plain: bool = False):
+        if tuple(x.shape[1:]) != (res, res, c):
+            raise ValueError(f"abl_leff({c}, {res}) got x {tuple(x.shape)}")
+        return ablation_leff(x, *params, gelu=gelu, dw=dw, plain=plain)
+    return call
+
+
+ATTN_ABLATIONS = [("full", {}), ("nosoftmax", {"softmax": False}),
+                  ("nocore", {"perhead": False}),
+                  ("notrans", {"trans": False})]
+LEFF_ABLATIONS = [("full", {}), ("nogelu", {"gelu": False}),
+                  ("nodw", {"dw": False})]
+
+
+def device_line(device: str) -> str:
+    """The header's name for the device the numbers come from."""
+    if device == "cuda":
+        return f"cuda ({torch.cuda.get_device_name(0)})"
+    return device
+
+
+def parse_args(argv, default_modes, doc: str):
+    parser = argparse.ArgumentParser(description=doc.splitlines()[0])
+    parser.add_argument("modes", nargs="*", default=default_modes)
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (the kernels) or cpu (the plain versions)")
+    parser.add_argument("--only", default="",
+                        help="comma-separated group names to keep")
+    args = parser.parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: the kernels run on the card "
+                         "(--device cpu times the plain versions)")
+    return args
+
+
+def main(argv=None) -> dict:
+    """Run the modes; returns {line name: ms}."""
+    args = parse_args(sys.argv[1:] if argv is None else argv,
+                      ["attn", "leff"], __doc__)
+    dev, what = args.device, args.modes
+    groups = [g for g in GROUPS
+              if not args.only or g[0] in args.only.split(",")]
+    print(f"backend={device_line(dev)} B={B} dtype=bfloat16", flush=True)
+    ms = {}
+    # each group's inputs drawn once per run (numpy takes ~0.3 s a map)
+    attn_args = functools.cache(
+        lambda c, res, heads: _attn_args(c, res, heads, device=dev))
+    leff_args = functools.cache(lambda c, res: _leff_args(c, res, device=dev))
+
+    def run(name, fn, fargs, gf):
+        ms[name] = time_fn(name, fn, fargs, gf)
+        return ms[name]
+
+    if "attn" in what:
+        for name, c, res, heads in groups:
+            a = attn_args(c, res, heads)
+            run(f"attn/{name}_c{c}@{res}h{heads}",
+                lambda *t, heads=heads: fused_window_attention_2d(
+                    *t, None, heads=heads, window_size=WS), a,
+                attn_gflops(c, res))
+
+    if "leff" in what:
+        for name, c, res, _heads in groups:
+            run(f"leff/{name}_c{c}@{res}", fused_leff, leff_args(c, res),
+                leff_gflops(c, res))
+
+    if "ablate" in what:
+        for kind, table, make, gflops in (
+                ("attn", ATTN_ABLATIONS, abl_attention, attn_gflops),
+                ("leff", LEFF_ABLATIONS, abl_leff, leff_gflops)):
+            for name, c, res, heads in groups:
+                if kind == "attn":
+                    a = attn_args(c, res, heads)
+                    fns = [make(c, res, heads, **kw) for _v, kw in table]
+                else:
+                    a = leff_args(c, res)
+                    fns = [make(c, res, **kw) for _v, kw in table]
+                gf = gflops(c, res)
+                full = None
+                for (vname, _kw), fn in zip(table, fns):
+                    t = run(f"abl-{kind}/{name} {vname}", fn, a, gf)
+                    if full is None:
+                        full = t
+                    else:
+                        print(f"{'':34s} full - {vname}: {full - t:+.4f} ms "
+                              f"({100 * (full - t) / full:+.1f} % of full)",
+                              flush=True)
+    return ms
+
+
+if __name__ == "__main__":
+    main()

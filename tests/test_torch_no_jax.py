@@ -1,12 +1,14 @@
 """The port runs where JAX is not installed (GPU hosts need not have it).
 
-1. Static: no module of fbanet_tpu_torch/ (nor chip_smoke.py) imports jax,
-   flax, optax, jaxtyping or any module of the JAX package `fbanet_tpu`
-   (the port keeps its own configuration, `fbanet_tpu_torch.config`).
+1. Static: no module of fbanet_tpu_torch/ (its kernel-measurement tools in
+   `tools/` included; nor chip_smoke.py) imports jax, flax, optax,
+   jaxtyping, any module of the JAX package `fbanet_tpu` or its `scripts/`
+   (the port keeps its own configuration, `fbanet_tpu_torch.config`, and its
+   own copies of the tools).
 2. Dynamic: a subprocess whose import system refuses those packages and all
    of `fbanet_tpu` runs a tiny CPU forward, registration (translation and
    homography ECC, optical flow), evaluation step and training step of the
-   port.
+   port, and the windowed attention with the tools' ablation functions.
 """
 
 import ast
@@ -29,7 +31,7 @@ def _imports(path: Path):
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    if top in BLOCKED:
+    if top in BLOCKED or top == "scripts":
         return True
     return top == "fbanet_tpu" and name not in ALLOWED_FROM_JAX_PACKAGE
 
@@ -37,6 +39,8 @@ def _forbidden(name: str) -> bool:
 def test_port_sources_import_no_jax():
     files = sorted((ROOT / "fbanet_tpu_torch").rglob("*.py"))
     assert len(files) >= 14
+    tools = {f.name for f in files if f.parent.name == "tools"}
+    assert {"measure_swin_rates.py", "measure_bwd.py"} <= tools, tools
     bad = [f"{f.relative_to(ROOT)}: {m}" for f in files + [ROOT / "chip_smoke.py"]
            for m in _imports(f) if _forbidden(m)]
     assert not bad, bad
@@ -90,6 +94,18 @@ before = model.head.weight.detach().clone()
 loss = step(burst, torch.rand(1, 64, 64, 3), torch.Generator().manual_seed(0),
             1e-3)
 assert torch.isfinite(loss) and not torch.equal(before, model.head.weight)
+
+from fbanet_tpu_torch.ops.attention import fused_window_attention
+from fbanet_tpu_torch.tools.measure_bwd import _win_args, abl_backward
+from fbanet_tpu_torch.tools.measure_swin_rates import _leff_args, abl_leff
+x, g, *p = _win_args(32, 16, 2, batch=1, device="cpu")
+xr = x.float().requires_grad_()
+fused_window_attention(xr, *p[:7], torch.zeros(32), p[7], None, heads=2,
+                       windows_per_image=4).sum().backward()
+assert torch.isfinite(xr.grad).all()
+assert len(abl_backward(32, 16, 2, core=False)(x, g, *p)) == 10
+assert abl_leff(32, 16, dw=False)(*_leff_args(32, 16, batch=1,
+                                              device="cpu")).shape[1] == 16
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED
                 or m.startswith("fbanet_tpu."))
 print("LOADED", loaded)
