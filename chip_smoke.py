@@ -57,12 +57,24 @@ non-zero:
    (`measure_swin_rates attn leff ablate`, `measure_bwd check groups
    plainref leffabl merged ablate`, their tables printed) and K1b forward +
    backward through autograd at the five shapes.
+10. variants: K7 (K1's function with its head stage rewritten: loop,
+   loop_ln, stack3d, stack3d_ln, lanepack, ln+qkv1, ln+nr2) and K8 (K2's
+   with packed-bf16 depthwise and/or GELUs), every variant against its
+   plain version on the tool's B=8 inputs at the five shapes (bf16, 3e-2
+   of max(1, |out|)), K7 loop_ln bitwise against K1 and K8 with no flag
+   bitwise against K2, each K7 core's heads per stage as the kernel
+   reports it. Then the slice's main path: `measure_swin_variants check time`
+   at B=8 and `profile_components` over every component at the published
+   sizes (their tables printed); then mfu_forward / mfu_train
+   (`flops_accounting.mfu_fields`) from the slice's forward and the train
+   phase's step times.
 
 Each kernel wrapper counts its launches; the counts are set to 0 just
-before the registration, the CLI stream, the serving, the training and the
-measurement runs and read just after. The line before the last is a JSON
-object {"kernels": [...]} (launches on those runs; error, times and bound
-from phases 3-6 and 9; K9-K11 also per variant), preceded by the
+before the registration, the CLI stream, the serving, the training, the
+measurement and the variant runs and read just after. The line before the
+last is a JSON object {"kernels": [...]} (launches on those runs; error,
+times and bound from phases 3-6, 9 and 10; K7 and K9-K11 also per
+variant), preceded by the
 nvidia-smi name/power-limit line; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -846,10 +858,10 @@ def phase_align_stream(card: str, bursts, truth, kw) -> dict:
     return launches
 
 
-def phase_slice(card: str) -> dict:
+def phase_slice(card: str) -> tuple[dict, float]:
     """The serving path at the published width; ends with a torch.profiler
     table of one B=8 align + forward step by device time. Returns the launch
-    counts of the served run."""
+    counts of the served run and the B=8 forward's ms."""
     import torch
 
     from fbanet_tpu_torch.evaluate import eval_step
@@ -953,7 +965,7 @@ def phase_slice(card: str) -> dict:
         step()
     log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25,
                                   max_name_column_width=60))
-    return launches
+    return launches, fwd_ms
 
 
 # the measurement slice: K1b at B=2 (as K1), the tools and their ablation
@@ -1217,10 +1229,153 @@ def phase_measure(card: str) -> tuple[dict, dict]:
     return res, launches
 
 
+def phase_variants(card: str, fwd_ms: float, train_ms: float
+                   ) -> tuple[dict, dict]:
+    """The kernel-variant slice. K7, every variant the tool times, against
+    its plain version on the tool's B=8 inputs at the five SwinGroup shapes
+    (bf16, TOL), loop_ln bitwise against K1 (mask-free, no residual), each
+    core's heads per stage and shared memory as the kernel reports them;
+    K8, every variant, against its plain
+    version, and with no flag bitwise against K2 (no residual). Then the
+    main path, with the counts set to 0 just before and read just after:
+    `measure_swin_variants check time` at B=8 and `profile_components` over
+    every component at the published sizes. Then mfu_forward / mfu_train
+    from the slice's B=8 forward (`fwd_ms`) and the train phase's B=8 step
+    (`train_ms`). Returns (per-kernel results, launches)."""
+    import torch
+
+    from fbanet_tpu_torch.ops import _build
+    from fbanet_tpu_torch.ops.attention import fused_window_attention_2d
+    from fbanet_tpu_torch.ops.leff import fused_leff
+    from fbanet_tpu_torch.tools import flops_accounting, profile_components
+    from fbanet_tpu_torch.tools import measure_swin_rates as mr
+    from fbanet_tpu_torch.tools import measure_swin_variants as mv
+
+    lib = _build.library()
+    n = WS * WS
+    failures = []
+    res = {k: dict(max_abs_err=0.0, plain_ms=0.0, variants={})
+           for k in ("K7", "K8")}
+    bounds = {}
+
+    def compare(kernel, vname, line, got, ref, prod, work):
+        err, rel = rel_err(got, ref)
+        entry = res[kernel]["variants"].setdefault(vname, dict(max_abs_err=0.0))
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        res[kernel]["max_abs_err"] = max(res[kernel]["max_abs_err"], err)
+        bounds.setdefault((kernel, vname), Bound()).add(*work)
+        same = torch.equal(got, prod)
+        line += (f": max_abs_err={err:.3e} rel={rel:.3e} bitwise_equal_to_"
+                 f"{'K1' if kernel == 'K7' else 'K2'}={same}")
+        if not (rel <= TOL["bfloat16"]) or not torch.isfinite(got).all():
+            failures.append(line)
+        return line, same
+
+    for name, c, r, heads in mr.GROUPS:
+        chunks = {core: (lib.fbanet_attention_variant_chunk(n, c, heads, cid),
+                         lib.fbanet_attention_variant_smem(n, c, heads, cid))
+                  for core, cid in mv._CORE_IDS.items()}
+        line = (f"K7 {name} c{c}@{r} heads={heads}: (heads per stage, shared "
+                f"memory bytes) by core {chunks}")
+        if any(chunks[kw["core"]][0] == 0
+               for _v, kw in mv.attention_cases(name, c, r, heads)):
+            failures.append(line + ": a core the tool runs does not fit")
+        log(line)
+        args = mr._attn_args(c, r, heads, batch=MEASURE_B)
+        prod = fused_window_attention_2d(*args, None, heads=heads,
+                                         window_size=WS)
+        for vname, kw in mv.attention_cases(name, c, r, heads):
+            kw = dict(kw)
+            fn = mv.variant_attention(c, r, heads, kw.pop("core"), **kw)
+            got, ref = fn(*args), fn(*args, plain=True)
+            torch.cuda.synchronize()
+            line, same = compare(
+                "K7", vname, f"K7 {vname} {name} c{c}@{r} B={MEASURE_B} bf16",
+                got, ref, prod, attention_work(r, c, heads, False,
+                                               batch=MEASURE_B))
+            if vname == "loop":
+                pms = time_ms(lambda fn=fn: fn(*args, plain=True), iters=3,
+                              repeats=3)
+                res["K7"]["plain_ms"] += pms
+                line += f" plain_ms={pms:.4f}"
+            if vname == "loop_ln" and not same:
+                failures.append(line)
+            log(line)
+        la = mr._leff_args(c, r, batch=MEASURE_B)
+        k2 = fused_leff(*la)
+        for vname, kw in [("prod", {})] + list(mv.LEFF_VARIANTS.items()):
+            fn = mv.variant_leff(c, r, **kw)
+            got, ref = fn(*la), fn(*la, plain=True)
+            torch.cuda.synchronize()
+            line, same = compare(
+                "K8", vname, f"K8 {vname} {name} c{c}@{r} B={MEASURE_B} bf16",
+                got, ref, k2, leff_work(r, c, batch=MEASURE_B))
+            if vname == "prod":
+                pms = time_ms(lambda fn=fn: fn(*la, plain=True), iters=3,
+                              repeats=3)
+                res["K8"]["plain_ms"] += pms
+                line += f" plain_ms={pms:.4f}"
+                if not same:
+                    failures.append(line)
+            log(line)
+    if failures:
+        raise AssertionError("variant slice disagrees with its plain versions "
+                             "or the production kernels:\n"
+                             + "\n".join(failures))
+
+    # the main path: the tool's check and time modes, every component
+    counters = _counters()
+    torch.cuda.synchronize()
+    for cnt in counters.values():
+        cnt.launches = 0
+    t0 = time.perf_counter()
+    mv.main(["check"])
+    timed = mv.main(["time"])
+    comps = profile_components.main([])
+    torch.cuda.synchronize()
+    launches = {k: cnt.launches for k, cnt in counters.items()}
+    log(f"variants: the tool at B={MEASURE_B} and the component profile in "
+        f"{time.perf_counter() - t0:.1f} s on {card}; launches {launches}")
+    if not all(math.isfinite(v) and v > 0 for v in comps.values()):
+        raise AssertionError(f"component profile not finite: {comps}")
+
+    k1_ms = sum(ms for nm, ms in timed.items()
+                if nm.startswith("var/") and nm.endswith(" prod"))
+    for kernel, prefix, rep, beside in (
+            ("K7", "var", "loop", f" (K1 at the five: {k1_ms:.4f} ms)"),
+            ("K8", "leffvar", "prod", " (prod: K2's instantiation)")):
+        entry = res[kernel]
+        for vname, v in entry["variants"].items():
+            v["ms"] = sum(ms for nm, ms in timed.items()
+                          if nm.startswith(f"{prefix}/")
+                          and nm.endswith(f" {vname}"))
+            v.update(bounds[(kernel, vname)].fields())
+        entry.update(ms=entry["variants"][rep]["ms"],
+                     bound_ms=entry["variants"][rep]["bound_ms"],
+                     bound_by=entry["variants"][rep]["bound_by"],
+                     library_ms=None)
+        log(f"{kernel} at B={MEASURE_B}, summed over the groups each ran"
+            f"{beside}: "
+            + "; ".join(f"{v} {d['ms']:.4f} ms (bound {d['bound_ms']:.4f}, "
+                        f"{d['bound_by']})"
+                        for v, d in entry["variants"].items()))
+    mfu = flops_accounting.mfu_fields(8, 14, 160, 64, fwd_ms / 1e3,
+                                      8e3 / train_ms, 8)
+    log(f"mfu at B=8 on {card}: {mfu} (forward {fwd_ms:.2f} ms from the "
+        f"slice phase, train {train_ms:.2f} ms/step from the train phase, "
+        f"against {flops_accounting.H100_BF16_PEAK / 1e12:.0f} TFLOP/s "
+        f"dense bf16)")
+    return res, launches
+
+
 def _counters():
     """name -> the wrapper whose `.launches` counts that kernel."""
     from fbanet_tpu_torch.ops import attention, leff, reduce, warp_kernels
-    from fbanet_tpu_torch.tools import measure_bwd, measure_swin_rates
+    from fbanet_tpu_torch.tools import (
+        measure_bwd,
+        measure_swin_rates,
+        measure_swin_variants,
+    )
 
     return {"K1": attention.fused_window_attention_2d,
             "K2": leff.fused_leff, "K3": attention.window_attention_bwd,
@@ -1231,7 +1386,9 @@ def _counters():
             "K1b": attention.fused_window_attention,
             "K9": measure_swin_rates.ablation_attention,
             "K10": measure_swin_rates.ablation_leff,
-            "K11": measure_bwd.ablation_backward}
+            "K11": measure_bwd.ablation_backward,
+            "K7": measure_swin_variants.attention_variant,
+            "K8": measure_swin_variants.leff_variant}
 
 
 def _device_ms(events) -> tuple[float, dict]:
@@ -1252,7 +1409,7 @@ def _device_ms(events) -> tuple[float, dict]:
     return total / 1e3, ours
 
 
-def phase_train(card: str) -> dict:
+def phase_train(card: str) -> tuple[dict, float]:
     """The training path at the published width: FBANet-64 (14 frames,
     160 px, window 8, bf16 compute, f32 parameters, drop_path 0.1), random
     weights from a seed, AdamW at lr 1e-4, B=8 synthetic bursts with HR
@@ -1260,7 +1417,8 @@ def phase_train(card: str) -> dict:
     every parameter moved, and 20 launches per step of each of K1-K4. Then
     one f32 step at B=2 holds every parameter gradient of the kernel path
     against the plain path, and the B=8 step is timed against the plain
-    versions and profiled. Returns the launch counts of the 5 steps."""
+    versions and profiled. Returns the launch counts of the 5 steps and
+    the B=8 step's ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1360,7 +1518,7 @@ def phase_train(card: str) -> dict:
     total, ours = _device_ms(events)
     log(f"train B=8 profile: device {total:.3f} ms, port kernels (ms) "
         f"{ {k: round(v, 3) for k, v in ours.items()} }")
-    return launches
+    return launches, ms
 
 
 def main() -> None:
@@ -1403,15 +1561,18 @@ def main() -> None:
     kres.update(timed("reduce", phase_reduce))
     reg, registered = timed("registration", phase_registration, card)
     kres.update(reg)
-    served = timed("slice", phase_slice, card)
-    trained = timed("train", phase_train, card)
+    served, fwd_ms = timed("slice", phase_slice, card)
+    trained, train_ms = timed("train", phase_train, card)
     mres, measured = timed("measure", phase_measure, card)
     kres.update(mres)
+    vres, varied = timed("variants", phase_variants, card, fwd_ms, train_ms)
+    kres.update(vres)
     # launches on the main paths: registration (K5, K6), serving (K1, K2),
-    # training (K1-K4, R1, R2) and measurement (K1b, K9-K11 and, through
-    # the tools, K1-K4, R1, R2)
+    # training (K1-K4, R1, R2), measurement (K1b, K9-K11 and, through the
+    # tools, K1-K4, R1, R2) and the variants (K7, K8 and, through the tools,
+    # K1-K4, R1, R2)
     launches = {k: registered.get(k, 0) + served.get(k, 0) + trained.get(k, 0)
-                + measured.get(k, 0) for k in kres}
+                + measured.get(k, 0) + varied.get(k, 0) for k in kres}
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: "
@@ -1441,6 +1602,10 @@ def main() -> None:
          "scripts/measure_swin_rates.py:253"),
         ("K11", "K11 attention backward ablation (measure_bwd)",
          "attention_bwd_ablation.cu", "scripts/measure_bwd.py:182"),
+        ("K7", "K7 attention head-stage variants (measure_swin_variants)",
+         "attention_variants.cu", "scripts/measure_swin_variants.py:241"),
+        ("K8", "K8 LeFF packed-bf16 variants (measure_swin_variants)",
+         "leff_variants.cu", "scripts/measure_swin_variants.py:355"),
     )
     kernels = [{"name": name, "route": "cuda",
                 "source": f"fbanet_tpu_torch/csrc/{src}", "replaces": where,

@@ -40,18 +40,14 @@
 // row-major map: K1b's addressing over the map's memory). Its `full` variant
 // is K1's own instantiation. The changed math is deliberate: the variants
 // exist to split K1's time by stage.
-#include "common.cuh"
+//
+// K7 (attention_variants.cu) rewrites this body's head stage; the pieces
+// both use (head group, shared-memory layout, softmax) are in
+// attention_fwd.cuh.
+#include "attention_fwd.cuh"
 
 namespace fbanet {
 namespace {
-
-// Heads per group: the largest divisor of `heads` whose columns fit in 64.
-__host__ __device__ inline int head_group(int heads, int dh) {
-  int hg = 1;
-  for (int g = 1; g <= heads; ++g)
-    if (heads % g == 0 && g * dh <= 64) hg = g;
-  return hg;
-}
 
 // f32 kernel: every array f32 with odd row strides (no bank conflicts).
 inline size_t attention_f32_smem(int n, int C, int heads) {
@@ -59,52 +55,6 @@ inline size_t attention_f32_smem(int n, int C, int heads) {
   const int gw = head_group(heads, dh) * dh;
   return sizeof(float) * ((size_t)2 * n * (C + 1) + (size_t)3 * n * (gw + 1) +
                           (size_t)n * (n + 1) + n);
-}
-
-// bf16 kernel: byte offsets of its shared-memory arrays, in this order:
-// LN output y and attention output o [n][C+8] bf16; q, k, v of a head
-// group [n][gw+8] bf16; probabilities p [n][n+8] bf16; f32 logits s
-// [n][n+1]; f32 1 / row sums; one 16 x 16 f32 WMMA epilogue slot per warp.
-struct Bf16Layout {
-  size_t y, o, q, k, v, p, s, inv, scratch, total;
-  __host__ __device__ Bf16Layout(int n, int C, int gw) {
-    y = 0;
-    o = y + align128(sizeof(bf16) * n * (C + 8));
-    q = o + align128(sizeof(bf16) * n * (C + 8));
-    k = q + align128(sizeof(bf16) * n * (gw + 8));
-    v = k + align128(sizeof(bf16) * n * (gw + 8));
-    p = v + align128(sizeof(bf16) * n * (gw + 8));
-    s = p + align128(sizeof(bf16) * n * (n + 8));
-    inv = s + align128(sizeof(float) * n * (n + 1));
-    scratch = inv + align128(sizeof(float) * n);
-    total = scratch + sizeof(float) * 256 * (kThreads / 32);
-  }
-};
-
-__host__ __device__ inline int group_width(int C, int heads) {
-  return head_group(heads, C / heads) * (C / heads);
-}
-
-// Softmax of one logits row per warp: probabilities (rounded to the compute
-// type) into p, 1 / (f32 row sum) into inv; the division happens after AV.
-template <typename TP>
-__device__ __forceinline__ void softmax_rows(int n, const float* sS, int lds,
-                                             TP* sP, int ldp, float* sInv) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int m = warp; m < n; m += kThreads / 32) {
-    const float* row = sS + m * lds;
-    float mx = __int_as_float(0xff800000);  // -inf
-    for (int s = lane; s < n; s += 32) mx = fmaxf(mx, row[s]);
-    mx = warp_max(mx);
-    float sum = 0.f;
-    for (int s = lane; s < n; s += 32) {
-      const float e = expf(row[s] - mx);
-      sum += e;
-      sP[m * ldp + s] = from_f<TP>(e);
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) sInv[m] = 1.0f / sum;
-  }
 }
 
 // Six ints only: three more (a 132-byte parameter block instead of 120)

@@ -29,123 +29,17 @@
 // tile's own tokens; dense1 still runs on the halo, as the script's does).
 // Its `full` variant is K2's own instantiation. The changed math is
 // deliberate: the variants exist to split K2's time by stage.
-#include "common.cuh"
+//
+// The bf16 kernel and its stages live in leff.cuh, so that K8
+// (leff_variants.cu, its packed-bf16 flags) builds in its own file.
+#include "leff.cuh"
 
 namespace fbanet {
 namespace {
 
-constexpr int kTileH = 8, kTileW = 8;
-constexpr int kInH = kTileH + 2, kInW = kTileW + 2;
-constexpr int kIn = kInH * kInW, kOut = kTileH * kTileW;
-constexpr int kInPad = 112;  // kIn rounded up to the 16-row WMMA tile
-constexpr int kChunkF32 = 32, kChunkBf16 = 64;  // hidden channels per pass
-
 inline size_t leff_f32_smem(int C) {
   return sizeof(float) * ((size_t)(kIn + kOut) * (C + 1) +
                           (size_t)(kIn + kOut) * (kChunkF32 + 1));
-}
-
-// bf16 kernel: byte offsets of y [112][C+8] bf16, the f32 accumulator
-// [64][C+4], h1 [112][chunk+8] bf16, h2 [64][chunk+8] bf16 and one 16 x 16
-// f32 WMMA epilogue slot per warp.
-struct Bf16Layout {
-  size_t y, acc, h1, h2, scratch, total;
-  __host__ __device__ explicit Bf16Layout(int C) {
-    y = 0;
-    acc = y + align128(sizeof(bf16) * kInPad * (C + 8));
-    h1 = acc + align128(sizeof(float) * kOut * (C + 4));
-    h2 = h1 + align128(sizeof(bf16) * kInPad * (kChunkBf16 + 8));
-    scratch = h2 + align128(sizeof(bf16) * kOut * (kChunkBf16 + 8));
-    total = scratch + sizeof(float) * 256 * (kThreads / 32);
-  }
-};
-
-struct Args {
-  const void* x;
-  void* out;
-  const float *ln_s, *ln_b;
-  const void *w1, *w2;  // compute-dtype weights, torch Linear layout
-  const float *b1, *wdw, *bdw, *b2;
-  int H, W, C, Ch, residual;
-};
-
-// The block's tile: image b, output rows/cols from (r0 + 1, c0 + 1); halo
-// token t sits at (r0 + t / kInW, c0 + t % kInW).
-struct Tile {
-  int b, r0, c0;
-  __device__ explicit Tile(const Args& a) {
-    const int tiles_w = (a.W + kTileW - 1) / kTileW;
-    const int tiles_h = (a.H + kTileH - 1) / kTileH;
-    int blk = blockIdx.x;
-    const int tx = blk % tiles_w;
-    blk /= tiles_w;
-    const int ty = blk % tiles_h;
-    b = blk / tiles_h;
-    r0 = ty * kTileH - 1;
-    c0 = tx * kTileW - 1;
-  }
-  __device__ bool inside(const Args& a, int t) const {
-    const int r = r0 + t / kInW, c = c0 + t % kInW;
-    return r >= 0 && r < a.H && c >= 0 && c < a.W;
-  }
-  __device__ size_t pix(const Args& a, int r, int c) const {
-    return (((size_t)b * a.H + r) * a.W + c) * a.C;
-  }
-};
-
-// The hidden activation: tanh-GELU, or K10's nogelu stand-in x * 0.7.
-template <bool kGelu>
-__device__ __forceinline__ float act(float v) {
-  if constexpr (kGelu) return gelu_tanh(v);
-  return v * 0.7f;
-}
-
-// h2[t][j] = round(act(bdw + sum_taps h1 * w)) for the 64 interior tokens
-// of hidden channels k0 .. k0 + kc (f32 taps, accumulated in this order).
-template <typename T, bool kGelu, typename TH>
-__device__ __forceinline__ void depthwise_gelu(const Args& a, int k0, int kc,
-                                               const TH* sH1, TH* sH2, int ldk) {
-  for (int i = threadIdx.x; i < kOut * kc; i += blockDim.x) {
-    const int t = i / kc, j = i % kc;
-    const int r = t / kTileW, c = t % kTileW;
-    const float* wk = a.wdw + (size_t)(k0 + j) * 9;
-    float acc = a.bdw[k0 + j];
-#pragma unroll
-    for (int ky = 0; ky < 3; ++ky)
-#pragma unroll
-      for (int kx = 0; kx < 3; ++kx)
-        acc += to_f(sH1[((r + ky) * kInW + c + kx) * ldk + j]) * wk[ky * 3 + kx];
-    sH2[t * ldk + j] = from_f<TH>(round_to<T>(act<kGelu>(acc)));
-  }
-}
-
-// K10 nodw: h2 = round(act(h1)) on the 64 interior tokens.
-template <bool kGelu>
-__device__ __forceinline__ void pointwise_act(int kc, const bf16* sH1, bf16* sH2, int ldk) {
-  for (int i = threadIdx.x; i < kOut * kc; i += blockDim.x) {
-    const int t = i / kc, j = i % kc;
-    const int r = t / kTileW, c = t % kTileW;
-    const float h1 = __bfloat162float(sH1[((r + 1) * kInW + c + 1) * ldk + j]);
-    sH2[t * ldk + j] = __float2bfloat16(act<kGelu>(h1));
-  }
-}
-
-// out = acc + b2 (+ x) for the tile's in-image output tokens.
-template <typename T>
-__device__ __forceinline__ void write_out(const Args& a, const Tile& tile,
-                                          const float* sAcc, int ldacc) {
-  const T* x = (const T*)a.x;
-  T* out = (T*)a.out;
-  for (int i = threadIdx.x; i < kOut * a.C; i += blockDim.x) {
-    const int t = i / a.C, o = i % a.C;
-    const int r = tile.r0 + 1 + t / kTileW, c = tile.c0 + 1 + t % kTileW;
-    if (r < a.H && c < a.W) {
-      const size_t p = tile.pix(a, r, c) + o;
-      float v = sAcc[t * ldacc + o] + a.b2[o];
-      if (a.residual) v += to_f(x[p]);
-      out[p] = from_f<T>(v);
-    }
-  }
 }
 
 __global__ void __launch_bounds__(kThreads) leff_f32_kernel(Args a) {
@@ -186,53 +80,6 @@ __global__ void __launch_bounds__(kThreads) leff_f32_kernel(Args a) {
     __syncthreads();
   }
   write_out<float>(a, tile, sAcc, ldc);
-}
-
-// kGelu / kDw false: K10's nogelu / nodw (K2 itself is <true, true>).
-template <bool kGelu, bool kDw>
-__global__ void __launch_bounds__(kThreads) leff_bf16_kernel(Args a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int C = a.C, ldc = C + 8, ldacc = C + 4, ldk = kChunkBf16 + 8;
-  const Bf16Layout L(C);
-  bf16* sY = (bf16*)(smem_raw + L.y);
-  float* sAcc = (float*)(smem_raw + L.acc);
-  bf16* sH1 = (bf16*)(smem_raw + L.h1);
-  bf16* sH2 = (bf16*)(smem_raw + L.h2);
-  float* scratch = (float*)(smem_raw + L.scratch);
-  const Tile tile(a);
-  const bf16* x = (const bf16*)a.x;
-  const bf16* w1 = (const bf16*)a.w1;
-  const bf16* w2 = (const bf16*)a.w2;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  for (int t = warp; t < kInPad; t += kThreads / 32) {
-    if (t < kIn && tile.inside(a, t))
-      layernorm_row<bf16>(x + tile.pix(a, tile.r0 + t / kInW, tile.c0 + t % kInW), C,
-                          a.ln_s, a.ln_b, sY + t * ldc, lane);
-    else  // outside the image, and the padding rows of the last WMMA tile
-      for (int c = lane; c < C; c += 32) sY[t * ldc + c] = __float2bfloat16(0.f);
-  }
-  for (int i = threadIdx.x; i < kOut * ldacc; i += blockDim.x) sAcc[i] = 0.f;
-  __syncthreads();
-
-  for (int k0 = 0; k0 < a.Ch; k0 += kChunkBf16) {
-    const int kc = min(kChunkBf16, a.Ch - k0);
-    gemm_tc<wmma::col_major>(kIn, kInPad, kc, C, sY, ldc, w1 + (size_t)k0 * C, C, scratch,
-                             [&](int t, int j, float v) {
-                               sH1[t * ldk + j] = tile.inside(a, t)
-                                   ? __float2bfloat16(act<kGelu>(v + a.b1[k0 + j]))
-                                   : __float2bfloat16(0.f);
-                             });
-    __syncthreads();
-    if constexpr (kDw)
-      depthwise_gelu<bf16, kGelu>(a, k0, kc, sH1, sH2, ldk);
-    else
-      pointwise_act<kGelu>(kc, sH1, sH2, ldk);
-    __syncthreads();
-    gemm_tc_acc(kOut, C, kc, sH2, ldk, w2 + k0, a.Ch, sAcc, ldacc);
-    __syncthreads();
-  }
-  write_out<bf16>(a, tile, sAcc, ldacc);
 }
 
 using Kernel = void (*)(Args);

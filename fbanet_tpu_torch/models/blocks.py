@@ -1,5 +1,7 @@
 """Model blocks (counterpart of fbanet_tpu/models/blocks.py): ResBlock, the
-Federated Affinity Fusion block, SwinGroup and the x4 tail."""
+Federated Affinity Fusion block, SwinGroup and the x4 tail (the direct form
+the model runs, and the composed `fused_tail_x4` that
+tools/profile_components.py times beside it)."""
 
 from __future__ import annotations
 
@@ -7,6 +9,7 @@ from collections.abc import Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from fbanet_tpu_torch.models.layers import (
@@ -151,3 +154,71 @@ def tail_x4_direct(x: torch.Tensor, w0, b0, w1, b1, wt, bt,
     wk = rearrange_after_shuffle(wt)
     zz = conv_nhwc(z, wk, None, dtype, padding=wk.shape[-1] // 2)
     return pixel_shuffle(zz, 2) + bt.to(dtype)
+
+
+def compose_convs(wa: torch.Tensor, wb: torch.Tensor) -> torch.Tensor:
+    """The kernel K with conv(x, K) == conv(conv(x, wa), wb) away from image
+    borders ('same' zero padding, cross-correlation; blocks.py:126-145), on
+    torch layouts: wa [M, Ci, ka, ka], wb [Co, M, kb, kb] -> [Co, Ci, ka +
+    kb - 1, ka + kb - 1], K[t] = sum_{u+v=t} wb[v] . wa[u]. One 'full'
+    convolution over the tap grid: wa's taps as an image batched over Ci,
+    wb flipped as the kernel. Near borders the composition differs (it sees
+    intermediate values where the true pipeline zero-pads); callers repair
+    a (ka + kb - 2) / 2-wide ring."""
+    kb = wb.shape[-1]
+    out = F.conv2d(wa.transpose(0, 1), wb.flip(-1, -2), padding=kb - 1)
+    return out.transpose(0, 1)
+
+
+def _conv_same(y: torch.Tensor, wk: torch.Tensor, bk: torch.Tensor | None,
+               dtype: torch.dtype) -> torch.Tensor:
+    """'same' conv in `dtype`, the bias added after it (blocks.py:148-155)."""
+    out = conv_nhwc(y, wk, None, dtype, padding=wk.shape[-1] // 2)
+    return out if bk is None else out + bk.to(dtype)
+
+
+_TAIL_RING = 8    # 4H-scale border ring the composed conv gets wrong
+_TAIL_STRIP = 4   # feature-scale strip recomputed with the direct path
+                  # (exact rows 4 * (_TAIL_STRIP - 2) >= _TAIL_RING)
+
+
+def fused_tail_x4(x: torch.Tensor, w0, b0, w1, b1, wt, bt,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """The x4 tail as one composed 5x5 conv C -> 16 cout at the feature
+    resolution and both pixel shuffles in one permutation, with the border
+    ring recomputed by the direct path (blocks.py:180-237). The same
+    function as `tail_x4_direct` (the tail is linear), which the model
+    runs; this form is the TPU's speed trick, kept to time it on the card.
+    The kernels compose in float64 (the JAX package composes in f32 at
+    HIGHEST precision; float64 keeps the card's TF32 convolution setting
+    out of the weights). [B, H, W, C] -> [B, 4H, 4W, cout]."""
+    b, h, w, _c = x.shape
+    if min(h, w) < 2 * _TAIL_STRIP:
+        return tail_x4_direct(x, w0, b0, w1, b1, wt, bt, dtype)
+    f64 = torch.float64
+    # final conv folded to 2H-space, composed with conv1: [4 cout, C, 5, 5]
+    rt = rearrange_after_shuffle(wt.to(f64))
+    wa = compose_convs(w1.to(f64), rt)
+    cb = torch.einsum("oixy,i->o", rt, b1.to(f64))  # conv1 bias through rt
+    # folded to H-space, composed with conv0: [16 cout, C, 5, 5]
+    wb = rearrange_after_shuffle(wa)
+    wf = compose_convs(w0.to(f64), wb)
+    bf = cb.repeat_interleave(4) + torch.einsum("oixy,i->o", wb, b0.to(f64))
+    core = _conv_same(x, wf.float(), bf.float(), dtype)
+    # both shuffles at once: channel o * 16 + (dy2 * 2 + dx2) * 4 + (dy1 *
+    # 2 + dx1) lands at (2 dy1 + dy2, 2 dx1 + dx2)
+    cout = wt.shape[0]
+    out = core.reshape(b, h, w, cout, 2, 2, 2, 2).permute(
+        0, 1, 6, 4, 2, 7, 5, 3).reshape(b, 4 * h, 4 * w, cout)
+    out = out + bt.to(dtype)
+    # the exact ring from the direct path on four narrow strips, opposite
+    # strips batched together (written into `out`, a fresh tensor)
+    s, r = _TAIL_STRIP, _TAIL_RING
+    args = (w0, b0, w1, b1, wt, bt, dtype)
+    tb = tail_x4_direct(torch.cat([x[:, :s], x[:, -s:]]), *args)
+    out[:, :r] = tb[:b, :r]
+    out[:, -r:] = tb[b:, -r:]
+    lr = tail_x4_direct(torch.cat([x[:, :, :s], x[:, :, -s:]]), *args)
+    out[:, :, :r] = lr[:b, :, :r]
+    out[:, :, -r:] = lr[b:, :, -r:]
+    return out

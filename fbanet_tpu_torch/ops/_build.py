@@ -53,6 +53,15 @@ SIGNATURES = {
     # and (C, Ch, bf16)
     "fbanet_window_attention_smem": [_I, _I, _I, _I],
     "fbanet_leff_smem": [_I, _I, _I],
+    # K7: x, out, ln_s, ln_b, wq, bq, wkv, bkv, wproj, bproj, bias,
+    # B, H, W, C, heads, ws, core, qkv1, windows per block, stream; its
+    # shared memory and heads per stage, 0 for a shape it does not take:
+    # (tokens per window, C, heads, core)
+    "fbanet_attention_variant": [_P] * 11 + [_I] * 9 + [_P],
+    "fbanet_attention_variant_smem": [_I] * 4,
+    "fbanet_attention_variant_chunk": [_I] * 4,
+    # K8: K2's pointers, then B, H, W, C, Ch, variant, stream
+    "fbanet_leff_variant": [_P] * 10 + [_I] * 6 + [_P],
     # K3: x, g, dx, y/o/dq/dkv scratch, partial sums, ln_s, ln_b, wq, bq,
     # wkv, bkv, wproj, bias, mask, B, H, W, C, heads, ws, residual, bf16,
     # stream; and its head-group width, 0 for a shape it does not take:

@@ -8,7 +8,8 @@
 2. Dynamic: a subprocess whose import system refuses those packages and all
    of `fbanet_tpu` runs a tiny CPU forward, registration (translation and
    homography ECC, optical flow), evaluation step and training step of the
-   port, and the windowed attention with the tools' ablation functions.
+   port, the windowed attention with the tools' ablation functions, the
+   variant tool's K7 and K8 plain versions and the MFU fields.
 """
 
 import ast
@@ -40,7 +41,9 @@ def test_port_sources_import_no_jax():
     files = sorted((ROOT / "fbanet_tpu_torch").rglob("*.py"))
     assert len(files) >= 14
     tools = {f.name for f in files if f.parent.name == "tools"}
-    assert {"measure_swin_rates.py", "measure_bwd.py"} <= tools, tools
+    assert {"measure_swin_rates.py", "measure_bwd.py",
+            "measure_swin_variants.py", "profile_components.py",
+            "flops_accounting.py"} <= tools, tools
     bad = [f"{f.relative_to(ROOT)}: {m}" for f in files + [ROOT / "chip_smoke.py"]
            for m in _imports(f) if _forbidden(m)]
     assert not bad, bad
@@ -106,6 +109,14 @@ assert torch.isfinite(xr.grad).all()
 assert len(abl_backward(32, 16, 2, core=False)(x, g, *p)) == 10
 assert abl_leff(32, 16, dw=False)(*_leff_args(32, 16, batch=1,
                                               device="cpu")).shape[1] == 16
+from fbanet_tpu_torch.tools import measure_swin_variants as mv
+from fbanet_tpu_torch.tools.flops_accounting import mfu_fields
+from fbanet_tpu_torch.tools.measure_swin_rates import _attn_args
+assert mv.variant_attention(32, 16, 2, "lanepack")(
+    *_attn_args(32, 16, 2, batch=1, device="cpu")).shape == (1, 16, 16, 32)
+assert mv.variant_leff(32, 16, gelu_bf16=True)(
+    *_leff_args(32, 16, batch=1, device="cpu")).shape == (1, 16, 16, 32)
+assert mfu_fields(1, 2, 16, 8, 0.1, None, 1)["mfu_forward"] >= 0
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED
                 or m.startswith("fbanet_tpu."))
 print("LOADED", loaded)
