@@ -18,8 +18,11 @@ non-zero:
    fixed-order sums of ops/reduce.py, against their plain backwards at the
    same shapes, f32 and bf16, K3 masked and unmasked, residual on and off:
    every gradient within its limit, and bitwise equal over two runs.
-5. reduce: the two reduction kernels against their plain versions, timed
-   beside one library call each.
+5. reduce: the two reduction kernels against their plain versions at
+   every shape of the B=8 train step (R1 at its 25 weight-gradient shapes,
+   R2 at the K3/K4 partials, 800 x 6016 and 800 x 5760): relative error
+   <= 1e-4 and a bitwise repeat at each, kernel / library / plain ms and
+   the bound per shape and summed (tools/measure_reduce.py).
 6. registration: K5 (homography warp) and K6 (dense-coords warp) against
    their plain versions on the published burst, B=8 x 13 non-reference
    frames of 160 x 160 x 3 f32, nearest and constant mode (K6 at the three
@@ -519,46 +522,23 @@ def phase_backward(shapes) -> dict:
 
 
 def phase_reduce() -> dict:
-    """The two reduction kernels against their plain versions at the
-    largest main-path use (dec1's dW2 at B=2: T = 51200 tokens, 128 x 512
-    outputs, bf16; its per-tile partial sums, 800 x 5760 f32), with times
-    and the one-call library counterparts: torch.mm with an f32 output,
-    torch.sum."""
-    import torch
+    """The two reduction kernels against their plain versions at every
+    main-path shape of the B=8 train step (tools/measure_reduce.py): R1 at
+    the 25 (group, product) weight-gradient shapes, bf16, and R2 at K3's
+    and K4's per-block partials of the five groups, 800 x 6016 and 800 x
+    5760, f32.
+    Each shape within 1e-4 of the plain output's max and bitwise equal on
+    a repeat (the tool raises otherwise), timed beside the one-call library
+    counterpart (torch.mm with an f32 output, torch.sum). Times and bounds
+    are summed over each kernel's shapes."""
+    from fbanet_tpu_torch.tools import measure_reduce
 
-    from fbanet_tpu_torch.ops.reduce import column_sum, token_matmul
-
-    nrm = _normal_fn(700)
-    a = nrm((51200, 128), 1.0).to(torch.bfloat16)
-    b = nrm((51200, 512), 1.0).to(torch.bfloat16)
-    p = nrm((800, 3 * 128 + 11 * 512), 1.0)
+    got = measure_reduce.shapes(batch=8)
     res = {}
-    for name, fn, plain, lib, work in (
-            ("R1", lambda: token_matmul(a, b),
-             lambda: a.float().t() @ b.float(),
-             lambda: torch.mm(a.t(), b, out_dtype=torch.float32),
-             (2 * 51200 * 128 * 512, 0, 2 * 51200 * 640 + 4 * 128 * 512)),
-            ("R2", lambda: column_sum(p), lambda: p.sum(0),
-             lambda: torch.sum(p, 0), (0, p.numel(), 4 * (p.numel() + 5760)))):
-        got, again, ref = fn(), fn(), plain()
-        torch.cuda.synchronize()
-        err, rel = rel_err(got, ref)
-        rel = err / float(ref.abs().max())
-        bound = Bound()
-        bound.add(*work)
-        try:
-            lib_ms = time_ms(lib)
-        except (TypeError, RuntimeError):  # torch.mm without out_dtype
-            lib_ms = None
-        res[name] = dict(max_abs_err=err, ms=time_ms(fn),
-                         plain_ms=time_ms(plain), library_ms=lib_ms,
-                         **bound.fields())
-        log(f"{name} {'token_matmul' if name == 'R1' else 'column_sum'}: "
-            f"max rel err {rel:.3e} bitwise_repeat="
-            f"{torch.equal(got, again)} {res[name]}")
-        if not (rel <= 1e-4) or not torch.equal(got, again):
-            raise AssertionError(f"{name} disagrees with its plain version "
-                                 f"or does not repeat")
+    for name in ("R1", "R2"):
+        res[name] = dict(max_abs_err=max(r["max_abs_err"] for r in got[name]),
+                         **got["sums"][name])
+        log(f"{name} over its {len(got[name])} B=8 shapes: {res[name]}")
     return res
 
 

@@ -78,10 +78,12 @@ SIGNATURES = {
     # 0 for a shape it does not take: (C, Ch, bf16)
     "fbanet_leff_bwd": [_P] * 14 + [_I] * 7 + [_P],
     "fbanet_leff_bwd_chunk": [_I, _I, _I],
-    # the backward kernels' fixed-order sums: a, b, partials, T, M, N,
-    # tokens per slice, bf16, stream; and p, out, R, M, stream
-    "fbanet_token_matmul": [_P] * 3 + [_I] * 5 + [_P],
-    "fbanet_column_sum": [_P] * 2 + [_I] * 2 + [_P],
+    # the backward kernels' fixed-order sums: a, b, slice partials, out,
+    # grid-barrier words, T, M, N, tokens per slice, tile_m, tile_n, bf16,
+    # stream; and p, slice partials, out, band counters, R, M, rows per
+    # slice, stream
+    "fbanet_token_matmul": [_P] * 5 + [_I] * 7 + [_P],
+    "fbanet_column_sum": [_P] * 4 + [_I] * 3 + [_P],
     # K5, K6: frames, matrices [F, 3, 3] or coords [F, H, W, 2], out,
     # F, H, W, C, constant mode, cval, stream
     "fbanet_warp_homography": [_P] * 3 + [_I] * 5 + [ctypes.c_float, _P],

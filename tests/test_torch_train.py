@@ -181,20 +181,35 @@ def test_drop_path_schedule_matches_jax():
 
 # ------------------------------------------------------------ whole model ----
 
-def _setup(batch=2, seed=0):
-    """Port model with random parameters, the flax tree holding them, a
-    burst and an HR target."""
+@pytest.fixture(scope="module")
+def jax_side():
+    """What the two whole-model tests share: the port model's random
+    parameters (a state_dict), the flax tree holding them, and the JAX
+    `make_train_step` (AdamW, grad_accum=2, microbatches of 2), compiled on
+    its first call and reused by the other test."""
+    sd = random_state_dict(create_model(PORT_TINY, device="cpu", seed=3),
+                           seed=21)
+    jmodel = jax_create_model(TINY)
+    size = TINY.img_size
+    params = flax_params_like(
+        jmodel, jnp.zeros((2, TINY.num_frames, size, size, 3), jnp.float32),
+        state_dict=sd)
+    cfg = TrainConfig(grad_accum=2, lr_initial=1e-4)
+    jcfg = _jax_train_config(cfg)
+    tx = jtrain.make_optimizer(jcfg)
+    return sd, params, cfg, tx, jtrain.make_train_step(jmodel, tx, jcfg)
+
+
+def _setup(sd, batch=2, seed=0):
+    """Port model holding the state_dict `sd`, a burst and an HR target."""
     tmodel = create_model(PORT_TINY, device="cpu", seed=3)
-    sd = random_state_dict(tmodel, seed=21)
     tmodel.load_state_dict(sd, strict=True)
     r = rng(seed)
     size = TINY.img_size
     burst = r.uniform(0, 1, (batch, TINY.num_frames, size, size, 3)
                       ).astype(np.float32)
     hr = r.uniform(0, 1, (batch, 4 * size, 4 * size, 3)).astype(np.float32)
-    jmodel = jax_create_model(TINY)
-    params = flax_params_like(jmodel, jnp.asarray(burst), state_dict=sd)
-    return tmodel, jmodel, params, burst, hr
+    return tmodel, burst, hr
 
 
 def _assert_tensors_close(got: dict, ref: dict, rel: float, what: str):
@@ -206,22 +221,27 @@ def _assert_tensors_close(got: dict, ref: dict, rel: float, what: str):
             f"{what} {k}: err {err:.3e}, max {scale:.3e}"
 
 
-def test_model_gradients_match_jax_grad():
+def test_model_gradients_match_jax_grad(jax_side):
     """Every parameter gradient of the training loss (clamp, Charbonnier +
-    3 GW) at TINY, drop_path 0, against jax.grad of the JAX model: within
-    1e-4 of each tensor's max |grad| (the same f32 math in another sum
-    order through 20 layers). Parameters the port's forward never reads
+    3 GW) at TINY, drop_path 0, against jax.value_and_grad of the JAX
+    model's loss as the JAX `make_train_step` takes it: within 1e-4 of each
+    tensor's max |grad| (the same f32 math in another sum order through 20
+    layers). The batch goes in as both microbatches, so the step's mean
+    gradient is this batch's exactly, and it is read back from AdamW's
+    first moment after one step from zero, mu = (1 - b1) g (one f32
+    rounding, 2^-24 relative). Parameters the port's forward never reads
     (the FAF gate's temporal_attn0 and embedding biases, which cancel) get
     no gradient; JAX gives them exact zeros."""
-    tmodel, jmodel, params, burst, hr = _setup()
-
-    def loss(p):
-        pred = jmodel.apply({"params": p}, jnp.asarray(burst))
-        return jlosses.fbanet_training_loss(pred, jnp.asarray(hr))
-
-    jloss, jgrads = jax.jit(jax.value_and_grad(loss))(params)
-    ref = {k: v.numpy() for k, v in jax_params_to_state_dict(
-        jax.tree.map(np.asarray, jgrads)).items()}
+    sd, params, cfg, tx, jstep = jax_side
+    tmodel, burst, hr = _setup(sd)
+    b, h = jnp.asarray(burst), jnp.asarray(hr)
+    jp = {"params": params}
+    _, state, jloss = jstep(jp, tx.init(jp), (b, b), (h, h),
+                            jax.random.key(0), cfg.lr_initial)
+    decay = np.float64(np.float32(1) - np.float32(0.9))  # 1 - b1 in f32
+    ref = {k: v.numpy().astype(np.float64) / decay
+           for k, v in jax_params_to_state_dict(jax.tree.map(
+               np.asarray, _adam_moments(state).mu)).items()}
     tloss = losses.fbanet_training_loss(
         tmodel(t(burst), train=True), t(hr))
     tloss.backward()
@@ -246,7 +266,7 @@ def _adam_moments(opt_state):
     return None
 
 
-def test_train_steps_match_jax_make_train_step():
+def test_train_steps_match_jax_make_train_step(jax_side):
     """Three AdamW steps with grad_accum=2 (two microbatches of 2, lr set
     per step) through both `make_train_step`s. After every step the loss is
     within 1e-5 and every parameter within sum(lr) x 1.1, the most AdamW can
@@ -258,11 +278,8 @@ def test_train_steps_match_jax_make_train_step():
     sum-order noise is of its own size, so such an element's step may
     differ by up to lr; the later steps start from those differences, so
     only their losses and the bound are compared."""
-    tmodel, jmodel, params, burst, hr = _setup(batch=4, seed=7)
-    cfg = TrainConfig(grad_accum=2, lr_initial=1e-4)
-    jcfg = _jax_train_config(cfg)
-    tx = jtrain.make_optimizer(jcfg)
-    jstep = jtrain.make_train_step(jmodel, tx, jcfg)
+    sd, params, cfg, tx, jstep = jax_side
+    tmodel, burst, hr = _setup(sd, batch=4, seed=7)
     jp, state = {"params": params}, tx.init({"params": params})
     opt = train.make_optimizer(tmodel.parameters(), cfg)
     tstep = train.make_train_step(tmodel, opt, cfg)
