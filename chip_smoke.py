@@ -17,7 +17,14 @@ non-zero:
 4. backward: K3 (attention backward) and K4 (LeFF backward), each with the
    fixed-order sums of ops/reduce.py, against their plain backwards at the
    same shapes, f32 and bf16, K3 masked and unmasked, residual on and off:
-   every gradient within its limit, and bitwise equal over two runs.
+   every gradient within its limit, and bitwise equal over two runs (K4's
+   plan splits the hidden channels at the B=2 bottleneck, so the split
+   path is among them; K4 in bf16 also under the WMMA form, which the plan
+   keeps for shapes the wgmma form does not take). Then K4 at B=8 at the
+   five shapes under its plan (tools/measure_leff_bwd.py): the same
+   limits, ms, device ms, bound and the share of it; and the Python model
+   of K4's shared memory, which the CPU tests plan with, against the
+   kernel's.
 5. reduce: the two reduction kernels against their plain versions at
    every shape of the B=8 train step (R1 at its 25 weight-gradient shapes,
    R2 at the K3/K4 partials, 800 x 6016 and 800 x 5760): relative error
@@ -26,7 +33,9 @@ non-zero:
 6. registration: K5 (homography warp) and K6 (dense-coords warp) against
    their plain versions on the published burst, B=8 x 13 non-reference
    frames of 160 x 160 x 3 f32, nearest and constant mode (K6 at the three
-   ECC pyramid sizes), timed beside one grid_sample call each. Then
+   ECC pyramid sizes, and its general kernel at one channel at 40 px),
+   timed beside one grid_sample call each, per call (CUDA events) and on
+   the device (torch.profiler). Then
    `align_burst(motion="homography")` at B=8, 3 levels x 25 iterations, on
    bursts made at known homographies: frame 0 bit-identical, corners
    within 0.35 px of the truth and 2e-3 px of the plain path, 1 launch of
@@ -154,13 +163,15 @@ def attention_work(h, c, heads, masked, backward=False, batch=2):
 
 def leff_work(h, c, backward=False, batch=2):
     """(tensor-core flops, CUDA-core flops, bytes) of one K2 (or K4) call at
-    B=2: dense1 and dense2 4 T C Ch, depthwise 18 T Ch; the backward adds
-    dh2, dy, dW1, dW2 (6 T C Ch) and dh1 and the tap gradients (36 T Ch)."""
+    B=2: dense1 and dense2 4 T C Ch, depthwise 18 T Ch; the backward is
+    tools/measure_leff_bwd.py's `work`."""
+    if backward:
+        from fbanet_tpu_torch.tools.measure_leff_bwd import work
+
+        return work(batch, h, c)
     t, ch = batch * h * h, 4 * c
     params = 4 * (2 * c * ch + 11 * ch + 3 * c)
-    if not backward:
-        return 4 * t * c * ch, 18 * t * ch, 4 * t * c + params
-    return 10 * t * c * ch, 54 * t * ch, 6 * t * c + 2 * params
+    return 4 * t * c * ch, 18 * t * ch, 4 * t * c + params
 
 
 def log(msg: str) -> None:
@@ -431,9 +442,9 @@ def _grad_errors(got, ref) -> list[float]:
 def phase_backward(shapes) -> dict:
     """K3 and K4 (each followed by the fixed-order sums of ops.reduce)
     against their plain backwards on the card at the five SwinGroup shapes,
-    B=2, f32 and bf16, K3 masked and unmasked, residual on and off; every
-    gradient, plus bitwise repeatability (two kernel runs on the same
-    inputs). Returns per-kernel {max_abs_err, ms, plain_ms} (times summed
+    B=2, f32 and bf16, K3 masked and unmasked, residual on and off, K4 in
+    bf16 under its plan and under the WMMA form; every gradient, plus
+    bitwise repeatability (two kernel runs on the same inputs). Returns per-kernel {max_abs_err, ms, plain_ms} (times summed
     over the shapes: bf16, K3 masked, residual on)."""
     import torch
 
@@ -443,6 +454,15 @@ def phase_backward(shapes) -> dict:
            for k in ("K3", "K4")}
     bounds = {"K3": Bound(), "K4": Bound()}
     failures = []
+    # K4 plans on the card with the kernel's shared-memory function; the
+    # CPU tests plan with its Python model, which must agree with it
+    for c in (64, 128, 256):
+        for th, tw, kc in leff._K4_FORMS:
+            ours = leff._leff_bwd_smem(c, th, tw, kc)
+            theirs = leff._kernel_smem(c, th, tw, kc)
+            if ours != theirs:
+                failures.append(f"K4 shared memory C={c} {th}x{tw} chunk "
+                                f"{kc}: kernel {theirs}, plan {ours}")
 
     def check(name, line, got, again, ref, dname):
         errs = _grad_errors(got, ref)
@@ -492,6 +512,9 @@ def phase_backward(shapes) -> dict:
             x, a = leff_case(h, c, dtype, 500 + i)
             g = _normal_fn(600 + i)((2, h, h, c), 1.0).to(dtype)
             p = {k: v for k, v in a.items() if k != "b2"}
+            plan = leff._leff_bwd_plan(2, h, h, c, 4 * c,
+                                       dname == "bfloat16",
+                                       smem=leff._kernel_smem)
             for residual in (False, True):
                 def k4(x=x, g=g, p=p, residual=residual):
                     return leff.leff_bwd(x, g, **p, residual=residual)
@@ -503,8 +526,8 @@ def phase_backward(shapes) -> dict:
                 got, again, ref = k4(), k4(), k4_plain()
                 torch.cuda.synchronize()
                 line = check("K4", f"K4 leff bwd H={h} C={c} Ch={4 * c} "
-                             f"{dname} residual={residual}", got, again,
-                             ref, dname)
+                             f"{dname} residual={residual} plan {plan}",
+                             got, again, ref, dname)
                 if dname == "bfloat16" and residual:
                     ms, pms = time_ms(k4), time_ms(k4_plain)
                     res["K4"]["ms"] += ms
@@ -512,12 +535,34 @@ def phase_backward(shapes) -> dict:
                     bounds["K4"].add(*leff_work(h, c, backward=True))
                     line += f" kernel_ms={ms:.4f} plain_ms={pms:.4f}"
                 log(line)
+                if dname == "bfloat16":
+                    # the WMMA form in bf16, which the plan keeps for bf16
+                    # shapes the wgmma form does not take
+                    def k4_wmma(x=x, g=g, p=p, residual=residual):
+                        return leff._leff_bwd_launch(
+                            x, g, *p.values(), residual, leff._WMMA_PLAN)
+
+                    got, again = k4_wmma(), k4_wmma()
+                    torch.cuda.synchronize()
+                    log(check("K4", f"K4 leff bwd H={h} C={c} Ch={4 * c} "
+                              f"{dname} residual={residual} plan "
+                              f"{leff._WMMA_PLAN} (WMMA form)", got, again,
+                              ref, dname))
     if failures:
         raise AssertionError("backward kernel disagrees with its plain "
                              "version or does not repeat:\n"
                              + "\n".join(failures))
     for k in res:
         res[k].update(bounds[k].fields(), library_ms=None)
+    # K4 at B=8, each shape under its plan: the same limits, ms, device ms,
+    # bound and the share of it (tools/measure_leff_bwd.py)
+    from fbanet_tpu_torch.tools import measure_leff_bwd
+
+    b8 = measure_leff_bwd.shapes(batch=8)
+    res["K4"]["b8"] = {r["group"]: {k: r[k] for k in (
+        "plan", "ms", "device_ms", "bound_ms", "share_of_bound",
+        "max_rel_err")} for r in b8["rows"]}
+    res["K4"]["b8_sums"] = b8["sums"]
     return res
 
 
@@ -593,6 +638,7 @@ def phase_registration(card: str) -> tuple[dict, dict]:
     from fbanet_tpu_torch.ops import warp_kernels as wk
     from fbanet_tpu_torch.ops.registration import _scale_matrix, align_burst
     from fbanet_tpu_torch.ops.warp import homography_coords
+    from fbanet_tpu_torch.tools.measure_reduce import device_ms
 
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("ECC's normal equations need full f32 matrix "
@@ -602,7 +648,8 @@ def phase_registration(card: str) -> tuple[dict, dict]:
             -1, REG_SIZE, REG_SIZE, 3).copy()).cuda()
     n = frames.shape[0]
     mats = torch.from_numpy(warp_matrices(n, REG_SIZE, seed=51)).cuda()
-    res = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0)
+    res = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+                   device_ms=0.0, library_device_ms=0.0)
            for k in ("K5", "K6")}
     bounds = {"K5": Bound(), "K6": Bound()}
     failures = []
@@ -619,17 +666,26 @@ def phase_registration(card: str) -> tuple[dict, dict]:
 
     def timed(name, line, fn, lib, work):
         """Times of the kernel, its plain version and the library call
-        (grid_sample computes nearest mode's function, channels-first)."""
+        (grid_sample computes nearest mode's function, channels-first):
+        per call (CUDA events around 10 calls, host costs included) and
+        on the device (torch.profiler, the kernels alone)."""
         ms, pms, lms = time_ms(lambda: fn(False)), time_ms(lambda: fn(True)), \
             time_ms(lib)
+        dms, ldms = device_ms(lambda: fn(False)), device_ms(lib)
         res[name]["ms"] += ms
         res[name]["plain_ms"] += pms
         res[name]["library_ms"] += lms
+        res[name]["device_ms"] += dms
+        res[name]["library_device_ms"] += ldms
         bounds[name].add(0, *work)
+        b = Bound()
+        b.add(0, *work)
         lib_err = float((lib().permute(0, 2, 3, 1) - fn(True)).abs().max())
-        return (line + f" kernel_ms={ms:.4f} plain_ms={pms:.4f} "
-                f"grid_sample_ms={lms:.4f} (grid_sample vs plain "
-                f"{lib_err:.2e})")
+        return (line + f" kernel_ms={ms:.4f} device_ms={dms:.4f} "
+                f"plain_ms={pms:.4f} grid_sample_ms={lms:.4f} "
+                f"grid_sample_device_ms={ldms:.4f} bound_ms={b.ms:.4f} "
+                f"(device share of bound {b.ms / dms:.3f}; grid_sample vs "
+                f"plain {lib_err:.2e})")
 
     h = w = REG_SIZE
     for mode in ("nearest", "constant"):
@@ -675,12 +731,21 @@ def phase_registration(card: str) -> tuple[dict, dict]:
                              (n * s * s * 6 * 3,
                               (2 * fr.numel() + coords.numel()) * 4))
             log(line)
+    # K6's general kernel (any C; the C = 3 kernel serves the ECC stack) at
+    # one channel, on the last level's positions
+    fr1 = fr[..., :1].contiguous()
+    for mode in ("nearest", "constant"):
+        def k6c1(plain, mode=mode):
+            return wk.warp_burst_coords(fr1, coords, mode=mode, cval=0.5,
+                                        plain=plain)
+        log(compare("K6", f"K6 warp_burst_coords {n}x{s}x{s}x1 {mode}",
+                    k6c1))
     if failures:
         raise AssertionError("warp kernel disagrees with its plain "
                              "version:\n" + "\n".join(failures))
     for k in res:
         res[k].update(bounds[k].fields())
-    del frames, mats
+    del frames, mats, fr1
 
     # the slice: homography align_burst on bursts with known homographies
     bursts, truth = make_homography_bursts(REG_B, REG_F, REG_SIZE, seed=40)
@@ -1382,8 +1447,8 @@ def _device_ms(events) -> tuple[float, dict]:
                      getattr(e, "self_cuda_time_total", 0.0))
         total += us
         for key in ("window_attention_bwd", "window_attention_bf16",
-                    "leff_bwd", "leff_bf16", "token_matmul", "column_sum",
-                    "warp_homography", "warp_coords"):
+                    "leff_bwd", "leff_ln_bwd", "leff_bf16", "token_matmul",
+                    "column_sum", "warp_homography", "warp_coords"):
             if key in e.key:
                 ours[key] = ours.get(key, 0.0) + us / 1e3
     return total / 1e3, ours
@@ -1496,8 +1561,10 @@ def phase_train(card: str) -> tuple[dict, float]:
     log(events.table(sort_by="cuda_time_total", row_limit=25,
                      max_name_column_width=60))
     total, ours = _device_ms(events)
+    k4 = ours.get("leff_bwd", 0.0) + ours.get("leff_ln_bwd", 0.0)
     log(f"train B=8 profile: device {total:.3f} ms, port kernels (ms) "
-        f"{ {k: round(v, 3) for k, v in ours.items()} }")
+        f"{ {k: round(v, 3) for k, v in ours.items()} }; K4 (leff_bwd + "
+        f"leff_ln_bwd) {k4:.3f} ms")
     return launches, ms
 
 

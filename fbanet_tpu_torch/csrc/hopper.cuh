@@ -2,17 +2,31 @@
 // shared-memory matrix descriptors and warpgroup matrix products (wgmma)
 // with bf16 operands in shared memory and f32 accumulators in registers.
 //
-// Operand layout: both operands are "MN-major" (the M or N index is the
-// contiguous one in shared memory, as a [tokens, columns] row-major tile
-// lands there), stored as 128-byte swizzle atoms: 64 bf16 columns x
-// `rows` tokens, 128 bytes per token row, the 16-byte chunks of row r
-// XOR-ed with r % 8. That is what a TMA load with
-// CU_TENSOR_MAP_SWIZZLE_128B and a 64-column box writes, and what wgmma
-// reads with layout type 1 (128B swizzle) and the transpose bits set.
+// Operand layouts, all in 128-byte swizzle atoms: 64 bf16 columns x `rows`
+// rows, 128 bytes per row, the 16-byte chunks of row r XOR-ed with r % 8
+// (what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B and a 64-column box
+// writes). An atom starts on a 1024-byte boundary; atoms of one operand lie
+// `atom_stride` bytes apart.
+//  - "MN-major" (mn_major_desc, transpose bit 1): the M or N index is the
+//    one along the 128-byte row, as a [tokens, columns] row-major tile
+//    lands there; rows run along K, so a k16 step is +16 rows = +2048
+//    bytes, and the leading byte offset is the atom stride (R1's A and B,
+//    K4's W1 chunk in dy = dz1 W1 and its dz1^T tile).
+//  - "K-major" (k_major_desc, transpose bit 0): K runs along the 128-byte
+//    row and rows are M or N (K4's LayerNorm output y and gradient g as A,
+//    its W1 and W2^T chunks as B of z1 = y W1^T and dh2 = g W2). A k16 step
+//    is +32 bytes inside the atom's row (the hardware applies the swizzle
+//    to the address it forms), every 4th step moves to the next atom; 8
+//    rows are 1024 bytes apart (the stride byte offset), and a 64-row M
+//    block starts 8192 bytes further on.
+// Shared memory that threads write and wgmma or TMA then read is handed
+// over with fence_proxy_async() before the barrier that orders them.
 #pragma once
 
 #include <cuda.h>
 #include <cuda_runtime.h>
+
+#include <cudaTypedefs.h>
 
 #include <cstdint>
 
@@ -86,6 +100,21 @@ __device__ __forceinline__ uint64_t mn_major_desc(uint32_t addr, uint32_t atom_s
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
+// wgmma descriptor of a K-major operand in 128-byte swizzle atoms at
+// shared address `addr` (inside a 1024-byte aligned atom, plus 32 bytes per
+// k16 step): 1024 bytes between groups of 8 rows; the leading byte offset
+// is unused for a swizzled K-major operand (1 by convention).
+__device__ __forceinline__ uint64_t k_major_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+// order this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (wgmma operands, TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -144,6 +173,52 @@ template <int N> __device__ __forceinline__ void wgmma_bf16(float* d, uint64_t d
     wgmma_m64n64(d, da, db);
   else
     wgmma_m64n128(d, da, db);
+}
+
+// d[64 x 32] += A[64 x 16] B[16 x 32] with A and B bf16 K-major in shared
+// memory (transpose bits 0), d f32 in registers as for wgmma_m64n64: thread
+// t holds d[4j + 2h + e] = D[16 (t / 32) + (t % 32) / 4 + 8 h][8 j + 2 (t % 4) + e].
+__device__ __forceinline__ void wgmma_kk_m64n32(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Host: a [rows, cols] row-major bf16 tensor in global memory as TMA boxes
+// of 64 columns x `box_rows` rows, 128-byte swizzled (the atoms above);
+// rows past the end read as zeros. cuTensorMapEncodeTiled is looked up
+// once through the CUDA runtime (no link against libcuda).
+inline cudaError_t make_tma_map_bf16(CUtensorMap* map, const void* ptr, int rows, int cols,
+                                     int box_rows) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q{};
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
+#endif
+    return q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn)
+               : nullptr;
+  }();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace fbanet

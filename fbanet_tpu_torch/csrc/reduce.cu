@@ -56,8 +56,6 @@
 #include "common.cuh"
 #include "hopper.cuh"
 
-#include <cudaTypedefs.h>
-
 namespace fbanet {
 namespace {
 
@@ -325,34 +323,6 @@ __global__ void __launch_bounds__(TmShape<BM, BN>::kThreads, 1)
   }
 }
 
-// A [rows, cols] row-major bf16 tensor as 64-column x 64-row TMA boxes,
-// 128-byte swizzled; rows past the end read as zeros.
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int rows, int cols) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult q{};
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &q);
-#endif
-    return q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn)
-               : nullptr;
-  }();
-  if (!encode) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, kStageTok};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int BM, int BN>
 cudaError_t launch_bf16(const void* a, const void* b, TmArgs g, int splits,
                         cudaStream_t stream) {
@@ -361,8 +331,8 @@ cudaError_t launch_bf16(const void* a, const void* b, TmArgs g, int splits,
       token_matmul_bf16_kernel<BM, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
   if (attr != cudaSuccess) return attr;
   CUtensorMap map_a, map_b;
-  cudaError_t err = make_map(&map_a, a, g.T, g.M);
-  if (err == cudaSuccess) err = make_map(&map_b, b, g.T, g.N);
+  cudaError_t err = make_tma_map_bf16(&map_a, a, g.T, g.M, kStageTok);
+  if (err == cudaSuccess) err = make_tma_map_bf16(&map_b, b, g.T, g.N, kStageTok);
   if (err != cudaSuccess) return err;
   const dim3 grid((g.M / BM) * (g.N / BN), splits);
   if (splits == 1) {

@@ -73,11 +73,15 @@ SIGNATURES = {
     # then G, tokens per window, C, heads, stages skipped, stream
     "fbanet_window_attention_bwd_windows": [_P] * 17 + [_I] * 6 + [_P],
     "fbanet_window_attention_bwd_ablation": [_P] * 17 + [_I] * 5 + [_P],
-    # K4: x, g, dx, y/h2/dz1 scratch, partial sums, ln_s, ln_b, w1, b1, wdw,
-    # bdw, w2, B, H, W, C, Ch, residual, bf16, stream; and its hidden chunk,
-    # 0 for a shape it does not take: (C, Ch, bf16)
-    "fbanet_leff_bwd": [_P] * 14 + [_I] * 7 + [_P],
+    # K4: x, g, dx, y/h2/dz1 scratch, partial sums, dy partials, ln_s,
+    # ln_b, w1, b1, wdw, bdw, w2, w2^T, B, H, W, C, Ch, residual, bf16, and
+    # the plan: tile rows, tile columns (0: the WMMA form), hidden chunk,
+    # splits; stream. The WMMA form's hidden chunk, 0 for a shape it does
+    # not take: (C, Ch, bf16); the wgmma form's shared memory, 0 for a plan
+    # it does not take: (C, tile rows, tile columns, chunk)
+    "fbanet_leff_bwd": [_P] * 16 + [_I] * 11 + [_P],
     "fbanet_leff_bwd_chunk": [_I, _I, _I],
+    "fbanet_leff_bwd_smem": [_I] * 4,
     # the backward kernels' fixed-order sums: a, b, slice partials, out,
     # grid-barrier words, T, M, N, tokens per slice, tile_m, tile_n, bf16,
     # stream; and p, slice partials, out, band counters, R, M, rows per

@@ -29,10 +29,19 @@ there. That is a TPU memory limit, not another function, and its bf16
 training forward rounds differently there (ROADMAP Queue 3 item 1). The port
 runs K2 + K4 at all five shapes.
 
+K4 has two forms in `csrc/leff_bwd.cu`: the wgmma form (bf16: TMA-staged
+weight chunks, wgmma products, 16 warps on the depthwise stages, 16 x 8 or
+8 x 8 tiles, the hidden chunks split over blocks where the map has few
+tiles) and the WMMA form (8 x 8 tiles; f32, and bf16 shapes the wgmma form
+does not take). `_leff_bwd_plan` picks the form, tile, chunk and split
+from the shapes alone.
+
 `fused_leff.launches` counts K2 launches, `leff_bwd.launches` K4 launches.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -40,7 +49,13 @@ import torch.nn.functional as F
 from fbanet_tpu_torch.ops import _build
 from fbanet_tpu_torch.ops.attention import _SMEM_LIMIT, _rounded
 from fbanet_tpu_torch.ops.norm import LN_EPS, layer_norm_f32
-from fbanet_tpu_torch.ops.reduce import column_sum, token_matmul
+from fbanet_tpu_torch.ops.reduce import (
+    _SMS,
+    _cdiv,
+    _stream,
+    column_sum,
+    token_matmul,
+)
 
 
 def _leff_math(x, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, b2,
@@ -196,22 +211,123 @@ def _kernel_forward(x, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, b2, residual):
     return out
 
 
+# K4's wgmma form as csrc/leff_bwd.cu instantiates it: (tile rows, tile
+# columns, hidden chunk), in the plan's order of preference. Measured at the
+# five groups at B=8 (tools/measure_leff_bwd.py plans, H100): 16 x 8 tiles
+# with 32-wide chunks led wherever they fit (C 64, 128) by 6-23 % over 8 x 8
+# with 64-wide chunks, which no group then took; in an earlier build,
+# 16 x 16 tiles (which fit only with 16-wide chunks) and 16-wide chunks
+# trailed by 15-40 %.
+_K4_FORMS = ((16, 8, 32), (8, 8, 32))
+_WMMA_PLAN = (0, 0, 0, 1)  # the WMMA form: 8 x 8 tiles, its own chunk
+
+
+def _leff_bwd_smem(c: int, th: int, tw: int, kc: int) -> int:
+    """Dynamic shared memory of the wgmma form for C channels, th x tw
+    tiles and hidden chunk kc, or 0 for one it does not take: a model of
+    the kernel's `fbanet_leff_bwd_smem` (the layout of `WgLayout` in
+    csrc/leff_bwd.cu, byte for byte) that plans without the card, as the
+    CPU tests do; on the card `leff_bwd` plans with the kernel's own, and
+    chip_smoke.py holds the two equal."""
+    if (c % 64 or c > 256 or 256 % c or (th, tw, kc) not in _K4_FORMS
+            or (c // 64) * (th * tw // 64) > 4):
+        return 0
+
+    def a128(n):
+        return _cdiv(n, 128) * 128
+
+    atoms, kcp = c // 64, kc + 4
+    nx, ng, ni = (th + 4) * (tw + 4), (th + 2) * (tw + 2), th * tw
+    nxr, ngr = _cdiv(nx, 8) * 8, _cdiv(ng, 8) * 8
+    w1 = _cdiv(atoms * (nxr + ngr) * 128, 1024) * 1024
+    h1 = w1 + 3 * atoms * kc * 128 + ni // 64 * kc * 128
+    taps = h1 + a128(4 * nx * kcp) + a128(4 * ni * kcp) + a128(4 * ngr * kcp)
+    mu = taps + a128(36 * kc) + 2 * a128(4 * kc)
+    # dy after the chunk loop must end before h1; the partial sums' scratch
+    # (16 warps x 16 channel pairs x 22 floats) fits from h1 to the taps
+    if ni * (c + 4) * 4 > h1 or 16 * 16 * 22 * 4 > taps - h1:
+        return 0
+    return mu + 2 * a128(4 * ni) + 24 + 1024
+
+
+def _kernel_smem(c: int, th: int, tw: int, kc: int) -> int:
+    """The kernel's own `fbanet_leff_bwd_smem` (builds the library on
+    first use)."""
+    return _build.library().fbanet_leff_bwd_smem(c, th, tw, kc)
+
+
+@functools.lru_cache(maxsize=256)
+def _leff_bwd_plan(b: int, h: int, w: int, c: int, ch: int, bf16: bool = True,
+                   sms: int = _SMS, smem=_leff_bwd_smem
+                   ) -> tuple[int, int, int, int]:
+    """(tile rows, tile columns, hidden chunk, splits) of K4 for x [b, h, w,
+    c] and hidden width ch; `_WMMA_PLAN` for the WMMA form (f32, or bf16 at
+    a shape the wgmma form does not take); None if neither takes it.
+
+    bf16: the first form of `_K4_FORMS` whose tile divides the map, whose
+    chunk divides ch and that fits shared memory (`smem`: `_kernel_smem`,
+    the kernel's, or `_leff_bwd_smem`, its model). With fewer
+    tiles than half the card's `sms` (one block per SM), `_k4_splits`
+    blocks share each tile's hidden chunks."""
+    if bf16:
+        for th, tw, kc in _K4_FORMS:
+            if (h % th == 0 and w % tw == 0 and ch % kc == 0
+                    and 0 < smem(c, th, tw, kc) <= _SMEM_LIMIT):
+                tiles = b * (h // th) * (w // tw)
+                return th, tw, kc, _k4_splits(tiles, ch // kc, sms)
+    if h % 8 == 0 and w % 8 == 0:
+        return _WMMA_PLAN
+    return None
+
+
+def _k4_splits(tiles: int, chunks: int, sms: int = _SMS) -> int:
+    """Blocks per tile of the wgmma form: 1 from sms / 2 tiles up, else
+    `_k4_splits_to_fill`. Measured (tools/measure_leff_bwd.py plans,
+    H100): with 50 tiles (the bottleneck at B=2) 8 splits ran 20 % faster
+    than none; with 100 or 200 tiles a split ran 3-30 % slower (each split
+    repeats the LayerNorm and the halo loads and writes an f32 dy partial
+    for a second pass)."""
+    return 1 if 2 * tiles >= sms else _k4_splits_to_fill(tiles, chunks, sms)
+
+
+def _k4_splits_to_fill(tiles: int, chunks: int, sms: int = _SMS) -> int:
+    """The least power of two (dividing the tile's chunks) of blocks per
+    tile that reaches 2 `sms` blocks."""
+    splits = 1
+    while tiles * splits < 2 * sms and chunks % (2 * splits) == 0:
+        splits *= 2
+    return splits
+
+
 def leff_bwd(x, g, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, *,
              residual: bool = False):
     """K4 on CUDA tensors: the backward of `fused_leff` for the incoming
     gradient g [B, H, W, C] (x's dtype). Returns what `leff_bwd_reference`
     returns (dx with g added when `residual`). The kernel writes dx,
     per-token scratch and per-tile partial sums; `ops.reduce` sums those in
-    a fixed order."""
+    a fixed order. `_leff_bwd_plan` picks the kernel's tile, hidden chunk
+    and split."""
     ch = w1.shape[0]
     _check_kernel_shape(x, wdw, ch)
     b, h, w, c = x.shape
-    if h % 8 or w % 8:
+    plan = _leff_bwd_plan(b, h, w, c, ch, x.dtype == torch.bfloat16,
+                          smem=_kernel_smem)
+    if plan is None:
         _unsupported("the backward kernel needs H and W in multiples of its "
                      "8 x 8 tile", x, ch)
+    return _leff_bwd_launch(x, g, ln_scale, ln_bias, w1, b1, wdw, bdw, w2,
+                            residual, plan)
+
+
+def _leff_bwd_launch(x, g, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, residual,
+                     plan):
+    """Launch K4 with `plan` (see `_leff_bwd_plan`), then the sums."""
+    ch = w1.shape[0]
+    b, h, w, c = x.shape
+    th, tw, kc, splits = plan
     lib = _build.library()
     bf16 = int(x.dtype == torch.bfloat16)
-    if lib.fbanet_leff_bwd_chunk(c, ch, bf16) == 0:
+    if th == 0 and lib.fbanet_leff_bwd_chunk(c, ch, bf16) == 0:
         _unsupported("the backward kernel takes no hidden chunk of this "
                      "shape (bfloat16 needs C and the hidden width in "
                      "multiples of 16, and a chunk must fit shared memory)",
@@ -219,18 +335,23 @@ def leff_bwd(x, g, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, *,
     g = g.to(x.dtype).contiguous()
     ln_s, ln_b, w1_, b1_, wdw_, bdw_, w2_, _ = _kernel_args(
         x, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, None)
-    tiles = b * (h // 8) * (w // 8)
+    # the wgmma form reads W2 as W2^T [Ch, C] (K-major, like W1)
+    w2t = w2.t().to(device=x.device, dtype=x.dtype,
+                    memory_format=torch.contiguous_format) if th else w2_
+    tiles = b * (h // (th or 8)) * (w // (tw or 8))
     dx, ys = torch.empty_like(x), torch.empty_like(x)
     h2s, dz1s = (torch.empty(b, h, w, ch, device=x.device, dtype=x.dtype)
                  for _ in range(2))
     part = torch.empty(tiles, 3 * c + 11 * ch, device=x.device,
                        dtype=torch.float32)
+    dyp = torch.empty(splits, b, h, w, c, device=x.device,
+                      dtype=torch.float32) if splits > 1 else part
     err = lib.fbanet_leff_bwd(
         x.data_ptr(), g.data_ptr(), dx.data_ptr(), ys.data_ptr(),
-        h2s.data_ptr(), dz1s.data_ptr(), part.data_ptr(), ln_s.data_ptr(),
-        ln_b.data_ptr(), w1_.data_ptr(), b1_.data_ptr(), wdw_.data_ptr(),
-        bdw_.data_ptr(), w2_.data_ptr(), b, h, w, c, ch, int(residual), bf16,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        h2s.data_ptr(), dz1s.data_ptr(), part.data_ptr(), dyp.data_ptr(),
+        ln_s.data_ptr(), ln_b.data_ptr(), w1_.data_ptr(), b1_.data_ptr(),
+        wdw_.data_ptr(), bdw_.data_ptr(), w2_.data_ptr(), w2t.data_ptr(), b,
+        h, w, c, ch, int(residual), bf16, th, tw, kc, splits, _stream(x))
     _build.check(err, "leff_bwd")
     leff_bwd.launches += 1
     t = b * h * w

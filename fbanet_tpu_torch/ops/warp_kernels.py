@@ -38,7 +38,11 @@ _MODES = ("nearest", "constant")
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream's handle, straight from torch's C binding (as
+    `ops.reduce` takes it): `torch.cuda.current_stream(dev).cuda_stream`
+    builds a Python Stream object per call, which K6's 75 calls per align
+    pay for at sizes where the card needs only a few microseconds."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def sample_plain(frames: torch.Tensor, cy: torch.Tensor, cx: torch.Tensor,
@@ -119,24 +123,38 @@ def warp_burst_coords(frames: torch.Tensor, coords: torch.Tensor, *,
                       mode: str = "nearest", cval: float = 0.0,
                       plain: bool = False) -> torch.Tensor:
     """K6: sample `frames` [F, H, W, C] at `coords` [F, H, W, 2] ((y, x)
-    source positions) with the TPU kernel's bilinear sample."""
-    _check("warp_burst_coords", frames, coords, (*frames.shape[:3], 2),
-           mode)
-    f, h, w, c = frames.shape
-    fr, co = frames.float(), coords.float()
-    if plain or frames.device.type == "cpu":
+    source positions) with the TPU kernel's bilinear sample.
+
+    K6 runs 75 times per align, on inputs the card warps in a few
+    microseconds at 80 and 40 px, so the CUDA path costs one allocation and
+    one foreign call: checks read only shape, dtype and device, inputs that
+    are already contiguous f32 are passed as they are, and an f32 output
+    is returned as it is."""
+    shape = frames.shape
+    if (mode not in _MODES or len(shape) != 4 or shape[1] < 2
+            or shape[2] < 2 or not frames.is_floating_point()
+            or coords.shape != (*shape[:3], 2)):
+        _check("warp_burst_coords", frames, coords, (*shape[:3], 2), mode)
+    if plain or frames.is_cpu:
+        fr, co = frames.float(), coords.float()
         out = sample_plain(fr, co[..., 0], co[..., 1], mode == "constant",
                            cval)
         return out.to(frames.dtype)
-    _launch_ready("warp_burst_coords", frames, coords)
-    fr, co = fr.contiguous(), co.contiguous()
+    if not frames.is_cuda or coords.get_device() != frames.get_device():
+        _launch_ready("warp_burst_coords", frames, coords)
+    f32 = frames.dtype == torch.float32
+    fr = frames if f32 and frames.is_contiguous() else \
+        frames.float().contiguous()
+    co = coords if coords.dtype == torch.float32 and coords.is_contiguous() \
+        else coords.float().contiguous()
     out = torch.empty_like(fr)
     err = _build.library().fbanet_warp_coords(
-        fr.data_ptr(), co.data_ptr(), out.data_ptr(), f, h, w, c,
-        int(mode == "constant"), float(cval), _stream(fr))
-    _build.check(err, "warp_burst_coords")
+        fr.data_ptr(), co.data_ptr(), out.data_ptr(), *shape,
+        mode == "constant", cval, _stream(fr))
+    if err:
+        _build.check(err, "warp_burst_coords")
     warp_burst_coords.launches += 1
-    return out.to(frames.dtype)
+    return out if f32 else out.to(frames.dtype)
 
 
 warp_burst_coords.launches = 0

@@ -71,15 +71,20 @@ def r1_shapes(batch: int = 8, size: int = 160) -> list[tuple]:
 
 
 def r2_shapes(batch: int = 8, size: int = 160) -> list[tuple]:
-    """(group, source, R, M) of K3's per-window and K4's per-8x8-tile
-    partials (the main path's column_sum inputs besides R1's slices), and
-    two earlier yardsticks: K4's dec1 partial at B=2 (800 x 6016) and
-    800 x 5760."""
+    """(group, source, R, M) of K3's per-window and K4's per-tile partials
+    (the main path's column_sum inputs besides R1's slices; K4's tiles are
+    its plan's), and two earlier yardsticks: the 8 x 8-tile K4's dec1
+    partial at B=2 (800 x 6016) and 800 x 5760."""
+    from fbanet_tpu_torch.ops.leff import _leff_bwd_plan
+
     out = []
     for name, h, c, heads in GROUPS:
-        blocks = batch * (h * size // 160 // WS) ** 2
-        out.append((name, "K3", blocks, 6 * c + heads * WS ** 4))
-        out.append((name, "K4", blocks, 3 * c + 11 * 4 * c))
+        hh = h * size // 160
+        out.append((name, "K3", batch * (hh // WS) ** 2,
+                    6 * c + heads * WS ** 4))
+        th, tw, _kc, _splits = _leff_bwd_plan(batch, hh, hh, c, 4 * c)
+        out.append((name, "K4", batch * (hh // (th or 8)) * (hh // (tw or 8)),
+                    3 * c + 11 * 4 * c))
     out.append(("dec1-B2", "K4", 800, 3 * 128 + 11 * 512))
     out.append(("named", "-", 800, 5760))
     return out

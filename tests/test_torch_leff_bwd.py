@@ -25,6 +25,7 @@ from fbanet_tpu.ops.leff_pallas import (
     _pallas_backward_2d,
 )
 from fbanet_tpu.ops.leff_pallas import fused_leff as jax_fused_leff
+from fbanet_tpu_torch.ops import leff as leff_mod
 from fbanet_tpu_torch.ops.leff import (
     _leff_math,
     fused_leff,
@@ -139,3 +140,111 @@ def test_backward_launches_or_raises_off_the_cpu():
     x = torch.empty(1, 8, 8, C, device="meta")
     with pytest.raises(ValueError, match=r"\(1, 8, 8, 16\)"):
         leff_bwd(x, x, **p)
+
+
+# --- K4's plan and the order of the split's sums (CPU; the kernels run on
+# the card, where chip_smoke.py holds them against leff_bwd_reference) ---
+
+SMEM_LIMIT, SMS = 232448, 132
+# (H, C) of the five SwinGroups at 160 px: enc0, enc1, bott, dec0, dec1
+GROUP_SHAPES = [(160, 64), (80, 128), (40, 256), (80, 256), (160, 128)]
+
+
+@pytest.mark.parametrize("batch", [2, 8])
+@pytest.mark.parametrize("h,c", GROUP_SHAPES,
+                         ids=["enc0", "enc1", "bott", "dec0", "dec1"])
+def test_leff_bwd_plan_at_the_group_shapes(h, c, batch):
+    """The wgmma form's plan fits shared memory, its chunk divides the
+    hidden width, its tile divides the map, and a split reaches two blocks
+    per SM (it splits only below half a block per SM)."""
+    ch = 4 * c
+    th, tw, kc, splits = leff_mod._leff_bwd_plan(batch, h, h, c, ch)
+    assert (th, tw, kc) in leff_mod._K4_FORMS
+    assert 0 < leff_mod._leff_bwd_smem(c, th, tw, kc) <= SMEM_LIMIT
+    assert ch % (kc * splits) == 0 and h % th == 0 and h % tw == 0
+    tiles = batch * (h // th) * (h // tw)
+    if splits > 1:
+        assert 2 * tiles < SMS and tiles * splits >= 2 * SMS
+    else:
+        assert 2 * tiles >= SMS
+
+
+def test_leff_bwd_plan_refuses_or_takes_the_wmma_form():
+    """f32 and shapes the wgmma form does not take get the WMMA form
+    (8 x 8 tiles); a map not in multiples of 8 gets no plan, and
+    `leff_bwd` raises for it rather than fall back."""
+    wmma = leff_mod._WMMA_PLAN
+    assert leff_mod._leff_bwd_plan(2, 80, 80, 128, 512, False) == wmma
+    assert leff_mod._leff_bwd_plan(2, 16, 24, 16, 64) == wmma  # C = 16
+    assert leff_mod._leff_bwd_plan(2, 12, 12, 64, 256) is None
+    # the layout's limits: at most four 64 x 64 pieces of dy per tile, and
+    # 16 x 8 tiles at C = 256 need 8
+    assert leff_mod._leff_bwd_smem(256, 16, 8, 32) == 0
+    assert leff_mod._leff_bwd_smem(64, 16, 16, 16) == 0  # not a form
+    assert leff_mod._leff_bwd_smem(64, 8, 8, 64) == 0  # not a form
+    assert 0 < leff_mod._leff_bwd_smem(256, 8, 8, 32) <= SMEM_LIMIT
+
+
+def test_leff_bwd_plan_sizes_with_the_given_smem():
+    """The plan takes its shared-memory sizes from the function it is
+    given (`leff_bwd` passes the kernel's own on the card): a form that
+    function refuses is passed over, and with none left bf16 gets the
+    WMMA form."""
+    def only_8x8(c, th, tw, kc):
+        return leff_mod._leff_bwd_smem(c, th, tw, kc) if th == 8 else 0
+
+    def none(c, th, tw, kc):
+        return 0
+
+    assert leff_mod._leff_bwd_plan(8, 160, 160, 64, 256)[:3] == (16, 8, 32)
+    assert leff_mod._leff_bwd_plan(8, 160, 160, 64, 256,
+                                   smem=only_8x8)[:3] == (8, 8, 32)
+    assert (leff_mod._leff_bwd_plan(8, 160, 160, 64, 256, smem=none)
+            == leff_mod._WMMA_PLAN)
+
+
+def _split_dy_sum(parts):
+    """The split's second pass (`leff_ln_bwd_kernel`, csrc/leff_bwd.cu) in
+    plain PyTorch: the f32 dy partials [splits, ..., C] added in split
+    order."""
+    out = parts[0].clone()
+    for k in range(1, parts.shape[0]):
+        out += parts[k]
+    return out
+
+
+def _tile_column_sums(v, threads=512):
+    """`tile_column_sums` (csrc/leff_bwd.cu) in plain PyTorch, for v
+    [n tokens, C] and a block of `threads`: threads / C groups of
+    consecutive tokens, each summed in token order, then the groups added
+    in order."""
+    n_tok, c = v.shape
+    k = threads // c
+    sums = []
+    for i in range(k):
+        acc = torch.zeros(c)
+        for row in v[i * n_tok // k:(i + 1) * n_tok // k]:
+            acc = acc + row
+        sums.append(acc)
+    out = sums[0]
+    for s in sums[1:]:
+        out = out + s
+    return out
+
+
+def test_split_and_tile_sums_match_float64():
+    """The split's second pass adds the f32 dy partials in split order, and
+    the per-tile column sums (of the wgmma form's 512 threads and the split
+    pass's 256) add token groups in order: both within f32 rounding of a
+    float64 sum."""
+    rng = np.random.default_rng(40)
+    parts = rng.standard_normal((8, 64, 256)).astype(np.float32)
+    np.testing.assert_allclose(n(_split_dy_sum(t(parts))),
+                               parts.astype(np.float64).sum(0), rtol=0,
+                               atol=1e-5)
+    for c in (64, 128, 256):
+        v = rng.standard_normal((128, c)).astype(np.float32)
+        for threads in (512, 256):
+            np.testing.assert_allclose(
+                n(_tile_column_sums(t(v), threads)),
+                v.astype(np.float64).sum(0), rtol=0, atol=2e-5)

@@ -24,7 +24,10 @@ R1_RAGGED = [(t, m, n) for t in (1, 63, 64, 65, 511, 513, 12_799, 204_801)
              for m, n in ((64, 64), (128, 64), (64, 256), (512, 128),
                           (1024, 256), (256, 1024))]
 R2_MAIN = sorted({(r, m) for batch in (8, 2)
-                  for *_x, r, m in measure_reduce.r2_shapes(batch)})
+                  for *_x, r, m in measure_reduce.r2_shapes(batch)}
+                 # K4's WMMA form (the f32 gradient check): 8 x 8 tiles
+                 | {(batch * (h // 8) ** 2, 47 * c) for batch in (8, 2)
+                    for _g, h, c, _heads in measure_reduce.GROUPS})
 R2_RAGGED = [(r, m) for r in (1, 7, 63, 64, 65, 800, 3201)
              for m in (1, 3, 64, 130, 6016, 67_072)]
 

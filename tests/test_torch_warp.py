@@ -175,3 +175,53 @@ def test_wrappers_on_cpu_take_the_plain_version():
     with pytest.raises(ValueError):
         warp_kernels.warp_burst_coords(t(_frames()), t(_coords()),
                                        mode="reflect")
+
+
+def _meta(*shape, dtype=torch.float32):
+    return torch.empty(*shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("frames,coords,mode,why", [
+    (_meta(2, 8, 8, 3), _meta(2, 8, 8, 2), "nearest", "CUDA tensors"),
+    (_meta(2, 8, 8, 3), torch.zeros(2, 8, 8, 2), "nearest", "CUDA tensors"),
+    (_meta(2, 8, 8, 3), _meta(2, 8, 7, 2), "nearest", r"\(2, 8, 8, 2\)"),
+    (_meta(2, 1, 8, 3), _meta(2, 1, 8, 2), "nearest", "H, W >= 2"),
+    (_meta(8, 8, 3), _meta(8, 8, 2), "nearest", r"\[F, H, W, C\]"),
+    (_meta(2, 8, 8, 3, dtype=torch.int32), _meta(2, 8, 8, 2), "nearest",
+     "floating point"),
+    (_meta(2, 8, 8, 3), _meta(2, 8, 8, 2), "reflect", "unknown mode"),
+], ids=["meta", "mixed-devices", "coords-shape", "H-1", "3-D", "int",
+        "mode"])
+def test_coords_wrapper_refuses(frames, coords, mode, why):
+    """K6's wrapper off the CPU: a device, shape or dtype the kernel does
+    not take raises (checked from attributes alone), and nothing launches."""
+    warp_kernels.warp_burst_coords.launches = 0
+    with pytest.raises(ValueError, match=why):
+        warp_kernels.warp_burst_coords(frames, coords, mode=mode)
+    assert warp_kernels.warp_burst_coords.launches == 0
+
+
+def test_coords_wrapper_on_cpu_keeps_dtype_and_plain_values():
+    """On the CPU the f32 path hands back the plain sample itself (no
+    conversion), a bf16 input comes back in bf16, and `plain=True` is the
+    same function."""
+    frames, coords = t(_frames()), t(_coords())
+    out = warp_kernels.warp_burst_coords(frames, coords)
+    ref = warp_kernels.sample_plain(frames, coords[..., 0], coords[..., 1],
+                                    False, 0.0)
+    assert out.dtype == torch.float32 and torch.equal(out, ref)
+    half = warp_kernels.warp_burst_coords(frames.bfloat16(), coords)
+    assert half.dtype == torch.bfloat16 and half.shape == frames.shape
+    assert torch.equal(warp_kernels.warp_burst_coords(frames, coords,
+                                                      plain=True), out)
+
+
+def test_measure_warp_host_needs_the_card():
+    """The K6 host-path tool times CUDA calls only: without a card its
+    `main` exits with a message instead of timing the CPU path."""
+    from fbanet_tpu_torch.tools import measure_warp_host
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the tool runs there")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        measure_warp_host.main(["--iters", "1"])
