@@ -13,18 +13,26 @@ non-zero:
 3. kernels: K1 (fused window attention) and K2 (fused LeFF) against their
    plain PyTorch versions on the card at the five SwinGroup shapes of the
    published model (B=2), f32 and bf16, K1 masked and unmasked, with the
-   residual. Prints the max abs error and the median times (CUDA events).
+   residual (K2 in bf16 under its plan, the wgmma form, and under its first
+   kernel, which the plan keeps for f32 and shapes the wgmma form does not
+   take). Prints the max abs error and the median times (CUDA events).
+   Then K2 at B=8 at the five shapes under its plan (tools/measure_leff.py):
+   the same limit, ms, device ms, bound and the share of it; and the Python
+   model of K2's shared memory, which the CPU tests plan with, against the
+   kernel's.
 4. backward: K3 (attention backward) and K4 (LeFF backward), each with the
    fixed-order sums of ops/reduce.py, against their plain backwards at the
    same shapes, f32 and bf16, K3 masked and unmasked, residual on and off:
-   every gradient within its limit, and bitwise equal over two runs (K4's
+   every gradient within its limit, and bitwise equal over two runs (K3 in
+   bf16 under its plan, the wgmma form, and under its first kernel; K4's
    plan splits the hidden channels at the B=2 bottleneck, so the split
-   path is among them; K4 in bf16 also under the WMMA form, which the plan
-   keeps for shapes the wgmma form does not take). Then K4 at B=8 at the
-   five shapes under its plan (tools/measure_leff_bwd.py): the same
-   limits, ms, device ms, bound and the share of it; and the Python model
-   of K4's shared memory, which the CPU tests plan with, against the
-   kernel's.
+   path is among them; K4 in bf16 also under the WMMA form; the plans keep
+   the first forms for shapes the wgmma forms do not take). Then K3 and K4
+   at B=8 at the five shapes under their plans
+   (tools/measure_attention_bwd.py, tools/measure_leff_bwd.py): the same
+   limits, ms, device ms, bound and the share of it; and the Python models
+   of K3's and K4's shared memory, which the CPU tests plan with, against
+   the kernels'.
 5. reduce: the two reduction kernels against their plain versions at
    every shape of the B=8 train step (R1 at its 25 weight-gradient shapes,
    R2 at the K3/K4 partials, 800 x 6016 and 800 x 5760): relative error
@@ -48,23 +56,26 @@ non-zero:
 7. slice: FBANet-64, 14 frames, 160 px, bf16 compute, every parameter drawn
    from a seed, serves 3 batches of 4 bursts through `eval_step` (ECC
    registration + forward + clamp + PSNR/SSIM). Checks finite [0, 1]
-   outputs of shape [4, 640, 640, 3], K1 and K2 launch counts of exactly 20
-   per forward, and agreement with the same slice on the plain versions.
+   outputs of shape [4, 640, 640, 3], K1 and K2 (its wgmma form) launch
+   counts of exactly 20 per forward, and agreement with the same slice on the plain versions.
    Then times align and forward at B=8 and prints a torch.profiler table
    of one such step by device time.
 8. train: the same model with drop_path 0.1 takes 5 AdamW steps at B=8
    through `train.make_train_step` (Charbonnier + 3 GW loss). Checks finite
    losses, that every parameter moved, 20 launches per step of each of
-   K1-K4, and every f32 parameter gradient of one B=2 step against the
-   plain versions; times the B=8 step against the plain versions and
-   prints a torch.profiler table of one step.
+   K1-K4 (K2 and K3 in their wgmma forms), and every f32 parameter
+   gradient of one B=2 step against the plain versions (20 launches of
+   each of K1, K4 and K2's and K3's first kernels); times the B=8 step
+   against the plain versions and prints a torch.profiler table of one
+   step, with K2's, K3's and K4's device ms.
 9. measure: K1b (window attention on [G, N, C] windows) against its plain
    version at the five shapes (B=2, f32 and bf16, masked and not) and
    bitwise against K1 on the partitioned map; its backward (K3's windowed
    entry) against the plain backward on every gradient plus a bitwise
    repeat. K9, K10 and K11, every variant, against their plain versions on
    the tools' B=8 inputs (bf16, 3e-2 of max(1, |out|)), each `full`
-   bitwise against the production K1 / K2 / K3 launch on the same inputs.
+   bitwise against the kernel its flags are built on (K1, and K2's and
+   K3's first kernels) on the same inputs.
    Then the slice's main path: both kernel-measurement tools at B=8
    (`measure_swin_rates attn leff ablate`, `measure_bwd check groups
    plainref leffabl merged ablate`, their tables printed) and K1b forward +
@@ -74,19 +85,22 @@ non-zero:
    with packed-bf16 depthwise and/or GELUs), every variant against its
    plain version on the tool's B=8 inputs at the five shapes (bf16, 3e-2
    of max(1, |out|)), K7 loop_ln bitwise against K1 and K8 with no flag
-   bitwise against K2, each K7 core's heads per stage as the kernel
+   bitwise against K2's first kernel, each K7 core's heads per stage as
+   the kernel
    reports it. Then the slice's main path: `measure_swin_variants check time`
    at B=8 and `profile_components` over every component at the published
    sizes (their tables printed); then mfu_forward / mfu_train
    (`flops_accounting.mfu_fields`) from the slice's forward and the train
    phase's step times.
 
-Each kernel wrapper counts its launches; the counts are set to 0 just
-before the registration, the CLI stream, the serving, the training, the
-measurement and the variant runs and read just after. The line before the
-last is a JSON object {"kernels": [...]} (launches on those runs; error,
-times and bound from phases 3-6, 9 and 10; K7 and K9-K11 also per
-variant), preceded by the
+Each kernel wrapper counts its launches (K2 and K3 per form); the counts
+are set to 0 just before the registration, the CLI stream, the serving,
+the training (the B=8 steps, then the f32 B=2 step, whose plans send K2
+and K3 to their first kernels), the measurement and the variant runs and
+read just after. The line before the last is a JSON object {"kernels":
+[...]} (launches on those runs; error, times and bound from phases 3-6, 9
+and 10; K7 and K9-K11 also per variant; K2 and K3 with their first kernels
+as entries of their own), preceded by the
 nvidia-smi name/power-limit line; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -147,31 +161,21 @@ class Bound:
 
 def attention_work(h, c, heads, masked, backward=False, batch=2):
     """(tensor-core flops, CUDA-core flops, bytes) of one K1 (or K3) call
-    at B=2, bf16 activations, f32 parameters: each input read once, each
-    output written once. Forward: Q, K, V, proj 8 T C^2, logits and AV
-    4 T n C. Backward: recompute 6 T C^2 + 4 T n C, do 2 T C^2, dv, dp, dq,
-    dk 8 T n C, dy 6 T C^2, dWq, dWkv, dWproj 8 T C^2."""
-    t, n = batch * h * h, WS * WS
-    params = 4 * (4 * c * c + 6 * c + heads * n * n
-                  + (h // WS) ** 2 * n * n * masked)
-    if not backward:
-        return 8 * t * c * c + 4 * t * n * c, 5 * t * n * heads, \
-            4 * t * c + params
-    return 22 * t * c * c + 12 * t * n * c, 10 * t * n * heads, \
-        6 * t * c + params + 4 * (4 * c * c + 6 * c + heads * n * n)
+    at B=2: tools/measure_attention_bwd.py's `work`."""
+    from fbanet_tpu_torch.tools.measure_attention_bwd import work
+
+    return work(batch, h, c, heads, masked, backward)
 
 
 def leff_work(h, c, backward=False, batch=2):
     """(tensor-core flops, CUDA-core flops, bytes) of one K2 (or K4) call at
-    B=2: dense1 and dense2 4 T C Ch, depthwise 18 T Ch; the backward is
-    tools/measure_leff_bwd.py's `work`."""
+    B=2: tools/measure_leff.py's `work` (tools/measure_leff_bwd.py's for
+    the backward)."""
     if backward:
         from fbanet_tpu_torch.tools.measure_leff_bwd import work
-
-        return work(batch, h, c)
-    t, ch = batch * h * h, 4 * c
-    params = 4 * (2 * c * ch + 11 * ch + 3 * c)
-    return 4 * t * c * ch, 18 * t * ch, 4 * t * c + params
+    else:
+        from fbanet_tpu_torch.tools.measure_leff import work
+    return work(batch, h, c)
 
 
 def log(msg: str) -> None:
@@ -359,10 +363,21 @@ def phase_kernels(shapes) -> dict:
     from fbanet_tpu_torch.ops.attention import fused_window_attention_2d
     from fbanet_tpu_torch.ops.leff import fused_leff
 
-    res = {"K1": dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0),
-           "K2": dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)}
-    bounds = {"K1": Bound(), "K2": Bound()}
+    from fbanet_tpu_torch.ops import leff
+
+    res = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+           for k in ("K1", "K2", "K2-base")}
+    bounds = {k: Bound() for k in res}
     failures = []
+    # K2 plans on the card with the kernel's shared-memory function; the
+    # CPU tests plan with its Python model, which must agree with it
+    for c in (64, 128, 256):
+        for form in leff._K2_FORMS:
+            ours, theirs = leff._leff_smem(c, *form), \
+                leff._kernel_leff_smem(c, *form)
+            if ours != theirs:
+                failures.append(f"K2 shared memory C={c} {form}: kernel "
+                                f"{theirs}, plan {ours}")
     for i, (h, c, heads) in enumerate(shapes):
         for dname in ("float32", "bfloat16"):
             dtype = getattr(torch, dname)
@@ -394,11 +409,13 @@ def phase_kernels(shapes) -> dict:
             def k2(plain=False, x=x, a=a):
                 return fused_leff(x, **a, residual=True, plain=plain)
 
+            plan = leff._leff_plan(2, h, h, c, 4 * c, dname == "bfloat16",
+                                   smem=leff._kernel_leff_smem)
             got, ref = k2(), k2(plain=True)
             torch.cuda.synchronize()
             err, rel = rel_err(got, ref)
             res["K2"]["max_abs_err"] = max(res["K2"]["max_abs_err"], err)
-            line = (f"K2 leff H={h} C={c} Ch={4 * c} {dname}: "
+            line = (f"K2 leff H={h} C={c} Ch={4 * c} {dname} plan {plan}: "
                     f"max_abs_err={err:.3e} rel={rel:.3e}")
             if dname == "bfloat16":
                 ms, pms = time_ms(k2), time_ms(lambda: k2(plain=True))
@@ -409,11 +426,42 @@ def phase_kernels(shapes) -> dict:
             log(line)
             if not (rel <= TOL[dname]) or not torch.isfinite(got).all():
                 failures.append(line)
+            if dname == "bfloat16":
+                # the first kernel in bf16, which the plan keeps for bf16
+                # shapes the wgmma form does not take (and K8's, K10's base)
+                def k2_base(x=x, a=a):
+                    return leff._leff_launch(x, *a.values(), True,
+                                             leff._K2_BASE_PLAN)
+
+                got = k2_base()
+                torch.cuda.synchronize()
+                err, rel = rel_err(got, ref)
+                ms = time_ms(k2_base)
+                res["K2-base"]["max_abs_err"] = max(
+                    res["K2-base"]["max_abs_err"], err)
+                res["K2-base"]["ms"] += ms
+                res["K2-base"]["plain_ms"] += pms
+                bounds["K2-base"].add(*leff_work(h, c))
+                line = (f"K2 leff H={h} C={c} Ch={4 * c} {dname} plan "
+                        f"{leff._K2_BASE_PLAN} (first kernel): max_abs_err="
+                        f"{err:.3e} rel={rel:.3e} kernel_ms={ms:.4f}")
+                log(line)
+                if not (rel <= TOL[dname]) or not torch.isfinite(got).all():
+                    failures.append(line)
     if failures:
         raise AssertionError("kernel disagrees with its plain version:\n"
                              + "\n".join(failures))
     for k in res:
         res[k].update(bounds[k].fields(), library_ms=None)
+    # K2 at B=8, each shape under its plan: the same limit, ms, device ms,
+    # bound and the share of it (tools/measure_leff.py)
+    from fbanet_tpu_torch.tools import measure_leff
+
+    b8 = measure_leff.shapes(batch=8)
+    res["K2"]["b8"] = {r["group"]: {k: r[k] for k in (
+        "plan", "ms", "device_ms", "bound_ms", "share_of_bound",
+        "max_rel_err")} for r in b8["rows"]}
+    res["K2"]["b8_sums"] = b8["sums"]
     return res
 
 
@@ -451,9 +499,18 @@ def phase_backward(shapes) -> dict:
     from fbanet_tpu_torch.ops import attention, leff
 
     res = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
-           for k in ("K3", "K4")}
-    bounds = {"K3": Bound(), "K4": Bound()}
+           for k in ("K3", "K3-base", "K4")}
+    bounds = {k: Bound() for k in res}
     failures = []
+    for c in (64, 128, 256):
+        for heads in (1, 2, 4, 8, 16):
+            for nwg in (2, 4):
+                ours = attention._attention_bwd_smem(WS * WS, c, heads, nwg)
+                theirs = attention._kernel_bwd_smem(WS * WS, c, heads, nwg)
+                if ours != theirs:
+                    failures.append(f"K3 shared memory C={c} heads={heads} "
+                                    f"warpgroups {nwg}: kernel {theirs}, "
+                                    f"plan {ours}")
     # K4 plans on the card with the kernel's shared-memory function; the
     # CPU tests plan with its Python model, which must agree with it
     for c in (64, 128, 256):
@@ -495,13 +552,17 @@ def phase_backward(shapes) -> dict:
                         return attention._plain_bwd_2d(
                             x, g, *p.values(), heads, WS, residual)
 
+                    plan = attention._attention_bwd_plan(
+                        2, h, h, c, heads, WS, dname == "bfloat16",
+                        smem=attention._kernel_bwd_smem)
                     got, again, ref = k3(), k3(), k3_plain()
                     torch.cuda.synchronize()
                     line = check("K3", f"K3 attention bwd H={h} C={c} "
                                  f"heads={heads} {dname} masked={masked} "
-                                 f"residual={residual}", got, again, ref,
-                                 dname)
-                    if dname == "bfloat16" and masked and residual:
+                                 f"residual={residual} plan {plan}", got,
+                                 again, ref, dname)
+                    timed = dname == "bfloat16" and masked and residual
+                    if timed:
                         ms, pms = time_ms(k3), time_ms(k3_plain)
                         res["K3"]["ms"] += ms
                         res["K3"]["plain_ms"] += pms
@@ -509,6 +570,31 @@ def phase_backward(shapes) -> dict:
                             h, c, heads, masked, backward=True))
                         line += f" kernel_ms={ms:.4f} plain_ms={pms:.4f}"
                     log(line)
+                    if dname == "bfloat16":
+                        # the first kernel in bf16, which the plan keeps for
+                        # bf16 shapes the wgmma form does not take (and
+                        # K11's base)
+                        def k3_base(x=x, g=g, p=p, heads=heads,
+                                    residual=residual):
+                            return attention._attention_bwd_launch(
+                                x, g, *p.values(), heads, WS, residual,
+                                attention._K3_BASE_PLAN)
+
+                        got, again = k3_base(), k3_base()
+                        torch.cuda.synchronize()
+                        line = check("K3-base", f"K3 attention bwd H={h} "
+                                     f"C={c} heads={heads} {dname} masked="
+                                     f"{masked} residual={residual} plan "
+                                     f"{attention._K3_BASE_PLAN} (first "
+                                     f"kernel)", got, again, ref, dname)
+                        if timed:
+                            ms = time_ms(k3_base)
+                            res["K3-base"]["ms"] += ms
+                            res["K3-base"]["plain_ms"] += pms
+                            bounds["K3-base"].add(*attention_work(
+                                h, c, heads, masked, backward=True))
+                            line += f" kernel_ms={ms:.4f}"
+                        log(line)
             x, a = leff_case(h, c, dtype, 500 + i)
             g = _normal_fn(600 + i)((2, h, h, c), 1.0).to(dtype)
             p = {k: v for k, v in a.items() if k != "b2"}
@@ -554,15 +640,18 @@ def phase_backward(shapes) -> dict:
                              + "\n".join(failures))
     for k in res:
         res[k].update(bounds[k].fields(), library_ms=None)
-    # K4 at B=8, each shape under its plan: the same limits, ms, device ms,
-    # bound and the share of it (tools/measure_leff_bwd.py)
-    from fbanet_tpu_torch.tools import measure_leff_bwd
+    # K3 and K4 at B=8, each shape under its plan: the same limits, ms,
+    # device ms, bound and the share of it (tools/measure_attention_bwd.py,
+    # tools/measure_leff_bwd.py)
+    from fbanet_tpu_torch.tools import measure_attention_bwd, measure_leff_bwd
 
-    b8 = measure_leff_bwd.shapes(batch=8)
-    res["K4"]["b8"] = {r["group"]: {k: r[k] for k in (
-        "plan", "ms", "device_ms", "bound_ms", "share_of_bound",
-        "max_rel_err")} for r in b8["rows"]}
-    res["K4"]["b8_sums"] = b8["sums"]
+    for name, tool in (("K3", measure_attention_bwd),
+                       ("K4", measure_leff_bwd)):
+        b8 = tool.shapes(batch=8)
+        res[name]["b8"] = {r["group"]: {k: r[k] for k in (
+            "plan", "ms", "device_ms", "bound_ms", "share_of_bound",
+            "max_rel_err")} for r in b8["rows"]}
+        res[name]["b8_sums"] = b8["sums"]
     return res
 
 
@@ -913,7 +1002,7 @@ def phase_slice(card: str) -> tuple[dict, float]:
     from fbanet_tpu_torch.metrics import finite_average, psnr
     from fbanet_tpu_torch.models import ModelConfig, create_model
     from fbanet_tpu_torch.ops.attention import fused_window_attention_2d
-    from fbanet_tpu_torch.ops.leff import fused_leff
+    from fbanet_tpu_torch.ops.leff import _leff_launch
     from fbanet_tpu_torch.ops.registration import online_register
     from fbanet_tpu_torch.utils.weights import random_state_dict
 
@@ -929,13 +1018,13 @@ def phase_slice(card: str) -> tuple[dict, float]:
     torch.cuda.synchronize()
 
     fused_window_attention_2d.launches = 0
-    fused_leff.launches = 0
+    _leff_launch.wgmma.launches = 0  # K2's wgmma form, which serving runs
     t0 = time.perf_counter()
     served = [eval_step(model, lr, hr) for lr, hr in requests]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"K1": fused_window_attention_2d.launches,
-                "K2": fused_leff.launches}
+                "K2": _leff_launch.wgmma.launches}
     log(f"slice: served {len(served)} batches of 4 in {wall:.3f} s "
         f"(first call included); launches {launches}")
     for name, count in launches.items():
@@ -1063,7 +1152,8 @@ def phase_measure(card: str) -> tuple[dict, dict]:
     gradient plus a bitwise repeat, at the five SwinGroup shapes, B=2, f32
     and bf16, masked and not. K9, K10 and K11, every variant, against their
     plain versions at the tools' B=8 inputs, bf16, and each `full` variant
-    bitwise against the production K1 / K2 / K3 launch on the same inputs.
+    bitwise against the kernel its flags are built on (K1, K2's and K3's
+    first kernels) on the same inputs.
     Then the main path: both tools' modes at B=8 and K1b forward + backward
     through autograd at the five shapes, with the counts set to 0 just
     before and read just after. Returns (per-kernel results, launches)."""
@@ -1075,7 +1165,7 @@ def phase_measure(card: str) -> tuple[dict, dict]:
         fused_window_attention_2d,
         window_partition,
     )
-    from fbanet_tpu_torch.ops.leff import fused_leff
+    from fbanet_tpu_torch.ops import leff
     from fbanet_tpu_torch.tools import measure_bwd as mb
     from fbanet_tpu_torch.tools import measure_swin_rates as mr
 
@@ -1156,7 +1246,7 @@ def phase_measure(card: str) -> tuple[dict, dict]:
     k1b.update(k1b_bound.fields(), library_ms=None)
 
     # K9, K10, K11 against their plain versions at the tools' B=8 inputs;
-    # each `full` bitwise against the production kernel
+    # each `full` bitwise against the kernel its flags are built on
     abl = {k: dict(max_abs_err=0.0, plain_ms=0.0, variants={})
            for k in ("K9", "K10", "K11")}
     bounds = {}
@@ -1204,16 +1294,18 @@ def phase_measure(card: str) -> tuple[dict, dict]:
                         prod = fused_window_attention_2d(
                             *args, None, heads=heads, window_size=WS)
                         same = torch.equal(got, prod)
-                    elif kernel == "K10":
-                        same = torch.equal(got, fused_leff(*args))
-                    else:  # K3 on the map of one window per image
-                        x, g, *params = args
-                        prod = attention.window_attention_bwd(
+                    elif kernel == "K10":  # K2's first kernel
+                        same = torch.equal(got, leff._leff_launch(
+                            *args, False, leff._K2_BASE_PLAN))
+                    else:  # K3's first kernel on the map of one window
+                        x, g, *params = args  # per image
+                        prod = attention._attention_bwd_launch(
                             x.view(-1, WS, WS, c), g.view(-1, WS, WS, c),
-                            *params, None, heads=heads, window_size=WS)
+                            *params, None, heads, WS, False,
+                            attention._K3_BASE_PLAN)
                         same = all(torch.equal(a.reshape(b.shape), b)
                                    for a, b in zip(prod, got))
-                    line += f" bitwise_equal_to_production={same}"
+                    line += f" bitwise_equal_to_base={same}"
                     if not same:
                         failures.append(line)
                 log(line)
@@ -1221,7 +1313,7 @@ def phase_measure(card: str) -> tuple[dict, dict]:
                     failures.append(line)
     if failures:
         raise AssertionError("measurement slice disagrees with its plain "
-                             "versions or production kernels:\n"
+                             "versions or their base kernels:\n"
                              + "\n".join(failures))
 
     # the main path: both tools at B=8, K1b forward + backward by autograd
@@ -1291,7 +1383,7 @@ def phase_variants(card: str, fwd_ms: float, train_ms: float
 
     from fbanet_tpu_torch.ops import _build
     from fbanet_tpu_torch.ops.attention import fused_window_attention_2d
-    from fbanet_tpu_torch.ops.leff import fused_leff
+    from fbanet_tpu_torch.ops import leff
     from fbanet_tpu_torch.tools import flops_accounting, profile_components
     from fbanet_tpu_torch.tools import measure_swin_rates as mr
     from fbanet_tpu_torch.tools import measure_swin_variants as mv
@@ -1347,7 +1439,7 @@ def phase_variants(card: str, fwd_ms: float, train_ms: float
                 failures.append(line)
             log(line)
         la = mr._leff_args(c, r, batch=MEASURE_B)
-        k2 = fused_leff(*la)
+        k2 = leff._leff_launch(*la, False, leff._K2_BASE_PLAN)  # K8's base
         for vname, kw in [("prod", {})] + list(mv.LEFF_VARIANTS.items()):
             fn = mv.variant_leff(c, r, **kw)
             got, ref = fn(*la), fn(*la, plain=True)
@@ -1365,7 +1457,7 @@ def phase_variants(card: str, fwd_ms: float, train_ms: float
             log(line)
     if failures:
         raise AssertionError("variant slice disagrees with its plain versions "
-                             "or the production kernels:\n"
+                             "or their base kernels:\n"
                              + "\n".join(failures))
 
     # the main path: the tool's check and time modes, every component
@@ -1423,7 +1515,9 @@ def _counters():
     )
 
     return {"K1": attention.fused_window_attention_2d,
-            "K2": leff.fused_leff, "K3": attention.window_attention_bwd,
+            "K2": leff._leff_launch.wgmma, "K2-base": leff._leff_launch.base,
+            "K3": attention._attention_bwd_launch.wgmma,
+            "K3-base": attention._attention_bwd_launch.base,
             "K4": leff.leff_bwd, "R1": reduce.token_matmul,
             "R2": reduce.column_sum,
             "K5": warp_kernels.warp_burst_bilinear,
@@ -1446,8 +1540,9 @@ def _device_ms(events) -> tuple[float, dict]:
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))
         total += us
-        for key in ("window_attention_bwd", "window_attention_bf16",
-                    "leff_bwd", "leff_ln_bwd", "leff_bf16", "token_matmul",
+        for key in ("attention_bwd_wgmma", "window_attention_bwd",
+                    "window_attention_bf16", "leff_wgmma", "leff_bwd",
+                    "leff_ln_bwd", "leff_bf16", "token_matmul",
                     "column_sum", "warp_homography", "warp_coords"):
             if key in e.key:
                 ours[key] = ours.get(key, 0.0) + us / 1e3
@@ -1462,8 +1557,9 @@ def phase_train(card: str) -> tuple[dict, float]:
     every parameter moved, and 20 launches per step of each of K1-K4. Then
     one f32 step at B=2 holds every parameter gradient of the kernel path
     against the plain path, and the B=8 step is timed against the plain
-    versions and profiled. Returns the launch counts of the 5 steps and
-    the B=8 step's ms."""
+    versions and profiled. Returns the launch counts of the 5 steps and of
+    the f32 step's kernel path (K2's and K3's first kernels run there),
+    and the B=8 step's ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1514,11 +1610,15 @@ def phase_train(card: str) -> tuple[dict, float]:
         raise AssertionError(f"parameters that did not move: {still}")
     del before
 
-    # f32, B=2: every parameter gradient, kernels against plain versions
+    # f32, B=2: every parameter gradient, kernels against plain versions.
+    # The kernel path's launches count as a path of their own: in f32 the
+    # plans send K2 and K3 to their first kernels, 20 launches each
     cfg32 = cfg.replace(dtype="float32")
     m32 = create_model(cfg32, device="cuda", seed=0)
     m32.load_state_dict(state, strict=True)
     grads = []
+    for c in counters.values():
+        c.launches = 0
     for plain in (False, True):
         m32.zero_grad(set_to_none=True)
         loss_fn = make_train_step(m32, None, tcfg, plain=plain).loss_fn
@@ -1526,6 +1626,13 @@ def phase_train(card: str) -> tuple[dict, float]:
                 torch.Generator(device="cuda").manual_seed(11)).backward()
         grads.append({n: p.grad.clone() for n, p in m32.named_parameters()
                       if p.grad is not None})
+    f32_launches = {k: c.launches for k, c in counters.items()}
+    log(f"train f32 B=2 step: launches {f32_launches}")
+    for name in ("K1", "K2-base", "K3-base", "K4"):
+        if f32_launches[name] != layers:
+            raise AssertionError(f"{name}: {f32_launches[name]} launches in "
+                                 f"the f32 step, expected {layers}")
+    launches = {k: v + f32_launches[k] for k, v in launches.items()}
     if grads[0].keys() != grads[1].keys():
         raise AssertionError("kernel and plain paths differ in which "
                              "parameters get a gradient")
@@ -1562,9 +1669,14 @@ def phase_train(card: str) -> tuple[dict, float]:
                      max_name_column_width=60))
     total, ours = _device_ms(events)
     k4 = ours.get("leff_bwd", 0.0) + ours.get("leff_ln_bwd", 0.0)
+    k3 = ours.get("attention_bwd_wgmma", 0.0) + ours.get(
+        "window_attention_bwd", 0.0)
+    k2 = ours.get("leff_wgmma", 0.0) + ours.get("leff_bf16", 0.0)
     log(f"train B=8 profile: device {total:.3f} ms, port kernels (ms) "
-        f"{ {k: round(v, 3) for k, v in ours.items()} }; K4 (leff_bwd + "
-        f"leff_ln_bwd) {k4:.3f} ms")
+        f"{ {k: round(v, 3) for k, v in ours.items()} }; K3 "
+        f"(attention_bwd_wgmma + window_attention_bwd) {k3:.3f} ms, K2 "
+        f"(leff_wgmma + leff_bf16) {k2:.3f} ms, K4 (leff_bwd + leff_ln_bwd) "
+        f"{k4:.3f} ms")
     return launches, ms
 
 
@@ -1627,9 +1739,14 @@ def main() -> None:
     table = (
         ("K1", "K1 fused window attention", "attention.cu",
          "fbanet_tpu/ops/attention_pallas.py:250"),
-        ("K2", "K2 fused LeFF", "leff.cu",
+        ("K2", "K2 fused LeFF (wgmma form)", "leff.cu",
          "fbanet_tpu/ops/leff_pallas.py:172"),
-        ("K3", "K3 fused window attention backward", "attention_bwd.cu",
+        ("K2-base", "K2 fused LeFF (first kernel: f32, K8/K10 base)",
+         "leff.cu", "fbanet_tpu/ops/leff_pallas.py:172"),
+        ("K3", "K3 fused window attention backward (wgmma form)",
+         "attention_bwd_wgmma.cu", "fbanet_tpu/ops/attention_pallas.py:334"),
+        ("K3-base", "K3 fused window attention backward (first kernel: "
+         "f32, K11 base)", "attention_bwd.cu",
          "fbanet_tpu/ops/attention_pallas.py:334"),
         ("K4", "K4 fused LeFF backward (and K4b)", "leff_bwd.cu",
          "fbanet_tpu/ops/leff_pallas.py:278 and :528"),

@@ -1,6 +1,10 @@
-// K3 (and K11): the backward of K1 (fused norm1 + window attention) on a
-// post-roll [B, H, W, C] map: dx, plus what the parameter gradients need.
-// Entries: attention_bwd.cu (K3), attention_bwd_ablation.cu (K11).
+// K3's first kernel (and K11): the backward of K1 (fused norm1 + window
+// attention) on a post-roll [B, H, W, C] map: dx, plus what the parameter
+// gradients need. Entries: attention_bwd.cu (K3), attention_bwd_ablation.cu
+// (K11). K3's bf16 form for Hopper (wgmma, TMA, several windows per block)
+// is attention_bwd_wgmma.cu; ops/attention.py::_attention_bwd_plan keeps
+// this kernel for f32, for the shapes that form does not take, and as the
+// base of K11's flags.
 //
 // Replaces the TPU kernel fbanet_tpu/ops/attention_pallas.py::
 // _attention_bwd_kernel (launched by _pallas_backward, reached from K1's

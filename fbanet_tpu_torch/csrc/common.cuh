@@ -141,15 +141,17 @@ struct WinBlock {
   int win;              // mask window
   size_t base;          // pixel index of token 0
   int rowlen, rowstride;  // token t sits t / rowlen rows of rowstride on
-  __device__ explicit WinBlock(const WinGeom& g) {
-    win = blockIdx.x % g.nw;
+  __device__ explicit WinBlock(const WinGeom& g) : WinBlock(g, blockIdx.x) {}
+  // window `w` (K3's wgmma form walks several windows per block)
+  __device__ WinBlock(const WinGeom& g, int w) {
+    win = w % g.nw;
     if (g.windowed) {
-      base = (size_t)blockIdx.x * g.n;
+      base = (size_t)w * g.n;
       rowlen = g.n;
       rowstride = 0;
     } else {
       const int nww = g.W / g.ws;
-      base = ((size_t)(blockIdx.x / g.nw) * g.H + (win / nww) * g.ws) * g.W +
+      base = ((size_t)(w / g.nw) * g.H + (win / nww) * g.ws) * g.W +
              (win % nww) * g.ws;
       rowlen = g.ws;
       rowstride = g.W;

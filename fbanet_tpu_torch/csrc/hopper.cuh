@@ -1,8 +1,11 @@
 // Hopper (sm_90a) building blocks in PTX: mbarriers, 2-D TMA tile loads,
 // shared-memory matrix descriptors and warpgroup matrix products (wgmma)
-// with bf16 operands in shared memory and f32 accumulators in registers.
+// with bf16 operands in shared memory (A also in registers) and f32
+// accumulators in registers, and the device helpers the wgmma forms of K2,
+// K3 and K4 share.
 //
-// Operand layouts, all in 128-byte swizzle atoms: 64 bf16 columns x `rows`
+// Operand layouts in 128-byte swizzle atoms (tiles of 32- and 64-byte rows
+// further below): 64 bf16 columns x `rows`
 // rows, 128 bytes per row, the 16-byte chunks of row r XOR-ed with r % 8
 // (what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B and a 64-column box
 // writes). An atom starts on a 1024-byte boundary; atoms of one operand lie
@@ -22,6 +25,8 @@
 // Shared memory that threads write and wgmma or TMA then read is handed
 // over with fence_proxy_async() before the barrier that orders them.
 #pragma once
+
+#include "common.cuh"
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -91,13 +96,24 @@ __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
                : "memory");
 }
 
+// descriptor layout types: 128-, 64- and 32-byte swizzle
+enum : uint64_t { kSw128 = 1, kSw64 = 2, kSw32 = 3 };
+
+// wgmma descriptor: start address, leading and stride byte offsets, layout
+// type. K-major: sbo = 8 rows of the tile (8 pitch), lbo unused (16);
+// MN-major: sbo = 8 rows along K, lbo = the stride between MN atoms.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
 // wgmma descriptor of an MN-major operand in 128-byte swizzle atoms at
 // shared address `addr` (1024-byte aligned phase): `atom_stride` bytes
 // between 64-column atoms (the leading byte offset), 1024 bytes between
 // groups of 8 token rows (the stride byte offset).
 __device__ __forceinline__ uint64_t mn_major_desc(uint32_t addr, uint32_t atom_stride) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((atom_stride >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+  return smem_desc(addr, atom_stride, 1024, kSw128);
 }
 
 // wgmma descriptor of a K-major operand in 128-byte swizzle atoms at
@@ -105,8 +121,7 @@ __device__ __forceinline__ uint64_t mn_major_desc(uint32_t addr, uint32_t atom_s
 // k16 step): 1024 bytes between groups of 8 rows; the leading byte offset
 // is unused for a swizzled K-major operand (1 by convention).
 __device__ __forceinline__ uint64_t k_major_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         (1ull << 62);
+  return smem_desc(addr, 16, 1024, kSw128);
 }
 
 // order this thread's generic-proxy writes to shared memory before later
@@ -125,26 +140,79 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
-// d[64 x N] += A[64 x 16] B[16 x N], A and B bf16 MN-major in shared memory
-// (descriptors `da`, `db`), d f32 in the warpgroup's registers: thread t
+// ---- tiles of other pitches, named barriers, products ----
+//
+// A swizzled tile whose rows are `pitch` = 32, 64 or 128 bytes (16, 32 or
+// 64 bf16 columns) has the 16-byte chunks of byte offset o XOR-ed with
+// (o >> 7) masked to pitch / 16 - 1 (CuTe's Swizzle<1|2|3, 4, 3>): the
+// 128-byte atoms above are the case pitch = 128. K3 keeps each head of
+// head size dh in a tile of pitch 2 dh, so each head is a K-major (K = its
+// columns) and an MN-major (N = its columns) operand of its own; the
+// descriptor's stride byte offset is 8 pitch, and its layout type names
+// the pitch (sw_layout).
+
+__host__ __device__ constexpr uint64_t sw_layout(int pitch) {
+  return pitch == 128 ? kSw128 : pitch == 64 ? kSw64 : kSw32;
+}
+
+// byte offset of (row, byte `col`) in a swizzled tile of `pitch`-byte rows
+__device__ __forceinline__ uint32_t swz_at(int row, int col, int pitch) {
+  const uint32_t o = (uint32_t)(row * pitch + col);
+  return o ^ (((o >> 7) & (uint32_t)(pitch / 16 - 1)) << 4);
+}
+
+// barrier `id` (1..15) among the `count` threads of one or more warps
+__device__ __forceinline__ void named_bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// d[64 x N] += A[64 x 16] B[16 x N], bf16 operands in shared memory
+// (descriptors `da`, `db`), f32 d in the warpgroup's registers: thread t
 // holds d[4j + 2h + e] = D[16 (t / 32) + (t % 32) / 4 + 8 h][8 j + 2 (t % 4) + e].
-__device__ __forceinline__ void wgmma_m64n64(float* d, uint64_t da, uint64_t db) {
+// TA / TB: 0 K-major, 1 MN-major (the transpose bits).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n16(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
-__device__ __forceinline__ void wgmma_m64n128(float* d, uint64_t da, uint64_t db) {
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -152,43 +220,177 @@ __device__ __forceinline__ void wgmma_m64n128(float* d, uint64_t da, uint64_t db
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
-template <int N> __device__ __forceinline__ void wgmma_bf16(float* d, uint64_t da, uint64_t db) {
-  static_assert(N == 64 || N == 128, "wgmma widths instantiated here");
-  if constexpr (N == 64)
-    wgmma_m64n64(d, da, db);
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "wgmma widths instantiated here");
+  if constexpr (N == 16)
+    wgmma_ss_n16<TA, TB>(d, da, db);
+  else if constexpr (N == 32)
+    wgmma_ss_n32<TA, TB>(d, da, db);
+  else if constexpr (N == 64)
+    wgmma_ss_n64<TA, TB>(d, da, db);
   else
-    wgmma_m64n128(d, da, db);
+    wgmma_ss_n128<TA, TB>(d, da, db);
 }
 
-// d[64 x 32] += A[64 x 16] B[16 x 32] with A and B bf16 K-major in shared
-// memory (transpose bits 0), d f32 in registers as for wgmma_m64n64: thread
-// t holds d[4j + 2h + e] = D[16 (t / 32) + (t % 32) / 4 + 8 h][8 j + 2 (t % 4) + e].
-__device__ __forceinline__ void wgmma_kk_m64n32(float* d, uint64_t da, uint64_t db) {
+// The same with A in registers: thread t of the warpgroup holds rows
+// r = 16 (t / 32) + (t % 32) / 4 and r + 8, columns c = 2 (t % 4), c + 1
+// and c + 8, c + 9 as a[0] = A[r][c..c+1], a[1] = A[r+8][c..c+1], a[2] =
+// A[r][c+8..c+9], a[3] = A[r+8][c+8..c+9] (bf16 pairs). That is the
+// accumulator's layout: columns 16 k .. 16 k + 15 of a 64-wide f32
+// accumulator d become a k16 A operand as pairs (d[8k + 2i], d[8k + 2i + 1]),
+// i = 0..3.
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n16(float* d, const uint32_t* a, uint64_t db) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(1));
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
 }
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(TB));
+}
+
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
+  static_assert(N == 16 || N == 32 || N == 64, "wgmma widths instantiated here");
+  if constexpr (N == 16)
+    wgmma_rs_n16<TB>(d, a, db);
+  else if constexpr (N == 32)
+    wgmma_rs_n32<TB>(d, a, db);
+  else
+    wgmma_rs_n64<TB>(d, a, db);
+}
+
+// ---- helpers of the wgmma forms (K2, K3, K4) ----
+
+// gelu_tanh(x) and gelu_tanh_grad(x) (common.cuh) from one tanh, with the
+// two functions' own expressions
+__device__ __forceinline__ void gelu_and_grad(float x, float* gl, float* dg) {
+  const float k = 0.7978845608028654f;
+  const float t = tanhf(k * (x + 0.044715f * (x * x * x)));
+  const float cdf = 0.5f * (1.0f + t);
+  *gl = x * cdf;
+  *dg = cdf + x * (0.5f * (1.0f - t * t)) * (k * (1.0f + 3.0f * 0.044715f * (x * x)));
+}
+
+// byte offset of 16-byte chunk `chunk` (0..7) of row `row` in a swizzle atom
+__device__ __forceinline__ uint32_t swz(int row, int chunk) { return swz_at(row, 16 * chunk, 128); }
+
+__device__ __forceinline__ uint32_t pack_bf2(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float2 unpack_bf2(uint32_t w) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
+}
+
+__device__ __forceinline__ void unpack_bf8(const uint4& u, float v[8]) {
+  const float2 a = unpack_bf2(u.x), b = unpack_bf2(u.y), c = unpack_bf2(u.z),
+               d = unpack_bf2(u.w);
+  v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y, v[4] = c.x, v[5] = c.y, v[6] = d.x,
+  v[7] = d.y;
+}
+
+// LayerNorm statistics of one token whose C channels lie 8 per lane over a
+// segment of `seg` = C / 8 lanes (a fixed xor tree inside the segment); the
+// whole warp calls it together
+__device__ __forceinline__ void ln_stats8(const float v[8], int seg, int C, float* mu,
+                                          float* inv) {
+  float s = 0.f, sq = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    s += v[i];
+    sq += v[i] * v[i];
+  }
+  for (int o = seg / 2; o > 0; o >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+    sq += __shfl_xor_sync(0xffffffffu, sq, o);
+  }
+  *mu = s / C;
+  *inv = rsqrtf(fmaxf(0.f, sq / C - *mu * *mu) + kLnEps);
+}
+
+// out(c, s) with s[v] = sum over the tile's n tokens t of f(t, c)[v], for
+// c < C (C divides the block's NT threads): thread (c, k) adds tokens
+// [k n / K, (k + 1) n / K) in order (K = NT / C), then the K partials add
+// in order of k through `red` (NV K C floats). A fixed order: the sums
+// repeat bitwise. Every thread of the block calls it.
+template <int NT, int NV, typename F, typename Out>
+__device__ __forceinline__ void tile_column_sums(int C, int n, float* red, F f, Out out) {
+  const int K = NT / C, c = threadIdx.x % C, k = threadIdx.x / C;
+  float s[NV] = {};
+  for (int t = k * n / K; t < (k + 1) * n / K; ++t) {
+    float v[NV];
+    f(t, c, v);
+#pragma unroll
+    for (int j = 0; j < NV; ++j) s[j] += v[j];
+  }
+  if (K > 1) {
+#pragma unroll
+    for (int j = 0; j < NV; ++j) red[(k * NV + j) * C + c] = s[j];
+  }
+  __syncthreads();
+  if (k == 0) {
+    if (K > 1) {
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        float acc = red[j * C + c];
+        for (int kk = 1; kk < K; ++kk) acc += red[(kk * NV + j) * C + c];
+        s[j] = acc;
+      }
+    }
+    out(c, s);
+  }
+  __syncthreads();
+}
+
 
 // Host: a [rows, cols] row-major bf16 tensor in global memory as TMA boxes
 // of 64 columns x `box_rows` rows, 128-byte swizzled (the atoms above);

@@ -1,7 +1,7 @@
-// K2's block body (and K8's, K10's), shared by leff.cu (K2, K10) and
-// leff_variants.cu (K8): the tile, the shared-memory layout, the stages and
-// the bf16 kernel with its compile-time flags. What K2 computes and why it is
-// built so is at the top of leff.cu.
+// K2's first kernel's block body (and K8's, K10's), shared by leff.cu (K2,
+// K10) and leff_variants.cu (K8): the tile, the shared-memory layout, the
+// stages and the bf16 kernel with its compile-time flags. What K2 computes
+// and why it is built so is at the top of leff.cu, with K2's wgmma form.
 #pragma once
 
 #include "common.cuh"

@@ -430,90 +430,6 @@ struct WgLayout {
   }
 };
 
-// gelu_tanh(x) and gelu_tanh_grad(x) (common.cuh) from one tanh, with the
-// two functions' own expressions
-__device__ __forceinline__ void gelu_and_grad(float x, float* gl, float* dg) {
-  const float k = 0.7978845608028654f;
-  const float t = tanhf(k * (x + 0.044715f * (x * x * x)));
-  const float cdf = 0.5f * (1.0f + t);
-  *gl = x * cdf;
-  *dg = cdf + x * (0.5f * (1.0f - t * t)) * (k * (1.0f + 3.0f * 0.044715f * (x * x)));
-}
-
-// byte offset of 16-byte chunk `chunk` (0..7) of row `row` in a swizzle atom
-__device__ __forceinline__ uint32_t swz(int row, int chunk) {
-  return (uint32_t)row * 128 + (uint32_t)((chunk ^ (row & 7)) << 4);
-}
-
-__device__ __forceinline__ uint32_t pack_bf2(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ float2 unpack_bf2(uint32_t w) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
-}
-
-__device__ __forceinline__ void unpack_bf8(const uint4& u, float v[8]) {
-  const float2 a = unpack_bf2(u.x), b = unpack_bf2(u.y), c = unpack_bf2(u.z),
-               d = unpack_bf2(u.w);
-  v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y, v[4] = c.x, v[5] = c.y, v[6] = d.x,
-  v[7] = d.y;
-}
-
-// LayerNorm statistics of one token whose C channels lie 8 per lane over a
-// segment of `seg` = C / 8 lanes (a fixed xor tree inside the segment); the
-// whole warp calls it together
-__device__ __forceinline__ void ln_stats8(const float v[8], int seg, int C, float* mu,
-                                          float* inv) {
-  float s = 0.f, sq = 0.f;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    s += v[i];
-    sq += v[i] * v[i];
-  }
-  for (int o = seg / 2; o > 0; o >>= 1) {
-    s += __shfl_xor_sync(0xffffffffu, s, o);
-    sq += __shfl_xor_sync(0xffffffffu, sq, o);
-  }
-  *mu = s / C;
-  *inv = rsqrtf(fmaxf(0.f, sq / C - *mu * *mu) + kLnEps);
-}
-
-// out(c, s) with s[v] = sum over the tile's n tokens t of f(t, c)[v], for
-// c < C (C divides the block's NT threads): thread (c, k) adds tokens
-// [k n / K, (k + 1) n / K) in order (K = NT / C), then the K partials add
-// in order of k through `red` (NV K C floats). A fixed order: the sums
-// repeat bitwise. Every thread of the block calls it.
-template <int NT, int NV, typename F, typename Out>
-__device__ __forceinline__ void tile_column_sums(int C, int n, float* red, F f, Out out) {
-  const int K = NT / C, c = threadIdx.x % C, k = threadIdx.x / C;
-  float s[NV] = {};
-  for (int t = k * n / K; t < (k + 1) * n / K; ++t) {
-    float v[NV];
-    f(t, c, v);
-#pragma unroll
-    for (int j = 0; j < NV; ++j) s[j] += v[j];
-  }
-  if (K > 1) {
-#pragma unroll
-    for (int j = 0; j < NV; ++j) red[(k * NV + j) * C + c] = s[j];
-  }
-  __syncthreads();
-  if (k == 0) {
-    if (K > 1) {
-#pragma unroll
-      for (int j = 0; j < NV; ++j) {
-        float acc = red[j * C + c];
-        for (int kk = 1; kk < K; ++kk) acc += red[(kk * NV + j) * C + c];
-        s[j] = acc;
-      }
-    }
-    out(c, s);
-  }
-  __syncthreads();
-}
-
 // The LayerNorm backward of the tile's NI interior tokens (pixel ipix(t)):
 // dx from dy (f32 [NI][ldy] in shared memory) and each token's statistics,
 // then the tile's LayerNorm scale and bias partials part[c], part[C + c].
@@ -718,10 +634,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       for (int j = 0; j < KC / 2; ++j) acc[j] = 0.f;
       wgmma_fence();
       for (int k = 0; k < C / 16; ++k)
-        wgmma_kk_m64n32(acc,
-                     k_major_desc(smem_addr(sY + (size_t)(k / 4) * q.NXr * 128 + mb * 8192 +
-                                            (k % 4) * 32)),
-                     k_major_desc(smem_addr(w1s + (k / 4) * KC * 128 + (k % 4) * 32)));
+        wgmma_ss<32, 0, 0>(
+            acc,
+            k_major_desc(smem_addr(sY + (size_t)(k / 4) * q.NXr * 128 + mb * 8192 + (k % 4) * 32)),
+            k_major_desc(smem_addr(w1s + (k / 4) * KC * 128 + (k % 4) * 32)));
       wgmma_commit();
       wgmma_wait_all();
 #pragma unroll
@@ -793,10 +709,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       for (int j = 0; j < KC / 2; ++j) acc[j] = 0.f;
       wgmma_fence();
       for (int k = 0; k < C / 16; ++k)
-        wgmma_kk_m64n32(acc,
-                     k_major_desc(smem_addr(sG + (size_t)(k / 4) * q.NGr * 128 + mb * 8192 +
-                                            (k % 4) * 32)),
-                     k_major_desc(smem_addr(sW2 + (k / 4) * KC * 128 + (k % 4) * 32)));
+        wgmma_ss<32, 0, 0>(
+            acc,
+            k_major_desc(smem_addr(sG + (size_t)(k / 4) * q.NGr * 128 + mb * 8192 + (k % 4) * 32)),
+            k_major_desc(smem_addr(sW2 + (k / 4) * KC * 128 + (k % 4) * 32)));
       wgmma_commit();
       wgmma_wait_all();
 #pragma unroll
@@ -879,8 +795,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     if (has_piece) {
 #pragma unroll
       for (int k = 0; k < KC / 16; ++k)
-        wgmma_m64n64(dyacc, mn_major_desc(smem_addr(w1s + cb * KC * 128 + k * 2048), KC * 128),
-                     mn_major_desc(smem_addr(sDz1t + tb * KC * 128 + k * 2048), KC * 128));
+        wgmma_ss<64, 1, 1>(dyacc,
+                           mn_major_desc(smem_addr(w1s + cb * KC * 128 + k * 2048), KC * 128),
+                           mn_major_desc(smem_addr(sDz1t + tb * KC * 128 + k * 2048), KC * 128));
     }
     wgmma_commit();
     // meanwhile: the chunk's partials, summed over the warps in order

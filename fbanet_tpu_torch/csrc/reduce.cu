@@ -220,8 +220,8 @@ __device__ __forceinline__ void consume(uint8_t* ring, uint64_t* full, uint64_t*
     wgmma_fence();
 #pragma unroll
     for (int k = 0; k < kStageTok / 16; ++k)  // 16 tokens = 2 groups of 8 rows
-      wgmma_bf16<BN>(acc, mn_major_desc(a_addr + k * 2048, kAtomBytes),
-                     mn_major_desc(b_addr + k * 2048, kAtomBytes));
+      wgmma_ss<BN, 1, 1>(acc, mn_major_desc(a_addr + k * 2048, kAtomBytes),
+                         mn_major_desc(b_addr + k * 2048, kAtomBytes));
     wgmma_commit();
     wgmma_wait_all();
     __syncwarp();

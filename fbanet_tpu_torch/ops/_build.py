@@ -26,6 +26,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "fbanet_tpu_torch"
@@ -48,6 +50,12 @@ SIGNATURES = {
     "fbanet_leff": [_P] * 10 + [_I] * 7 + [_P],
     # K10: the same pointers, then B, H, W, C, Ch, variant, stream
     "fbanet_leff_ablation": [_P] * 10 + [_I] * 6 + [_P],
+    # K2's wgmma form: the same pointers with W2^T [Ch, C] for w2, then B,
+    # H, W, C, Ch, residual, tile rows, tile columns, hidden chunk, stream;
+    # its shared memory, 0 for a plan it does not take: (C, tile rows, tile
+    # columns, chunk)
+    "fbanet_leff_wgmma": [_P] * 10 + [_I] * 9 + [_P],
+    "fbanet_leff_wgmma_smem": [_I] * 4,
     # dynamic shared-memory bytes of one block, 0 for a shape the kernel
     # does not take (host functions): (tokens per window, C, heads, bf16)
     # and (C, Ch, bf16)
@@ -73,6 +81,15 @@ SIGNATURES = {
     # then G, tokens per window, C, heads, stages skipped, stream
     "fbanet_window_attention_bwd_windows": [_P] * 17 + [_I] * 6 + [_P],
     "fbanet_window_attention_bwd_ablation": [_P] * 17 + [_I] * 5 + [_P],
+    # K3's wgmma form: x, g, dx, y/o/dq/dkv scratch, partial sums, ln_s,
+    # ln_b, [Wq; Wkv], bq, bkv, wproj, bias, mask, then B, H, W, C, heads,
+    # ws, residual, warpgroups, windows per block, stream; on windows G,
+    # tokens per window, C, heads, mask windows, warpgroups, windows per
+    # block, stream; its shared memory, 0 for a shape it does not take:
+    # (tokens per window, C, heads, warpgroups)
+    "fbanet_window_attention_bwd_wgmma": [_P] * 16 + [_I] * 9 + [_P],
+    "fbanet_window_attention_bwd_wgmma_windows": [_P] * 16 + [_I] * 7 + [_P],
+    "fbanet_window_attention_bwd_wgmma_smem": [_I] * 4,
     # K4: x, g, dx, y/h2/dz1 scratch, partial sums, dy partials, ln_s,
     # ln_b, w1, b1, wdw, bdw, w2, w2^T, B, H, W, C, Ch, residual, bf16, and
     # the plan: tile rows, tile columns (0: the WMMA form), hidden chunk,
@@ -177,6 +194,15 @@ def library() -> ctypes.CDLL:
     lib.fbanet_error_string.argtypes = [ctypes.c_int]
     lib.fbanet_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def stream(t: torch.Tensor) -> int:
+    """The handle of the current CUDA stream on t's device, straight from
+    torch's C binding. `torch.cuda.current_stream(dev).cuda_stream` builds
+    a Stream object per call: 4.5-5.4 us against 0.2-0.3 on the host of an
+    NVIDIA H100 80GB HBM3 at 700 W (tools/measure_warp_host.py). Every
+    wrapper launches through this."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(err: int, what: str) -> None:

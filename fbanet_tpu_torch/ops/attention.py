@@ -42,11 +42,15 @@ relative-position table through the index gather. The mask gets none.
 
 from __future__ import annotations
 
+import functools
+import math
+from types import SimpleNamespace
+
 import torch
 
 from fbanet_tpu_torch.ops import _build
 from fbanet_tpu_torch.ops.norm import LN_EPS, layer_norm_f32
-from fbanet_tpu_torch.ops.reduce import column_sum, token_matmul
+from fbanet_tpu_torch.ops.reduce import _SMS, _cdiv, column_sum, token_matmul
 
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on the H100
 
@@ -302,10 +306,95 @@ def _kernel_forward(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
         x4.data_ptr(), out.data_ptr(),
         *[None if a is None else a.data_ptr() for a in args],
         b, h, w, c, heads, ws, int(residual), bf16,
-        torch.cuda.current_stream(x4.device).cuda_stream)
+        _build.stream(x4))
     _build.check(err, "fused_window_attention_2d")
     fused_window_attention_2d.launches += 1
     return out
+
+
+# K3's plans: (warpgroups per block, windows per block). The wgmma form
+# (csrc/attention_bwd_wgmma.cu) takes bf16 8 x 8 windows, C 64, 128 or 256
+# and head size 16 or 64; warpgroups 0 is the first kernel
+# (csrc/attention_bwd.cuh: f32, every other shape, K11's base), one window
+# per block.
+_K3_BASE_PLAN = (0, 1)
+
+
+def _attention_bwd_smem(n: int, c: int, heads: int, nwg: int) -> int:
+    """Dynamic shared memory of K3's wgmma form with `nwg` warpgroups for
+    windows of n tokens, C channels and `heads` heads, or 0 for a shape it
+    does not take: a model of the kernel's
+    `fbanet_window_attention_bwd_wgmma_smem` (the layout of `AbLayout` in
+    csrc/attention_bwd_wgmma.cu, byte for byte) that plans without the
+    card, as the CPU tests do; on the card K3 plans with the kernel's own,
+    and chip_smoke.py holds the two equal."""
+    if n != 64 or c % 64 or c > 256 or heads < 1 or c % heads:
+        return 0
+    if c // heads not in (16, 64) or nwg not in (2, 4) or c > 64 * nwg:
+        return 0
+    t = 128 * c  # one 64 x C bf16 tensor
+    ring = 5 * t
+    cs = ring + nwg * 2 * 4096 + (nwg * 8192 if t < nwg * 8192 else 0)
+    # dy [64][C + 4] f32 and the column sums' scratch must end before the
+    # rings
+    if _cdiv(256 * (c + 4), 128) * 128 + 3 * nwg * 128 * 4 > ring:
+        return 0
+    colp = cs + nwg * 1024  # the block's running column partials
+    return colp + _cdiv(24 * c, 128) * 128 + 2 * 256 + nwg * 16 + 1024
+
+
+def _kernel_bwd_smem(n: int, c: int, heads: int, nwg: int) -> int:
+    """The kernel's own `fbanet_window_attention_bwd_wgmma_smem` (builds
+    the library on first use)."""
+    return _build.library().fbanet_window_attention_bwd_wgmma_smem(
+        n, c, heads, nwg)
+
+
+_SM_SMEM = 233472  # bytes of shared memory on one H100 SM (228 KB)
+
+
+@functools.lru_cache(maxsize=256)
+def _attention_bwd_plan(b: int, h: int, w: int, c: int, heads: int,
+                        ws: int = 8, bf16: bool = True, sms: int = _SMS,
+                        smem=_attention_bwd_smem) -> tuple[int, int]:
+    """(warpgroups per block, windows per block) of K3 for x [b, h, w, c]
+    (or b windows of ws x ws tokens with h = w = ws) and `heads` heads.
+
+    bf16: the wgmma form where its shared memory (`smem`: the kernel's
+    `_kernel_bwd_smem` or its model `_attention_bwd_smem`) takes the shape:
+    two warpgroups where two such blocks share an SM's shared memory (C <=
+    128), else four (one block per SM); the windows dealt in order to as
+    many blocks as the card holds at once, each taking `wpb` consecutive
+    windows (`_window_blocks`), so each block writes one partial row.
+    Measured at the five groups at B=8 (tools/measure_attention_bwd.py
+    `plans`, NVIDIA H100 80GB HBM3 at 700 W): two warpgroups took 6-20 %
+    less device time than four where both fit; one window per block (a
+    partial row per window) ran 0-6 % faster per call, sums included, than
+    this plan, whose partial at dec1 is 13x smaller (PERF.md §6). Else
+    `_K3_BASE_PLAN`, the first kernel."""
+    if bf16 and h % ws == 0 and w % ws == 0:
+        for nwg in (2, 4):
+            size = smem(ws * ws, c, heads, nwg)
+            per_sm = _SM_SMEM // (size + 1024) if size else 0
+            if 0 < size <= _SMEM_LIMIT and per_sm >= 4 // nwg:
+                windows = b * (h // ws) * (w // ws)
+                return nwg, _cdiv(windows, (4 // nwg) * sms)
+    return _K3_BASE_PLAN
+
+
+def _partial_rows(windows: int, plan: tuple[int, int]) -> int:
+    """Rows of K3's partial sums under `plan`: one per block of the wgmma
+    form, one per window of the first kernel."""
+    nwg, wpb = plan
+    return _cdiv(windows, wpb) if nwg else windows
+
+
+def _window_blocks(windows: int, wpb: int) -> list[range]:
+    """The windows each block of K3's wgmma form walks, in order: block i
+    takes windows i wpb .. min(windows, (i + 1) wpb) - 1 (the kernel's
+    `w0`, `nwin`)."""
+    return [range(i * wpb, min(windows, (i + 1) * wpb))
+            for i in range(_cdiv(windows, wpb))]
 
 
 def window_attention_bwd(x4, g4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
@@ -314,50 +403,103 @@ def window_attention_bwd(x4, g4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
     """K3 on CUDA tensors: the backward of `fused_window_attention_2d` for
     the incoming gradient g4 [B, H, W, C] (x4's dtype). Returns what
     `_plain_bwd_2d` returns. The kernel writes dx, per-token scratch and
-    per-window partial sums; `ops.reduce` sums those in a fixed order."""
+    per-block partial sums; `ops.reduce` sums those in a fixed order.
+    `_attention_bwd_plan` picks the form and its blocks."""
     ws = window_size
     _check_kernel_shape(x4, heads, ws, mask)
     b, h, w, c = x4.shape
-    n = ws * ws
-    lib = _build.library()
-    bf16 = int(x4.dtype == torch.bfloat16)
-    if lib.fbanet_window_attention_bwd_group(n, c, heads, bf16, 0) == 0:
-        _unsupported("the backward kernel takes no head group of this shape "
-                     "(bfloat16 needs tokens, C and the head size in "
-                     "multiples of 16, and a group must fit shared memory)",
-                     x4, heads, ws)
-    g4 = g4.to(x4.dtype).contiguous()
-    ln_s, ln_b, wq_, bq_, wkv_, bkv_, wproj_, _, bias_, mask_ = _kernel_args(
-        x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, None, bias, mask)
-    windows = b * (h // ws) * (w // ws)
-    dx = torch.empty_like(x4)
-    ys, os_, dqs, dkvs, part = _bwd_scratch(x4, windows, heads, n, True)
-    err = lib.fbanet_window_attention_bwd(
-        x4.data_ptr(), g4.data_ptr(), dx.data_ptr(), ys.data_ptr(),
-        os_.data_ptr(), dqs.data_ptr(), dkvs.data_ptr(), part.data_ptr(),
-        ln_s.data_ptr(), ln_b.data_ptr(), wq_.data_ptr(), bq_.data_ptr(),
-        wkv_.data_ptr(), bkv_.data_ptr(), wproj_.data_ptr(), bias_.data_ptr(),
-        None if mask_ is None else mask_.data_ptr(),
-        b, h, w, c, heads, ws, int(residual), bf16,
-        torch.cuda.current_stream(x4.device).cuda_stream)
-    _build.check(err, "window_attention_bwd")
+    plan = _attention_bwd_plan(b, h, w, c, heads, ws,
+                               x4.dtype == torch.bfloat16,
+                               smem=_kernel_bwd_smem)
+    out = _attention_bwd_launch(x4, g4, ln_scale, ln_bias, wq, bq, wkv, bkv,
+                                wproj, bias, mask, heads, ws, residual, plan)
     window_attention_bwd.launches += 1
-    return (dx, *_bwd_sums(g4, ys, os_, dqs, dkvs, part, heads, n))
+    return out
 
 
+def _attention_bwd_launch(x4, g4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
+                          bias, mask, heads, ws, residual, plan):
+    """Launch K3 on the map with `plan` (see `_attention_bwd_plan`), then
+    the sums: the wgmma form counts in `_attention_bwd_launch.wgmma`, the
+    first kernel in `_attention_bwd_launch.base`."""
+    _check_kernel_shape(x4, heads, ws, mask)
+    b, h, w, c = x4.shape
+    n = ws * ws
+    g4 = g4.to(x4.dtype).contiguous()
+    windows = b * (h // ws) * (w // ws)
+    ptrs, scratch, _kept = _bwd_operands(
+        x4, g4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bias, mask, heads,
+        n, windows, plan, True)
+    geom = (b, h, w, c, heads, ws, int(residual))
+    lib = _build.library()
+    nwg, wpb = plan
+    if nwg:
+        err = lib.fbanet_window_attention_bwd_wgmma(
+            *ptrs, *geom, nwg, wpb, _build.stream(x4))
+        _attention_bwd_launch.wgmma.launches += 1
+    else:
+        bf16 = int(x4.dtype == torch.bfloat16)
+        if lib.fbanet_window_attention_bwd_group(n, c, heads, bf16, 0) == 0:
+            _unsupported("the backward kernel takes no head group of this "
+                         "shape (bfloat16 needs tokens, C and the head size "
+                         "in multiples of 16, and a group must fit shared "
+                         "memory)", x4, heads, ws)
+        err = lib.fbanet_window_attention_bwd(*ptrs, *geom, bf16,
+                                              _build.stream(x4))
+        _attention_bwd_launch.base.launches += 1
+    _build.check(err, "window_attention_bwd")
+    return (scratch[0], *_bwd_sums(g4, *scratch[1:], heads, n))
+
+
+# launch counts per form, kept as the wrappers keep theirs
+_attention_bwd_launch.wgmma = SimpleNamespace(launches=0)
+_attention_bwd_launch.base = SimpleNamespace(launches=0)
 window_attention_bwd.launches = 0
 
 
-def _bwd_scratch(x, windows: int, heads: int, n: int, wgrads: bool):
+def _bwd_operands(x, g, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bias,
+                  mask, heads, n, windows, plan, wgrads):
+    """(the pointer arguments of K3's entries under `plan`, (dx, ys, os,
+    dqs, dkvs, part), the parameters' copies): the wgmma form takes
+    [Wq; Wkv] as one [3C, C] weight and writes one partial row per block,
+    the first kernel wq and wkv apart and one row per window."""
+    ln_s, ln_b, wq_, bq_, wkv_, bkv_, wproj_, _, bias_, mask_ = _kernel_args(
+        x, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, None, bias, mask)
+    dx = torch.empty_like(x)
+    ys, os_, dqs, dkvs, part = _bwd_scratch(
+        x, _partial_rows(windows, plan), heads, n, wgrads)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    head = (x.data_ptr(), g.data_ptr(), dx.data_ptr(), ptr(ys), ptr(os_),
+            dqs.data_ptr(), dkvs.data_ptr(), ptr(part), ln_s.data_ptr(),
+            ln_b.data_ptr())
+    tail = (bias_.data_ptr(), ptr(mask_))
+    if plan[0]:
+        w3 = torch.cat([wq, wkv]).to(device=x.device, dtype=x.dtype)
+        ptrs = (*head, w3.data_ptr(), bq_.data_ptr(), bkv_.data_ptr(),
+                wproj_.data_ptr(), *tail)
+    else:
+        w3 = None
+        ptrs = (*head, wq_.data_ptr(), bq_.data_ptr(), wkv_.data_ptr(),
+                bkv_.data_ptr(), wproj_.data_ptr(), *tail)
+    # the caller holds the parameters' copies until the launch is queued
+    kept = (ln_s, ln_b, wq_, bq_, wkv_, bkv_, wproj_, bias_, mask_, w3)
+    return ptrs, (dx, ys, os_, dqs, dkvs, part), kept
+
+
+def _bwd_scratch(x, rows: int, heads: int, n: int, wgrads: bool):
     """K3's per-token scratch (y, o, dq, dk|dv in x's dtype and layout) and
-    per-window partial sums; without `wgrads` only dq and dk|dv, which its
-    dx chain reads back."""
+    `rows` rows of partial sums (one per block of the wgmma form, one per
+    window of the first kernel); without `wgrads` only dq and dk|dv, which
+    the first kernel's dx chain reads back."""
     c = x.shape[-1]
     dqs = torch.empty_like(x)
     dkvs = torch.empty(*x.shape[:-1], 2 * c, device=x.device, dtype=x.dtype)
     if not wgrads:
         return None, None, dqs, dkvs, None
-    part = torch.empty(windows, 6 * c + heads * n * n, device=x.device,
+    part = torch.empty(rows, 6 * c + heads * n * n, device=x.device,
                        dtype=torch.float32)
     return torch.empty_like(x), torch.empty_like(x), dqs, dkvs, part
 
@@ -433,54 +575,53 @@ def _launch_windows(x, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
         x.data_ptr(), out.data_ptr(),
         *[None if a is None else a.data_ptr() for a in args],
         g, n, c, heads, windows_per_image if mask is not None else 1, bf16,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _build.stream(x))
     _build.check(err, "fused_window_attention")
     return out
 
 
 def launch_bwd_windows(x, g, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bias,
-                       mask, *, heads: int, windows_per_image: int,
+                       mask, *, heads: int, windows_per_image: int, plan,
                        skip: int = 0, what: str = "window_attention_bwd"):
-    """K3's windowed entry on CUDA windows [G, N, C], uncounted: with
-    `skip` 0 K1b's backward, else K11, the variant without the stages in the
-    bit mask `skip` (csrc/attention_bwd.cuh's kNo* bits; bfloat16). Returns
-    what `attention_bwd_math` returns; with the kNoWgrads bit the parameter
-    gradients are zeros and no sums run."""
+    """K3's windowed entry on CUDA windows [G, N, C] under `plan` (see
+    `_attention_bwd_plan`), uncounted: with `skip` 0 K1b's backward, else
+    K11 on the first kernel (`_K3_BASE_PLAN`), the variant without the
+    stages in the bit mask `skip` (csrc/attention_bwd.cuh's kNo* bits;
+    bfloat16). Returns what `attention_bwd_math` returns; with the
+    kNoWgrads bit the parameter gradients are zeros and no sums run."""
     _check_windows_kernel(x, heads, mask, windows_per_image)
     gsz, n, c = x.shape
     lib = _build.library()
     bf16 = int(x.dtype == torch.bfloat16)
-    if lib.fbanet_window_attention_bwd_group(n, c, heads, bf16, skip) == 0:
+    nwg, wpb = plan
+    if not nwg and lib.fbanet_window_attention_bwd_group(
+            n, c, heads, bf16, skip) == 0:
         _unsupported_windows(
             "the backward kernel takes no head group of this shape (bfloat16 "
             "needs tokens, C and the head size in multiples of 16, and a "
             "group must fit shared memory)", x, heads)
     g = g.to(x.dtype).contiguous()
-    ln_s, ln_b, wq_, bq_, wkv_, bkv_, wproj_, _, bias_, mask_ = _kernel_args(
-        x, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, None, bias, mask)
     wgrads = not skip & _NO_WGRADS
-    dx = torch.empty_like(x)
-    ys, os_, dqs, dkvs, part = _bwd_scratch(x, gsz, heads, n, wgrads)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    ptrs = (x.data_ptr(), g.data_ptr(), dx.data_ptr(), ptr(ys), ptr(os_),
-            dqs.data_ptr(), dkvs.data_ptr(), ptr(part), ln_s.data_ptr(),
-            ln_b.data_ptr(), wq_.data_ptr(), bq_.data_ptr(), wkv_.data_ptr(),
-            bkv_.data_ptr(), wproj_.data_ptr(), bias_.data_ptr(), ptr(mask_))
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ptrs, scratch, _kept = _bwd_operands(
+        x, g, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bias, mask, heads, n,
+        gsz, plan, wgrads)
+    stream = _build.stream(x)
+    nw = windows_per_image if mask is not None else 1
     if skip:
-        if bf16 == 0 or mask is not None:
+        if bf16 == 0 or mask is not None or nwg:
             _unsupported_windows("the ablation variants take bfloat16 "
-                                 "windows without a mask", x, heads)
+                                 "windows without a mask, on the first "
+                                 "kernel", x, heads)
         err = lib.fbanet_window_attention_bwd_ablation(
             *ptrs, gsz, n, c, heads, skip, stream)
+    elif nwg:
+        err = lib.fbanet_window_attention_bwd_wgmma_windows(
+            *ptrs, gsz, n, c, heads, nw, nwg, wpb, stream)
     else:
         err = lib.fbanet_window_attention_bwd_windows(
-            *ptrs, gsz, n, c, heads,
-            windows_per_image if mask is not None else 1, bf16, stream)
+            *ptrs, gsz, n, c, heads, nw, bf16, stream)
     _build.check(err, what)
+    dx, ys, os_, dqs, dkvs, part = scratch
     if wgrads:
         return (dx, *_bwd_sums(g, ys, os_, dqs, dkvs, part, heads, n))
     zeros = [torch.zeros(s, device=x.device) for s in (
@@ -496,12 +637,23 @@ def window_attention_bwd_windows(x, g, ln_scale, ln_bias, wq, bq, wkv, bkv,
                                  wproj, bias, mask, *, heads: int,
                                  windows_per_image: int):
     """K3's windowed entry on CUDA tensors: the backward of
-    `fused_window_attention` for the incoming gradient g [G, N, C]. Returns
-    what `window_attention_bwd_reference` returns. Counts in
-    `window_attention_bwd.launches`."""
+    `fused_window_attention` for the incoming gradient g [G, N, C], under
+    `_attention_bwd_plan`. Returns what `window_attention_bwd_reference`
+    returns. Counts in `window_attention_bwd.launches` and its form's
+    `_attention_bwd_launch` count."""
+    _check_windows_kernel(x, heads, mask, windows_per_image)
+    gsz, n, c = x.shape
+    ws = math.isqrt(n)
+    plan = (_attention_bwd_plan(gsz, ws, ws, c, heads, ws,
+                                x.dtype == torch.bfloat16,
+                                smem=_kernel_bwd_smem)
+            if ws * ws == n else _K3_BASE_PLAN)
     out = launch_bwd_windows(x, g, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
                              bias, mask, heads=heads,
-                             windows_per_image=windows_per_image)
+                             windows_per_image=windows_per_image, plan=plan)
+    form = _attention_bwd_launch.wgmma if plan[0] else \
+        _attention_bwd_launch.base
+    form.launches += 1
     window_attention_bwd.launches += 1
     return out
 

@@ -29,6 +29,13 @@ there. That is a TPU memory limit, not another function, and its bf16
 training forward rounds differently there (ROADMAP Queue 3 item 1). The port
 runs K2 + K4 at all five shapes.
 
+K2 has two forms in `csrc/leff.cu`: the wgmma form (bf16: TMA-staged W1
+and W2^T chunks, wgmma products with dense2's sums in registers, the
+depthwise stage on 16 warps, 16 x 8 or 8 x 8 tiles) and the first kernel
+(8 x 8 tiles, WMMA; f32, bf16 shapes the wgmma form does not take, and the
+base of K8's and K10's flags). `_leff_plan` picks the form and tile from
+the shapes alone.
+
 K4 has two forms in `csrc/leff_bwd.cu`: the wgmma form (bf16: TMA-staged
 weight chunks, wgmma products, 16 warps on the depthwise stages, 16 x 8 or
 8 x 8 tiles, the hidden chunks split over blocks where the map has few
@@ -36,12 +43,15 @@ tiles) and the WMMA form (8 x 8 tiles; f32, and bf16 shapes the wgmma form
 does not take). `_leff_bwd_plan` picks the form, tile, chunk and split
 from the shapes alone.
 
-`fused_leff.launches` counts K2 launches, `leff_bwd.launches` K4 launches.
+`fused_leff.launches` counts K2 launches (`_leff_launch.wgmma` and
+`_leff_launch.base` those of each form, explicit plans included),
+`leff_bwd.launches` K4 launches.
 """
 
 from __future__ import annotations
 
 import functools
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
@@ -52,7 +62,6 @@ from fbanet_tpu_torch.ops.norm import LN_EPS, layer_norm_f32
 from fbanet_tpu_torch.ops.reduce import (
     _SMS,
     _cdiv,
-    _stream,
     column_sum,
     token_matmul,
 )
@@ -186,13 +195,99 @@ def _kernel_args(x, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, b2):
             wt(w2), None if b2 is None else f32(b2)]
 
 
+# K2's wgmma form as csrc/leff.cu instantiates it: (tile rows, tile
+# columns, hidden chunk), in the plan's order of preference. Measured at
+# the five groups at B=8 (tools/measure_leff.py plans, NVIDIA H100 80GB
+# HBM3 at 700 W): 64-wide chunks took 15-19 % less device time than
+# 32-wide, 16 x 8 tiles 22-30 % less than 8 x 8 where both fit.
+_K2_FORMS = ((16, 8, 64), (16, 8, 32), (8, 8, 64), (8, 8, 32))
+_K2_BASE_PLAN = (0, 0, 0)  # the first kernel: 8 x 8 tiles, WMMA (bf16) or f32
+
+
+def _leff_smem(c: int, th: int, tw: int, kc: int) -> int:
+    """Dynamic shared memory of K2's wgmma form for C channels, th x tw
+    tiles and hidden chunk kc, or 0 for one it does not take: a model of
+    the kernel's `fbanet_leff_wgmma_smem` (the layout of `FwLayout` in
+    csrc/leff.cu, byte for byte) that plans without the card, as the CPU
+    tests do; on the card `fused_leff` plans with the kernel's own, and
+    chip_smoke.py holds the two equal."""
+    ni = th * tw
+    if (c % 64 or c > 256 or (th, tw, kc) not in _K2_FORMS
+            or (c // 64) * (ni // 64) > 4):
+        return 0
+
+    def a128(n):
+        return _cdiv(n, 128) * 128
+
+    atoms, ny = c // 64, (th + 2) * (tw + 2)
+    wslot = atoms * kc * 128
+    h1 = atoms * _cdiv(ny, 64) * 64 * 128 + 4 * wslot + ni // 64 * kc * 128
+    bars = h1 + a128(2 * ny * (kc + 8)) + a128(36 * kc) + 2 * a128(4 * kc)
+    if ni * (c + 4) * 4 > bars:  # out after the chunk loop
+        return 0
+    return bars + 16 + 1024
+
+
+def _kernel_leff_smem(c: int, th: int, tw: int, kc: int) -> int:
+    """The kernel's own `fbanet_leff_wgmma_smem` (builds the library on
+    first use)."""
+    return _build.library().fbanet_leff_wgmma_smem(c, th, tw, kc)
+
+
+@functools.lru_cache(maxsize=256)
+def _leff_plan(b: int, h: int, w: int, c: int, ch: int, bf16: bool = True,
+               smem=_leff_smem) -> tuple[int, int, int]:
+    """(tile rows, tile columns, hidden chunk) of K2 for x [b, h, w, c] and
+    hidden width ch: in bf16 the first form of `_K2_FORMS` whose tile
+    divides the map, whose chunk divides ch and that fits shared memory
+    (`smem`: `_kernel_leff_smem`, the kernel's, or `_leff_smem`, its
+    model); else `_K2_BASE_PLAN`, the first kernel (f32, or a bf16 shape
+    the wgmma form does not take)."""
+    if bf16:
+        for th, tw, kc in _K2_FORMS:
+            if (h % th == 0 and w % tw == 0 and ch % kc == 0
+                    and 0 < smem(c, th, tw, kc) <= _SMEM_LIMIT):
+                return th, tw, kc
+    return _K2_BASE_PLAN
+
+
 def _kernel_forward(x, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, b2, residual):
-    """Launch K2."""
+    """Launch K2 under its plan (counted in `fused_leff.launches`)."""
     ch = w1.shape[0]
     _check_kernel_shape(x, wdw, ch)
     b, h, w, c = x.shape
+    plan = _leff_plan(b, h, w, c, ch, x.dtype == torch.bfloat16,
+                      smem=_kernel_leff_smem)
+    out = _leff_launch(x, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, b2,
+                       residual, plan)
+    fused_leff.launches += 1
+    return out
+
+
+def _leff_launch(x, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, b2, residual,
+                 plan):
+    """Launch K2 with `plan` (see `_leff_plan`): the wgmma form, counted in
+    `_leff_launch.wgmma`, or the first kernel, in `_leff_launch.base`."""
+    ch = w1.shape[0]
+    _check_kernel_shape(x, wdw, ch)
+    b, h, w, c = x.shape
+    th, tw, kc = plan
     lib = _build.library()
     bf16 = int(x.dtype == torch.bfloat16)
+    args = _kernel_args(x, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, b2)
+    out = torch.empty_like(x)
+    if th:
+        if not bf16:
+            _unsupported("the wgmma form takes bfloat16", x, ch)
+        # W2 as W2^T [Ch, C], the MN-major A operand of out^T
+        args[6] = w2.t().to(device=x.device, dtype=x.dtype,
+                            memory_format=torch.contiguous_format)
+        err = lib.fbanet_leff_wgmma(
+            x.data_ptr(), out.data_ptr(), *[a.data_ptr() for a in args],
+            b, h, w, c, ch, int(residual), th, tw, kc, _build.stream(x))
+        _build.check(err, "fused_leff")
+        _leff_launch.wgmma.launches += 1
+        return out
     smem = lib.fbanet_leff_smem(c, ch, bf16)
     if smem == 0:
         _unsupported("in bfloat16 C and the hidden width must be multiples "
@@ -200,15 +295,17 @@ def _kernel_forward(x, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, b2, residual):
     if smem > _SMEM_LIMIT:
         _unsupported(f"needs {smem} B of shared memory per block "
                      f"(limit {_SMEM_LIMIT})", x, ch)
-    args = _kernel_args(x, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, b2)
-    out = torch.empty_like(x)
     err = lib.fbanet_leff(
         x.data_ptr(), out.data_ptr(), *[a.data_ptr() for a in args],
-        b, h, w, c, ch, int(residual), bf16,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        b, h, w, c, ch, int(residual), bf16, _build.stream(x))
     _build.check(err, "fused_leff")
-    fused_leff.launches += 1
+    _leff_launch.base.launches += 1
     return out
+
+
+# launch counts per form, kept as the wrappers keep theirs
+_leff_launch.wgmma = SimpleNamespace(launches=0)
+_leff_launch.base = SimpleNamespace(launches=0)
 
 
 # K4's wgmma form as csrc/leff_bwd.cu instantiates it: (tile rows, tile
@@ -351,7 +448,7 @@ def _leff_bwd_launch(x, g, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, residual,
         h2s.data_ptr(), dz1s.data_ptr(), part.data_ptr(), dyp.data_ptr(),
         ln_s.data_ptr(), ln_b.data_ptr(), w1_.data_ptr(), b1_.data_ptr(),
         wdw_.data_ptr(), bdw_.data_ptr(), w2_.data_ptr(), w2t.data_ptr(), b,
-        h, w, c, ch, int(residual), bf16, th, tw, kc, splits, _stream(x))
+        h, w, c, ch, int(residual), bf16, th, tw, kc, splits, _build.stream(x))
     _build.check(err, "leff_bwd")
     leff_bwd.launches += 1
     t = b * h * w

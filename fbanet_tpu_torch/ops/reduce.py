@@ -57,13 +57,6 @@ _COLUMN_BLOCKS_PER_SM = 4  # column_sum blocks that fill the card
 _MIN_SLICE_ROWS = 64  # fewest rows per column_sum slice (8 per warp)
 
 
-def _stream(t: torch.Tensor) -> int:
-    """The current stream's handle, straight from torch's C binding: no
-    Stream object per call (these wrappers run 140 times per B=8 train
-    step, many on inputs the card sums in a few microseconds)."""
-    return torch._C._cuda_getCurrentRawStream(t.get_device())
-
-
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -192,7 +185,7 @@ def token_matmul(a: torch.Tensor, b: torch.Tensor,
     err = _build.library().fbanet_token_matmul(
         a.data_ptr(), b.data_ptr(), part.data_ptr(), out.data_ptr(),
         _buffer(index, "barrier", 2, torch.int32).data_ptr(), t, m, n, chunk,
-        tile_m, tile_n, int(bf16), _stream(a))
+        tile_m, tile_n, int(bf16), _build.stream(a))
     _build.check(err, "token_matmul")
     token_matmul.launches += 1
     if bf16 or splits == 1:
@@ -240,7 +233,7 @@ def column_sum(p: torch.Tensor) -> torch.Tensor:
     err = _build.library().fbanet_column_sum(
         p.data_ptr(), None if part is None else part.data_ptr(),
         out.data_ptr(), None if counters is None else counters.data_ptr(),
-        r, m, rows, _stream(p))
+        r, m, rows, _build.stream(p))
     _build.check(err, "column_sum")
     column_sum.launches += 1
     return out

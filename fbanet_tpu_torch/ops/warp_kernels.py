@@ -37,14 +37,6 @@ from fbanet_tpu_torch.ops.warp import homography_coords
 _MODES = ("nearest", "constant")
 
 
-def _stream(t: torch.Tensor) -> int:
-    """The current stream's handle, straight from torch's C binding (as
-    `ops.reduce` takes it): `torch.cuda.current_stream(dev).cuda_stream`
-    builds a Python Stream object per call, which K6's 75 calls per align
-    pay for at sizes where the card needs only a few microseconds."""
-    return torch._C._cuda_getCurrentRawStream(t.get_device())
-
-
 def sample_plain(frames: torch.Tensor, cy: torch.Tensor, cx: torch.Tensor,
                  constant: bool, cval: float) -> torch.Tensor:
     """The kernels' sample: f32 `frames` [F, H, W, C] at `cy`, `cx`
@@ -110,7 +102,7 @@ def warp_burst_bilinear(frames: torch.Tensor, matrices: torch.Tensor, *,
     out = torch.empty_like(fr)
     err = _build.library().fbanet_warp_homography(
         fr.data_ptr(), mats.data_ptr(), out.data_ptr(), f, h, w, c,
-        int(mode == "constant"), float(cval), _stream(fr))
+        int(mode == "constant"), float(cval), _build.stream(fr))
     _build.check(err, "warp_burst_bilinear")
     warp_burst_bilinear.launches += 1
     return out.to(frames.dtype)
@@ -150,7 +142,7 @@ def warp_burst_coords(frames: torch.Tensor, coords: torch.Tensor, *,
     out = torch.empty_like(fr)
     err = _build.library().fbanet_warp_coords(
         fr.data_ptr(), co.data_ptr(), out.data_ptr(), *shape,
-        mode == "constant", cval, _stream(fr))
+        mode == "constant", cval, _build.stream(fr))
     if err:
         _build.check(err, "warp_burst_coords")
     warp_burst_coords.launches += 1

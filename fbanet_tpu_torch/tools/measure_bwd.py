@@ -3,7 +3,7 @@ ablation kernel K11 that splits the attention backward (K3) by stage: the
 counterpart of scripts/measure_bwd.py.
 
     python -m fbanet_tpu_torch.tools.measure_bwd [check groups plainref
-        leffabl merged ablate] [--only=dec0,dec1] [--device cpu]
+        leffabl merged ablate blocks] [--only=dec0,dec1] [--device cpu]
 
 Modes (default `groups`), at the five SwinGroup shapes, B = 8, window 8,
 bf16 activations, f32 parameters, as the script:
@@ -32,13 +32,17 @@ bf16 activations, f32 parameters, as the script:
 - ablate: the six K11 variants (full, norecompute, nodsoftmax, nowgrads,
   nodx, nocore), each line with its delta from `full`.
 
-The script's `blocks` mode sweeps the TPU's VMEM budget and head-chunk cap;
-Hopper has no such budget (ROADMAP Queue 2 lists K3's head-group sweep).
+- blocks: the script's mode sweeps the TPU's VMEM budget and head-chunk
+  cap; on Hopper it is K3's plan sweep (`measure_attention_bwd.plans`, card
+  only): K3's device ms at each group under the first kernel and under the
+  wgmma form with every number of warpgroups and three numbers of windows
+  per block, each plan's gradients held against the plain backward.
 `time_fn` and the inputs are `measure_swin_rates`'s. With `--device cpu`
 the plain versions run on the host clock.
 
 K11, `ablation_backward` (csrc/attention_bwd_ablation.cu, kernel in
-attention_bwd.cuh, fbanet_window_attention_bwd_ablation): K3 on windows
+attention_bwd.cuh, fbanet_window_attention_bwd_ablation): K3's first
+kernel (not its wgmma form, which the plan picks for K3 itself) on windows
 [8 nW, 64, C], bf16, mask-free, with one stage removed at compile time,
 each switch as the script's `_abl_bwd_kernel` (measure_bwd.py:182-357)
 gives it: norecompute (inv = 1, xhat = x, y = q = x, kv = [x, x]),
@@ -61,10 +65,10 @@ import torch
 import torch.nn.functional as F
 
 from fbanet_tpu_torch.ops.attention import (
+    _K3_BASE_PLAN,
     attention_bwd_math,
     fused_window_attention_2d,
     launch_bwd_windows,
-    window_attention_bwd_windows,
     window_attention_reference,
 )
 from fbanet_tpu_torch.ops.leff import _gelu_grad, fused_leff
@@ -166,7 +170,8 @@ def ablation_backward(x, g, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bias,
         out = launch_bwd_windows(x, g, *params, heads=heads,
                                  windows_per_image=1,
                                  skip=sum(_SKIP[k] for k in off),
-                                 what="ablation_backward")
+                                 what="ablation_backward",
+                                 plan=_K3_BASE_PLAN)
         ablation_backward.launches += 1
     dx, dlns, dlnb, dwq, dbq, dwkv, dbkv, dwproj, dbproj, dbias = out
     return (dx, dlns[None], dlnb[None], dwq, dbq[None], dwkv, dbkv[None],
@@ -221,16 +226,17 @@ def _rel_errs(got, ref) -> list[float]:
 
 
 def run_check(device: str) -> None:
-    """K11's full variant against K3's windowed entry (the production
-    backward on windows) on the script's shape, every output."""
+    """K11's full variant against K3's windowed entry under the first
+    kernel (the form K11's flags are built on) on the script's shape, every
+    output."""
     c, res, heads = 64, 16, 2
     x, g, *params = _win_args(c, res, heads, device=device)
     mine = abl_backward(c, res, heads)(x, g, *params)
     if device == "cpu":
         prod = attention_bwd_math(x, g, *params, None, heads=heads)
     else:
-        prod = window_attention_bwd_windows(x, g, *params, None, heads=heads,
-                                            windows_per_image=1)
+        prod = launch_bwd_windows(x, g, *params, None, heads=heads,
+                                  windows_per_image=1, plan=_K3_BASE_PLAN)
     ok = True
     for nm, err in zip(NAMES, _rel_errs(mine, [p.reshape(m.shape) for p, m
                                                in zip(prod, mine)])):
@@ -436,8 +442,22 @@ def main(argv=None) -> dict:
                             attn_bwd_gflops(c, res), ms)
 
     if "blocks" in what:
-        print("blocks: the TPU VMEM-budget sweep has no Hopper counterpart "
-              "(K3's head-group sweep is ROADMAP Queue 2 work)", flush=True)
+        print(f"\n== K3's plans at B={B} (device ms of the K3 kernel alone)",
+              flush=True)
+        from fbanet_tpu_torch.ops.attention import _attention_bwd_smem
+        from fbanet_tpu_torch.tools import measure_attention_bwd
+
+        if dev != "cuda":  # no CPU kernel: the plans the card would time
+            for name, c, res, heads in groups:
+                cands = measure_attention_bwd.candidates(
+                    B, res, c, heads, 132, smem=_attention_bwd_smem)
+                print(f"blocks/{name}: K3 has no CPU kernel; plans on the "
+                      f"card {cands}", flush=True)
+        else:
+            for grp in measure_attention_bwd.plans(B):
+                for row in grp["plans"]:
+                    ms[f"blocks/{grp['group']} {row['plan']}"] = \
+                        row["device_ms"]
     return ms
 
 

@@ -39,6 +39,8 @@ from fbanet_tpu_torch.tools.measure_reduce import (  # noqa: E402
     bound_ms,
     device_ms,
     log,
+    rel_errors,
+    shape_sums,
     time_ms,
 )
 
@@ -71,17 +73,6 @@ def case(batch: int, h: int, c: int, device: str, seed: int):
              wdw=nrm((ch, 1, 3, 3), 1 / 3), bdw=nrm((ch,), 0.1),
              w2=nrm((c, ch), ch ** -0.5))
     return x, g, p
-
-
-def rel_errors(got, ref) -> list[float]:
-    """dx relative to max(1, max |ref|), every other output to its own
-    max |ref| (chip_smoke.py's limits)."""
-    out = []
-    for i, (a, b) in enumerate(zip(got, ref)):
-        scale = float(b.float().abs().max())
-        scale = max(1.0, scale) if i == 0 else (scale or 1.0)
-        out.append(float((a.float() - b.float()).abs().max()) / scale)
-    return out
 
 
 def shapes(batch: int = 8) -> dict:
@@ -118,10 +109,7 @@ def shapes(batch: int = 8) -> dict:
             for k, v in row.items() if k not in ("group", "shape")))
         rows.append(row)
         del x, g, p
-    sums = {k: sum(r[k] for r in rows)
-            for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
-    sums["bound_by"] = "operations"
-    log(f"K4 summed over the {len(rows)} groups at B={batch}: {sums}")
+    sums = shape_sums("K4", rows, batch)
     bad = [r["group"] for r in rows
            if not (r["max_rel_err"] <= TOL and r["bitwise_repeat"])]
     if bad:

@@ -71,16 +71,22 @@ def r1_shapes(batch: int = 8, size: int = 160) -> list[tuple]:
 
 
 def r2_shapes(batch: int = 8, size: int = 160) -> list[tuple]:
-    """(group, source, R, M) of K3's per-window and K4's per-tile partials
-    (the main path's column_sum inputs besides R1's slices; K4's tiles are
-    its plan's), and two earlier yardsticks: the 8 x 8-tile K4's dec1
-    partial at B=2 (800 x 6016) and 800 x 5760."""
+    """(group, source, R, M) of K3's per-block and K4's per-tile partials
+    (the main path's column_sum inputs besides R1's slices; the blocks and
+    tiles are their plans'), and two earlier yardsticks: the 8 x 8-tile
+    K4's dec1 partial at B=2 (800 x 6016) and 800 x 5760."""
+    from fbanet_tpu_torch.ops.attention import (
+        _attention_bwd_plan,
+        _partial_rows,
+    )
     from fbanet_tpu_torch.ops.leff import _leff_bwd_plan
 
     out = []
     for name, h, c, heads in GROUPS:
         hh = h * size // 160
-        out.append((name, "K3", batch * (hh // WS) ** 2,
+        out.append((name, "K3", _partial_rows(
+            batch * (hh // WS) ** 2, _attention_bwd_plan(batch, hh, hh, c,
+                                                         heads)),
                     6 * c + heads * WS ** 4))
         th, tw, _kc, _splits = _leff_bwd_plan(batch, hh, hh, c, 4 * c)
         out.append((name, "K4", batch * (hh // (th or 8)) * (hh // (tw or 8)),
@@ -96,6 +102,28 @@ def bound_ms(tc_flops: float, f32_flops: float, nbytes: float) -> tuple:
     ops = (tc_flops / PEAK_BF16 + f32_flops / PEAK_F32) * 1e3
     mem = nbytes / PEAK_BYTES * 1e3
     return max(ops, mem), "operations" if ops >= mem else "bytes"
+
+
+def rel_errors(got, ref) -> list[float]:
+    """Per output: the first (dx, or a forward's output) relative to
+    max(1, max |ref|), every other to its own max |ref| (chip_smoke.py's
+    limits for the fused kernels)."""
+    out = []
+    for i, (a, b) in enumerate(zip(got, ref)):
+        scale = float(b.float().abs().max())
+        scale = max(1.0, scale) if i == 0 else (scale or 1.0)
+        out.append(float((a.float() - b.float()).abs().max()) / scale)
+    return out
+
+
+def shape_sums(kernel: str, rows: list[dict], batch: int) -> dict:
+    """ms, device_ms, plain_ms and bound_ms of a fused kernel's per-group
+    `rows`, summed (logged)."""
+    sums = {k: sum(r[k] for r in rows)
+            for k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+    sums["bound_by"] = "operations"
+    log(f"{kernel} summed over the {len(rows)} groups at B={batch}: {sums}")
+    return sums
 
 
 def time_ms(fn, device: str, iters: int = 10, repeats: int = 3) -> float:
@@ -122,9 +150,10 @@ def time_ms(fn, device: str, iters: int = 10, repeats: int = 3) -> float:
     return statistics.median(per)
 
 
-def device_ms(fn, iters: int = 10) -> float:
+def device_ms(fn, iters: int = 10, keys: tuple = ()) -> float:
     """Device ms per call of `fn`: the kernels' own time in a torch.profiler
-    trace of `iters` calls after one warm-up (no launch gaps, no host)."""
+    trace of `iters` calls after one warm-up (no launch gaps, no host);
+    with `keys`, only the kernels whose name holds one of them."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -135,7 +164,8 @@ def device_ms(fn, iters: int = 10) -> float:
                 fn()
             torch.cuda.synchronize()
         us = sum(getattr(e, "self_device_time_total", 0.0)
-                 for e in prof.key_averages() if "CUDA" in str(e.device_type))
+                 for e in prof.key_averages() if "CUDA" in str(e.device_type)
+                 and (not keys or any(k in e.key for k in keys)))
         if us > 0:
             return us / iters / 1e3
     raise RuntimeError("torch.profiler recorded no kernel in 3 traces")

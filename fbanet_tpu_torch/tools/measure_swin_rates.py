@@ -49,8 +49,10 @@ The ablation kernels (wrong math by design; they bound where the time goes):
   253-293): nogelu (both GELUs become x * 0.7), nodw (no depthwise 3x3:
   h2 = act(h1) on the tile's own tokens). Plain version `abl_leff`.
 
-Each kernel's variants are flags of the production kernel, so `full` is
-bitwise K1 (K2) and each variant is the production kernel minus one stage.
+Each kernel's variants are flags of a production kernel, so `full` is
+bitwise K1 (K10: K2's first kernel, which the plan keeps for f32 and
+shapes its wgmma form does not take; the stage shares describe that form)
+and each variant is that kernel minus one stage.
 On the card each wrapper launches its kernel or raises; on the CPU (or with
 `plain=True`) it runs the plain version. `.launches` counts kernel launches.
 """

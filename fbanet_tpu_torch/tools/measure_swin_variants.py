@@ -23,7 +23,9 @@ reuses):
 - K8 (`variant_leff`, csrc/leff_variants.cu): K2's function, no residual,
   with the depthwise 3x3 (`dwbf16`), both GELUs (`gelubf16`) or both
   (`bothbf16`) in packed bf16 arithmetic (`__nv_bfloat162`, two hidden
-  channels per instruction); with no flag it is K2's own instantiation.
+  channels per instruction); with no flag it is K2's first kernel (the
+  form K2's plan keeps for f32 and the shapes its wgmma form does not
+  take), so the variants are rewrites of that form.
 
 Modes: `check` holds every K7 core to the `loop` kernel within the script's
 limit, max(4e-3, 2 * 2^-8 * max |out|) (two bf16 ulps at the output's

@@ -62,7 +62,7 @@ def stream_handles_agree() -> bool:
 
     side = torch.cuda.Stream(dev)
     with torch.cuda.stream(side):
-        in_side = same() and side.cuda_stream == wk._stream(
+        in_side = same() and side.cuda_stream == _build.stream(
             torch.empty(1, device=dev))
     return same() and in_side
 
@@ -92,7 +92,7 @@ def sizes(iters: int = 1000) -> list[dict]:
         inp = fr.permute(0, 3, 1, 2).contiguous()
         grid = torch.stack([2 * co[..., 1] / (s - 1) - 1,
                             2 * co[..., 0] / (s - 1) - 1], -1)
-        out, stream, dev = torch.empty_like(fr), wk._stream(fr), fr.device
+        out, stream, dev = torch.empty_like(fr), _build.stream(fr), fr.device
         pieces = {
             "wrapper": lambda: wk.warp_burst_coords(fr, co),
             "grid_sample": lambda: tf.grid_sample(

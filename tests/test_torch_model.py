@@ -139,3 +139,39 @@ def test_create_model_defaults_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         create_model(TINY)
     assert next(create_model(TINY, device="cpu").parameters()).is_cpu
+
+
+def test_bf16_forward_matches_jax():
+    """The port's bf16 forward against the JAX model's bf16 forward (TINY
+    config, batch 2, one JAX compile), at the tail's input (HG2's features)
+    and at the output.
+
+    Both round every activation to bf16, but not always at the same points:
+    flax adds a conv's bias to the conv's bf16-rounded output (two
+    roundings) where the port's conv adds it inside its one rounding, and
+    the feature-fusion and Swin layers differ likewise. Each such point
+    flips an element by one bf16 ulp (2^-8 relative) now and then, and the
+    flips compound over the ~40 layers before the tail. So the limits are
+    stated in bf16 ulps, and against the f32 forward: the port's bf16
+    features are no farther from its f32 features (which match JAX's f32
+    ones to 1e-4, test_forward_matches_jax) than JAX's bf16 features are,
+    in max and mean; the two bf16 forwards differ by at most 4 ulps of the
+    largest feature and by 2 ulps of the mean feature on average; the
+    outputs (each tail rounds its own way: tail_x4_direct against
+    fused_tail_x4) by at most one ulp of the largest output value."""
+    cfg = TINY.replace(dtype="bfloat16")
+    tmodel, _, burst, out_j, feats_j = _jax_pair(cfg, batch=2)
+    m32 = create_model(TINY, device="cpu")
+    m32.load_state_dict(tmodel.state_dict(), strict=True)
+    with torch.no_grad():
+        out, feats = tmodel.forward_with_features(t(burst))
+        _, feats32 = m32.forward_with_features(t(burst))
+    assert feats.dtype == torch.bfloat16 and out.dtype == torch.float32
+    fj, fp, f32 = n(feats_j), n(feats), n(feats32)
+    ulp = 2.0 ** -8
+    assert np.abs(fp - f32).max() <= np.abs(fj - f32).max()
+    assert np.abs(fp - f32).mean() <= np.abs(fj - f32).mean()
+    gap = np.abs(fp - fj)
+    assert gap.max() <= 4 * ulp * np.abs(fj).max()
+    assert gap.mean() <= 2 * ulp * np.abs(fj).mean()
+    assert max_err(out, out_j) <= ulp * np.abs(out_j).max()

@@ -1,0 +1,189 @@
+"""The plans of K2's and K3's wgmma forms on the CPU, without JAX: which
+form and blocks each shape gets, the shared memory each plan needs (from
+the Python models of the kernels' own `*_smem` functions, which
+chip_smoke.py holds equal to the kernels'), K3's window-to-block
+assignment, the order of its per-block bias partial's sums, and what the
+new wrappers refuse.
+
+The kernels run only on the card, where chip_smoke.py and
+tools/measure_leff.py / tools/measure_attention_bwd.py hold them against
+the plain versions at every shape of the main path.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from fbanet_tpu_torch.ops import attention, leff
+from fbanet_tpu_torch.ops.reduce import column_sum
+
+SMEM_LIMIT, SMS, WS = 232448, 132, 8
+# (H, C, heads) of the five SwinGroups at 160 px: enc0, enc1, bott, dec0,
+# dec1
+GROUPS = [(160, 64, 1), (80, 128, 2), (40, 256, 16), (80, 256, 16),
+          (160, 128, 8)]
+IDS = ["enc0", "enc1", "bott", "dec0", "dec1"]
+
+
+@pytest.mark.parametrize("batch", [2, 8])
+@pytest.mark.parametrize("h,c,heads", GROUPS, ids=IDS)
+def test_leff_plan_at_the_group_shapes(h, c, heads, batch):
+    """bf16 takes the wgmma form at every group: a tile that divides the
+    map, a chunk that divides the hidden width, at most four 64 x 64 pieces
+    of the output per tile, shared memory within the H100's 227 KB; 16 x 8
+    tiles where they fit (C <= 128), 8 x 8 at C = 256, 64-wide chunks."""
+    ch = 4 * c
+    th, tw, kc = leff._leff_plan(batch, h, h, c, ch)
+    assert (th, tw, kc) in leff._K2_FORMS
+    assert h % th == 0 and h % tw == 0 and ch % kc == 0
+    assert (c // 64) * (th * tw // 64) <= 4
+    assert 0 < leff._leff_smem(c, th, tw, kc) <= SMEM_LIMIT
+    assert (th, tw, kc) == ((16, 8, 64) if c <= 128 else (8, 8, 64))
+
+
+@pytest.mark.parametrize("batch", [2, 8])
+@pytest.mark.parametrize("h,c,heads", GROUPS, ids=IDS)
+def test_attention_bwd_plan_at_the_group_shapes(h, c, heads, batch):
+    """bf16 takes the wgmma form at every group: two warpgroups where two
+    blocks share an SM (C <= 128), else four; the windows dealt to at most
+    as many blocks as the card holds at once, in as few windows per block
+    as that allows."""
+    nwg, wpb = attention._attention_bwd_plan(batch, h, h, c, heads)
+    size = attention._attention_bwd_smem(WS * WS, c, heads, nwg)
+    assert 0 < size <= SMEM_LIMIT
+    assert nwg == (2 if c <= 128 else 4)
+    resident = 4 // nwg
+    assert resident * (size + 1024) <= attention._SM_SMEM
+    windows = batch * (h // WS) ** 2
+    blocks = -(-windows // wpb)
+    assert blocks <= resident * SMS
+    assert wpb == 1 or -(-windows // (wpb - 1)) > resident * SMS
+    assert attention._partial_rows(windows, (nwg, wpb)) == blocks
+
+
+def test_plans_keep_the_first_kernels_for_what_the_wgmma_forms_refuse():
+    """f32, and bf16 shapes the wgmma forms do not take, get the first
+    kernels by an explicit rule."""
+    base2, base3 = leff._K2_BASE_PLAN, attention._K3_BASE_PLAN
+    assert leff._leff_plan(2, 80, 80, 128, 512, False) == base2
+    assert leff._leff_plan(2, 12, 12, 64, 256) == base2  # no tile divides 12
+    assert leff._leff_plan(2, 16, 16, 96, 384) == base2  # C not 64k
+    assert leff._leff_plan(2, 16, 16, 320, 1280) == base2  # C > 256
+    assert leff._leff_plan(2, 24, 16, 64, 256) == (8, 8, 64)  # H % 16 != 0
+    assert attention._attention_bwd_plan(2, 80, 80, 128, 2,
+                                         bf16=False) == base3
+    assert attention._attention_bwd_plan(2, 16, 16, 128, 4) == base3  # dh 32
+    assert attention._attention_bwd_plan(2, 16, 16, 96, 6) == base3  # C 96
+    assert attention._attention_bwd_plan(2, 28, 28, 64, 1, ws=7) == base3
+    assert attention._attention_bwd_plan(2, 12, 16, 64, 1) == base3  # H % 8
+    assert attention._partial_rows(200, base3) == 200
+
+
+def test_plans_size_with_the_given_smem():
+    """The plans take their shared-memory sizes from the function they are
+    given (the wrappers pass the kernels' own on the card): a form that
+    function refuses is passed over, and with none left the first kernel
+    runs."""
+    def no_two_warpgroups(n, c, heads, nwg):
+        return attention._attention_bwd_smem(n, c, heads, nwg) if nwg == 4 \
+            else 0
+
+    def none(*_args):
+        return 0
+
+    assert attention._attention_bwd_plan(
+        8, 160, 160, 128, 8, smem=no_two_warpgroups) == (4, 25)
+    assert attention._attention_bwd_plan(
+        8, 160, 160, 128, 8, smem=none) == attention._K3_BASE_PLAN
+
+    def only_32(c, th, tw, kc):
+        return leff._leff_smem(c, th, tw, kc) if kc == 32 else 0
+
+    assert leff._leff_plan(8, 160, 160, 64, 256, smem=only_32) == (16, 8, 32)
+    assert leff._leff_plan(8, 160, 160, 64, 256,
+                           smem=none) == leff._K2_BASE_PLAN
+
+
+def test_smem_models_refuse_what_the_kernels_do_not_take():
+    """The layouts' limits: K2 at most four 64 x 64 output pieces a tile
+    (16 x 8 tiles at C = 256 need 8), only the instantiated forms; K3 only
+    64-token windows, head size 16 or 64, two warpgroups only up to
+    C = 128 (one 64-column piece of dy each)."""
+    assert leff._leff_smem(256, 16, 8, 64) == 0
+    assert leff._leff_smem(128, 16, 16, 64) == 0  # not a form
+    assert leff._leff_smem(128, 8, 8, 16) == 0  # not a form
+    assert leff._leff_smem(96, 8, 8, 64) == 0
+    for c in (64, 128, 256):
+        for form in leff._K2_FORMS:
+            assert leff._leff_smem(c, *form) <= SMEM_LIMIT
+        for heads in (1, 2, 4, 8, 16):
+            for nwg in (2, 4):
+                assert attention._attention_bwd_smem(64, c, heads,
+                                                     nwg) <= SMEM_LIMIT
+    assert attention._attention_bwd_smem(49, 64, 1, 4) == 0
+    assert attention._attention_bwd_smem(64, 128, 4, 4) == 0  # dh 32
+    assert attention._attention_bwd_smem(64, 256, 16, 2) == 0
+    assert attention._attention_bwd_smem(64, 256, 16, 3) == 0
+
+
+@pytest.mark.parametrize("batch", [1, 2, 3, 8])
+@pytest.mark.parametrize("h,c,heads", GROUPS, ids=IDS)
+def test_window_blocks_cover_each_window_once_in_order(h, c, heads, batch):
+    """K3's wgmma form: block i walks windows i wpb .. (i + 1) wpb - 1, so
+    the blocks' lists, in block order, are the windows 0 .. G - 1 in order,
+    each once, and no block is empty."""
+    nwg, wpb = attention._attention_bwd_plan(batch, h, h, c, heads)
+    windows = batch * (h // WS) ** 2
+    blocks = attention._window_blocks(windows, wpb)
+    assert [w for blk in blocks for w in blk] == list(range(windows))
+    assert all(len(blk) >= 1 for blk in blocks)
+    assert all(len(blk) == wpb for blk in blocks[:-1])
+
+
+@pytest.mark.parametrize("windows,wpb", [(50, 1), (115, 7), (247, 13),
+                                         (3200, 13), (7, 3)])
+def test_block_bias_partials_sum_like_float64(windows, wpb):
+    """The bias gradient of the wgmma form: each block adds its windows'
+    f32 dlogits [heads, 64, 64] in window order into one partial row, and
+    column_sum (its plain version here) adds the rows: within f32 rounding
+    of the float64 sum over all windows."""
+    rng = np.random.default_rng(windows)
+    heads = 2
+    dl = rng.standard_normal((windows, heads * 64 * 64)).astype(np.float32)
+    dlt = torch.from_numpy(dl)
+    rows = []
+    for blk in attention._window_blocks(windows, wpb):
+        acc = dlt[blk[0]].clone()
+        for w in blk[1:]:
+            acc += dlt[w]
+        rows.append(acc)
+    got = column_sum(torch.stack(rows)).numpy()
+    ref = dl.astype(np.float64).sum(0)
+    scale = np.abs(dl).astype(np.float64).sum(0).max()
+    assert np.abs(got - ref).max() <= 4 * windows * 2.0 ** -24 * scale
+
+
+def test_new_wrappers_refuse_off_the_card():
+    """K2's and K3's launches under an explicit plan take CUDA tensors
+    only, whatever the plan: any other device gets an error naming the
+    shape, never the plain version."""
+    c, ch = 64, 256
+    x = torch.empty(1, 16, 16, c, device="meta", dtype=torch.bfloat16)
+    lp = [torch.empty(s, device="meta") for s in (
+        (c,), (c,), (ch, c), (ch,), (ch, 1, 3, 3), (ch,), (c, ch), (c,))]
+    for plan in (leff._K2_FORMS[0], leff._K2_BASE_PLAN):
+        with pytest.raises(ValueError, match=r"\(1, 16, 16, 64\)"):
+            leff._leff_launch(x, *lp, True, plan)
+    ap = [torch.empty(s, device="meta") for s in (
+        (c,), (c,), (c, c), (c,), (2 * c, c), (2 * c,), (c, c), (1, 64, 64))]
+    for plan in ((2, 1), attention._K3_BASE_PLAN):
+        with pytest.raises(ValueError, match=r"\(1, 16, 16, 64\)"):
+            attention._attention_bwd_launch(x, x, *ap, None, 1, WS, False,
+                                            plan)
+    xw = torch.empty(4, 64, c, device="meta", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"\(4, 64, 64\)"):
+        attention.window_attention_bwd_windows(xw, xw, *ap, None, heads=1,
+                                               windows_per_image=4)
+    with pytest.raises(ValueError, match=r"\(4, 64, 64\)"):
+        attention.launch_bwd_windows(xw, xw, *ap, None, heads=1,
+                                     windows_per_image=4, plan=(2, 1))

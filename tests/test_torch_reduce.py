@@ -27,7 +27,11 @@ R2_MAIN = sorted({(r, m) for batch in (8, 2)
                   for *_x, r, m in measure_reduce.r2_shapes(batch)}
                  # K4's WMMA form (the f32 gradient check): 8 x 8 tiles
                  | {(batch * (h // 8) ** 2, 47 * c) for batch in (8, 2)
-                    for _g, h, c, _heads in measure_reduce.GROUPS})
+                    for _g, h, c, _heads in measure_reduce.GROUPS}
+                 # K3's first kernel (the same check): a row per window
+                 | {(batch * (h // 8) ** 2, 6 * c + heads * 8 ** 4)
+                    for batch in (8, 2)
+                    for _g, h, c, heads in measure_reduce.GROUPS})
 R2_RAGGED = [(r, m) for r in (1, 7, 63, 64, 65, 800, 3201)
              for m in (1, 3, 64, 130, 6016, 67_072)]
 
