@@ -13,13 +13,16 @@ non-zero:
 3. kernels: K1 (fused window attention) and K2 (fused LeFF) against their
    plain PyTorch versions on the card at the five SwinGroup shapes of the
    published model (B=2), f32 and bf16, K1 masked and unmasked, with the
-   residual (K2 in bf16 under its plan, the wgmma form, and under its first
-   kernel, which the plan keeps for f32 and shapes the wgmma form does not
-   take). Prints the max abs error and the median times (CUDA events).
-   Then K2 at B=8 at the five shapes under its plan (tools/measure_leff.py):
-   the same limit, ms, device ms, bound and the share of it; and the Python
-   model of K2's shared memory, which the CPU tests plan with, against the
-   kernel's.
+   residual, K1 with a bitwise repeat (K1 and K2 in bf16 under their plans,
+   the wgmma forms, and under their first kernels, which the plans keep for
+   f32 and shapes the wgmma forms do not take; K1's wgmma form also at B=8,
+   masked and unmasked). Prints the max abs error and the median times
+   (CUDA events). Then K1 and K2 at B=8 at the five shapes under their
+   plans (tools/measure_attention.py, tools/measure_leff.py): the same
+   limit, ms, device ms, bound and the share of it, and K1's device ms under
+   every candidate plan (`measure_attention.py plans`); and the Python
+   models of K1's and K2's shared memory, which the CPU tests plan with,
+   against the kernels'.
 4. backward: K3 (attention backward) and K4 (LeFF backward), each with the
    fixed-order sums of ops/reduce.py, against their plain backwards at the
    same shapes, f32 and bf16, K3 masked and unmasked, residual on and off:
@@ -56,26 +59,29 @@ non-zero:
 7. slice: FBANet-64, 14 frames, 160 px, bf16 compute, every parameter drawn
    from a seed, serves 3 batches of 4 bursts through `eval_step` (ECC
    registration + forward + clamp + PSNR/SSIM). Checks finite [0, 1]
-   outputs of shape [4, 640, 640, 3], K1 and K2 (its wgmma form) launch
-   counts of exactly 20 per forward, and agreement with the same slice on the plain versions.
+   outputs of shape [4, 640, 640, 3], K1 and K2 (their wgmma forms) launch
+   counts of exactly 20 per forward and none of K1's first kernel, and
+   agreement with the same slice on the plain versions.
    Then times align and forward at B=8 and prints a torch.profiler table
    of one such step by device time.
 8. train: the same model with drop_path 0.1 takes 5 AdamW steps at B=8
    through `train.make_train_step` (Charbonnier + 3 GW loss). Checks finite
    losses, that every parameter moved, 20 launches per step of each of
-   K1-K4 (K2 and K3 in their wgmma forms), and every f32 parameter
-   gradient of one B=2 step against the plain versions (20 launches of
-   each of K1, K4 and K2's and K3's first kernels); times the B=8 step
-   against the plain versions and prints a torch.profiler table of one
-   step, with K2's, K3's and K4's device ms.
+   K1-K4 (K1, K2 and K3 in their wgmma forms, none of K1's first kernel),
+   and every f32 parameter gradient of one B=2 step against the plain
+   versions (20 launches of each of K4 and K1's, K2's and K3's first
+   kernels); times the B=8 step against the plain versions and prints a
+   torch.profiler table of one step, with K1's, K2's, K3's and K4's device
+   ms.
 9. measure: K1b (window attention on [G, N, C] windows) against its plain
    version at the five shapes (B=2, f32 and bf16, masked and not) and
-   bitwise against K1 on the partitioned map; its backward (K3's windowed
+   bitwise against K1 on the partitioned map, under its plan and under the
+   first kernel (against K1's); its backward (K3's windowed
    entry) against the plain backward on every gradient plus a bitwise
    repeat. K9, K10 and K11, every variant, against their plain versions on
    the tools' B=8 inputs (bf16, 3e-2 of max(1, |out|)), each `full`
-   bitwise against the kernel its flags are built on (K1, and K2's and
-   K3's first kernels) on the same inputs.
+   bitwise against the kernel its flags are built on (K1's, K2's and K3's
+   first kernels) on the same inputs.
    Then the slice's main path: both kernel-measurement tools at B=8
    (`measure_swin_rates attn leff ablate`, `measure_bwd check groups
    plainref leffabl merged ablate`, their tables printed) and K1b forward +
@@ -84,8 +90,9 @@ non-zero:
    loop_ln, stack3d, stack3d_ln, lanepack, ln+qkv1, ln+nr2) and K8 (K2's
    with packed-bf16 depthwise and/or GELUs), every variant against its
    plain version on the tool's B=8 inputs at the five shapes (bf16, 3e-2
-   of max(1, |out|)), K7 loop_ln bitwise against K1 and K8 with no flag
-   bitwise against K2's first kernel, each K7 core's heads per stage as
+   of max(1, |out|)), K7 loop_ln bitwise against K1's first kernel and K8
+   with no flag bitwise against K2's first kernel, each K7 core's heads per
+   stage as
    the kernel
    reports it. Then the slice's main path: `measure_swin_variants check time`
    at B=8 and `profile_components` over every component at the published
@@ -93,14 +100,14 @@ non-zero:
    (`flops_accounting.mfu_fields`) from the slice's forward and the train
    phase's step times.
 
-Each kernel wrapper counts its launches (K2 and K3 per form); the counts
-are set to 0 just before the registration, the CLI stream, the serving,
-the training (the B=8 steps, then the f32 B=2 step, whose plans send K2
-and K3 to their first kernels), the measurement and the variant runs and
-read just after. The line before the last is a JSON object {"kernels":
-[...]} (launches on those runs; error, times and bound from phases 3-6, 9
-and 10; K7 and K9-K11 also per variant; K2 and K3 with their first kernels
-as entries of their own), preceded by the
+Each kernel wrapper counts its launches (K1, K2 and K3 per form); the
+counts are set to 0 just before the registration, the CLI stream, the
+serving, the training (the B=8 steps, then the f32 B=2 step, whose plans
+send K1, K2 and K3 to their first kernels), the measurement and the variant
+runs and read just after. The line before the last is a JSON object
+{"kernels": [...]} (launches on those runs; error, times and bound from
+phases 3-6, 9 and 10; K7 and K9-K11 also per variant; K1, K2 and K3 with
+their first kernels as entries of their own), preceded by the
 nvidia-smi name/power-limit line; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -324,15 +331,16 @@ def _normal_fn(seed: int):
         (s * r.standard_normal(shape)).astype(np.float32)).cuda()
 
 
-def attention_case(h, c, heads, dtype, masked, gen_seed):
-    """Inputs of one K1 call at a main-path shape, B=2, on the card."""
+def attention_case(h, c, heads, dtype, masked, gen_seed, batch=2):
+    """Inputs of one K1 call at a main-path shape, B=`batch`, on the
+    card."""
     import torch
 
     from fbanet_tpu_torch.models.layers import shift_attention_mask
 
     nrm = _normal_fn(gen_seed)
     n = WS * WS
-    x = nrm((2, h, h, c), 1.0).to(dtype)
+    x = nrm((batch, h, h, c), 1.0).to(dtype)
     args = dict(ln_scale=1 + nrm((c,), 0.1), ln_bias=nrm((c,), 0.1),
                 wq=nrm((c, c), c ** -0.5), bq=nrm((c,), 0.1),
                 wkv=nrm((2 * c, c), c ** -0.5), bkv=nrm((2 * c,), 0.1),
@@ -360,17 +368,15 @@ def phase_kernels(shapes) -> dict:
     {max_abs_err, ms, plain_ms} (times summed over the shapes, bf16)."""
     import torch
 
-    from fbanet_tpu_torch.ops.attention import fused_window_attention_2d
+    from fbanet_tpu_torch.ops import attention, leff
     from fbanet_tpu_torch.ops.leff import fused_leff
 
-    from fbanet_tpu_torch.ops import leff
-
     res = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
-           for k in ("K1", "K2", "K2-base")}
+           for k in ("K1", "K1-base", "K2", "K2-base")}
     bounds = {k: Bound() for k in res}
     failures = []
-    # K2 plans on the card with the kernel's shared-memory function; the
-    # CPU tests plan with its Python model, which must agree with it
+    # K1 and K2 plan on the card with the kernels' shared-memory functions;
+    # the CPU tests plan with their Python models, which must agree
     for c in (64, 128, 256):
         for form in leff._K2_FORMS:
             ours, theirs = leff._leff_smem(c, *form), \
@@ -378,32 +384,83 @@ def phase_kernels(shapes) -> dict:
             if ours != theirs:
                 failures.append(f"K2 shared memory C={c} {form}: kernel "
                                 f"{theirs}, plan {ours}")
+        for heads in (1, 2, 4, 8, 16):
+            for nwg, staged in ((2, 1), (2, 0), (4, 1), (4, 0)):
+                ours = attention._attention_smem(WS * WS, c, heads, nwg,
+                                                 staged)
+                theirs = attention._kernel_attention_smem(WS * WS, c, heads,
+                                                          nwg, staged)
+                if ours != theirs:
+                    failures.append(f"K1 shared memory C={c} heads={heads} "
+                                    f"warpgroups {nwg} staged {staged}: "
+                                    f"kernel {theirs}, plan {ours}")
     for i, (h, c, heads) in enumerate(shapes):
         for dname in ("float32", "bfloat16"):
             dtype = getattr(torch, dname)
-            for masked in (False, True):
-                x, a = attention_case(h, c, heads, dtype, masked, 100 + i)
+            bf16 = dname == "bfloat16"
+            for batch, masked in ((2, False), (2, True), (8, False),
+                                  (8, True))[:4 if bf16 else 2]:
+                x, a = attention_case(h, c, heads, dtype, masked,
+                                      100 + i + 50 * (batch == 8), batch)
 
                 def k1(plain=False, x=x, a=a, heads=heads):
-                    return fused_window_attention_2d(
+                    return attention.fused_window_attention_2d(
                         x, **a, heads=heads, window_size=WS, residual=True,
                         plain=plain)
 
-                got, ref = k1(), k1(plain=True)
+                plan = attention._attention_plan(
+                    batch, h, h, c, heads, WS, bf16,
+                    smem=attention._kernel_attention_smem)
+                name = "K1" if plan[0] else "K1-base"
+                got, again, ref = k1(), k1(), k1(plain=True)
                 torch.cuda.synchronize()
                 err, rel = rel_err(got, ref)
-                res["K1"]["max_abs_err"] = max(res["K1"]["max_abs_err"], err)
-                line = (f"K1 attention H={h} C={c} heads={heads} {dname} "
-                        f"masked={masked}: max_abs_err={err:.3e} rel={rel:.3e}")
-                if dname == "bfloat16" and masked:
+                same = torch.equal(got, again)
+                res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+                line = (f"K1 attention B={batch} H={h} C={c} heads={heads} "
+                        f"{dname} masked={masked} plan {plan}: max_abs_err="
+                        f"{err:.3e} rel={rel:.3e} bitwise_repeat={same}")
+                timed = bf16 and masked and batch == 2
+                if timed:
                     ms, pms = time_ms(k1), time_ms(lambda: k1(plain=True))
                     res["K1"]["ms"] += ms
                     res["K1"]["plain_ms"] += pms
-                    bounds["K1"].add(*attention_work(h, c, heads, masked))
+                    bounds["K1"].add(*attention_work(h, c, heads, masked,
+                                                     backward=False))
                     line += f" kernel_ms={ms:.4f} plain_ms={pms:.4f}"
                 log(line)
-                if not (rel <= TOL[dname]) or not torch.isfinite(got).all():
+                if not (rel <= TOL[dname]) or not same \
+                        or not torch.isfinite(got).all():
                     failures.append(line)
+                if bf16 and batch == 2:
+                    # the first kernel in bf16, which the plan keeps for
+                    # bf16 shapes the wgmma form does not take (and K7's,
+                    # K9's base)
+                    def k1_base(x=x, a=a, heads=heads):
+                        return attention._attention_launch(
+                            x, *a.values(), heads, WS, True,
+                            attention._K1_BASE_PLAN)
+
+                    got = k1_base()
+                    torch.cuda.synchronize()
+                    err, rel = rel_err(got, ref)
+                    res["K1-base"]["max_abs_err"] = max(
+                        res["K1-base"]["max_abs_err"], err)
+                    line = (f"K1 attention B={batch} H={h} C={c} heads="
+                            f"{heads} {dname} masked={masked} plan "
+                            f"{attention._K1_BASE_PLAN} (first kernel): "
+                            f"max_abs_err={err:.3e} rel={rel:.3e}")
+                    if timed:
+                        ms = time_ms(k1_base)
+                        res["K1-base"]["ms"] += ms
+                        res["K1-base"]["plain_ms"] += pms
+                        bounds["K1-base"].add(*attention_work(
+                            h, c, heads, masked, backward=False))
+                        line += f" kernel_ms={ms:.4f}"
+                    log(line)
+                    if not (rel <= TOL[dname]) or \
+                            not torch.isfinite(got).all():
+                        failures.append(line)
             x, a = leff_case(h, c, dtype, 200 + i)
 
             def k2(plain=False, x=x, a=a):
@@ -453,15 +510,18 @@ def phase_kernels(shapes) -> dict:
                              + "\n".join(failures))
     for k in res:
         res[k].update(bounds[k].fields(), library_ms=None)
-    # K2 at B=8, each shape under its plan: the same limit, ms, device ms,
-    # bound and the share of it (tools/measure_leff.py)
-    from fbanet_tpu_torch.tools import measure_leff
+    # K1 and K2 at B=8, each shape under its plan: the same limit, ms,
+    # device ms, bound and the share of it (tools/measure_attention.py,
+    # tools/measure_leff.py); K1 under every candidate plan
+    from fbanet_tpu_torch.tools import measure_attention, measure_leff
 
-    b8 = measure_leff.shapes(batch=8)
-    res["K2"]["b8"] = {r["group"]: {k: r[k] for k in (
-        "plan", "ms", "device_ms", "bound_ms", "share_of_bound",
-        "max_rel_err")} for r in b8["rows"]}
-    res["K2"]["b8_sums"] = b8["sums"]
+    for name, tool in (("K1", measure_attention), ("K2", measure_leff)):
+        b8 = tool.shapes(batch=8)
+        res[name]["b8"] = {r["group"]: {k: r[k] for k in (
+            "plan", "ms", "device_ms", "bound_ms", "share_of_bound",
+            "max_rel_err")} for r in b8["rows"]}
+        res[name]["b8_sums"] = b8["sums"]
+    measure_attention.plans(batch=8)
     return res
 
 
@@ -1017,20 +1077,26 @@ def phase_slice(card: str) -> tuple[dict, float]:
         requests.append((torch.from_numpy(lr).cuda(), torch.from_numpy(hr).cuda()))
     torch.cuda.synchronize()
 
-    fused_window_attention_2d.launches = 0
-    _leff_launch.wgmma.launches = 0  # K2's wgmma form, which serving runs
+    # the wgmma forms of K1 and K2, which serving runs, and K1's first
+    # kernel, which it must not
+    k1, k1_base = fused_window_attention_2d.wgmma, \
+        fused_window_attention_2d.base
+    for cnt in (k1, k1_base, _leff_launch.wgmma):
+        cnt.launches = 0
     t0 = time.perf_counter()
     served = [eval_step(model, lr, hr) for lr, hr in requests]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"K1": fused_window_attention_2d.launches,
+    launches = {"K1": k1.launches, "K1-base": k1_base.launches,
                 "K2": _leff_launch.wgmma.launches}
     log(f"slice: served {len(served)} batches of 4 in {wall:.3f} s "
         f"(first call included); launches {launches}")
     for name, count in launches.items():
-        if count != layers * len(served):
+        want = 0 if name == "K1-base" else layers * len(served)
+        if count != want:
             raise AssertionError(f"{name}: {count} launches, expected "
-                                 f"{layers} per forward x {len(served)}")
+                                 f"{want} ({layers} per forward x "
+                                 f"{len(served)} of the wgmma forms)")
 
     psnrs, ssims = [], []
     for pred, p, s, _ in served:
@@ -1152,7 +1218,7 @@ def phase_measure(card: str) -> tuple[dict, dict]:
     gradient plus a bitwise repeat, at the five SwinGroup shapes, B=2, f32
     and bf16, masked and not. K9, K10 and K11, every variant, against their
     plain versions at the tools' B=8 inputs, bf16, and each `full` variant
-    bitwise against the kernel its flags are built on (K1, K2's and K3's
+    bitwise against the kernel its flags are built on (K1's, K2's and K3's
     first kernels) on the same inputs.
     Then the main path: both tools' modes at B=8 and K1b forward + backward
     through autograd at the five shapes, with the counts set to 0 just
@@ -1206,9 +1272,13 @@ def phase_measure(card: str) -> tuple[dict, dict]:
                 err, rel = rel_err(got, ref)
                 same = torch.equal(got, on_map)
                 k1b["max_abs_err"] = max(k1b["max_abs_err"], err)
+                plan = attention._attention_plan(
+                    xw.shape[0], WS, WS, c, heads, WS, dname == "bfloat16",
+                    smem=attention._kernel_attention_smem)
                 line = (f"K1b windows G={xw.shape[0]} C={c} heads={heads} "
-                        f"{dname} masked={masked}: max_abs_err={err:.3e} "
-                        f"rel={rel:.3e} equal_to_K1_on_the_map={same}")
+                        f"{dname} masked={masked} plan {plan}: max_abs_err="
+                        f"{err:.3e} rel={rel:.3e} equal_to_K1_on_the_map="
+                        f"{same}")
                 if dname == "bfloat16" and masked:
                     ms, pms = time_ms(fwd), time_ms(lambda: fwd(True))
                     k1b["ms"] += ms
@@ -1219,6 +1289,25 @@ def phase_measure(card: str) -> tuple[dict, dict]:
                 if not (rel <= TOL[dname]) or not same \
                         or not torch.isfinite(got).all():
                     failures.append(line)
+                if dname == "bfloat16":
+                    # K1b on the first kernel, against K1's first kernel
+                    base = attention._K1_BASE_PLAN
+                    got = attention._launch_windows(
+                        xw, *a.values(), heads, nw, plan=base)
+                    on_map = window_partition(attention._attention_launch(
+                        x4, *a.values(), heads, WS, False, base), WS)
+                    torch.cuda.synchronize()
+                    err, rel = rel_err(got, ref)
+                    same = torch.equal(got, on_map)
+                    line = (f"K1b windows G={xw.shape[0]} C={c} heads="
+                            f"{heads} {dname} masked={masked} plan {base} "
+                            f"(first kernel): max_abs_err={err:.3e} rel="
+                            f"{rel:.3e} equal_to_K1_first_kernel_on_the_map="
+                            f"{same}")
+                    log(line)
+                    if not (rel <= TOL[dname]) or not same \
+                            or not torch.isfinite(got).all():
+                        failures.append(line)
 
                 gw = _normal_fn(900 + i)(tuple(xw.shape), 1.0).to(dtype)
                 p = {k: v for k, v in a.items() if k != "bproj"}
@@ -1290,9 +1379,10 @@ def phase_measure(card: str) -> tuple[dict, dict]:
                                   iters=3, repeats=3)
                     abl[kernel]["plain_ms"] += pms
                     line += f" plain_ms={pms:.4f}"
-                    if kernel == "K9":
-                        prod = fused_window_attention_2d(
-                            *args, None, heads=heads, window_size=WS)
+                    if kernel == "K9":  # K1's first kernel
+                        prod = attention._attention_launch(
+                            *args, None, heads, WS, False,
+                            attention._K1_BASE_PLAN)
                         same = torch.equal(got, prod)
                     elif kernel == "K10":  # K2's first kernel
                         same = torch.equal(got, leff._leff_launch(
@@ -1370,7 +1460,8 @@ def phase_variants(card: str, fwd_ms: float, train_ms: float
                    ) -> tuple[dict, dict]:
     """The kernel-variant slice. K7, every variant the tool times, against
     its plain version on the tool's B=8 inputs at the five SwinGroup shapes
-    (bf16, TOL), loop_ln bitwise against K1 (mask-free, no residual), each
+    (bf16, TOL), loop_ln bitwise against K1's first kernel, on which its
+    cores are built (mask-free, no residual), each
     core's heads per stage and shared memory as the kernel reports them;
     K8, every variant, against its plain
     version, and with no flag bitwise against K2 (no residual). Then the
@@ -1381,9 +1472,7 @@ def phase_variants(card: str, fwd_ms: float, train_ms: float
     (`train_ms`). Returns (per-kernel results, launches)."""
     import torch
 
-    from fbanet_tpu_torch.ops import _build
-    from fbanet_tpu_torch.ops.attention import fused_window_attention_2d
-    from fbanet_tpu_torch.ops import leff
+    from fbanet_tpu_torch.ops import _build, attention, leff
     from fbanet_tpu_torch.tools import flops_accounting, profile_components
     from fbanet_tpu_torch.tools import measure_swin_rates as mr
     from fbanet_tpu_torch.tools import measure_swin_variants as mv
@@ -1403,7 +1492,7 @@ def phase_variants(card: str, fwd_ms: float, train_ms: float
         bounds.setdefault((kernel, vname), Bound()).add(*work)
         same = torch.equal(got, prod)
         line += (f": max_abs_err={err:.3e} rel={rel:.3e} bitwise_equal_to_"
-                 f"{'K1' if kernel == 'K7' else 'K2'}={same}")
+                 f"{'K1' if kernel == 'K7' else 'K2'}_first_kernel={same}")
         if not (rel <= TOL["bfloat16"]) or not torch.isfinite(got).all():
             failures.append(line)
         return line, same
@@ -1419,8 +1508,8 @@ def phase_variants(card: str, fwd_ms: float, train_ms: float
             failures.append(line + ": a core the tool runs does not fit")
         log(line)
         args = mr._attn_args(c, r, heads, batch=MEASURE_B)
-        prod = fused_window_attention_2d(*args, None, heads=heads,
-                                         window_size=WS)
+        prod = attention._attention_launch(  # K1's first kernel
+            *args, None, heads, WS, False, attention._K1_BASE_PLAN)
         for vname, kw in mv.attention_cases(name, c, r, heads):
             kw = dict(kw)
             fn = mv.variant_attention(c, r, heads, kw.pop("core"), **kw)
@@ -1514,7 +1603,8 @@ def _counters():
         measure_swin_variants,
     )
 
-    return {"K1": attention.fused_window_attention_2d,
+    return {"K1": attention.fused_window_attention_2d.wgmma,
+            "K1-base": attention.fused_window_attention_2d.base,
             "K2": leff._leff_launch.wgmma, "K2-base": leff._leff_launch.base,
             "K3": attention._attention_bwd_launch.wgmma,
             "K3-base": attention._attention_bwd_launch.base,
@@ -1541,7 +1631,8 @@ def _device_ms(events) -> tuple[float, dict]:
                      getattr(e, "self_cuda_time_total", 0.0))
         total += us
         for key in ("attention_bwd_wgmma", "window_attention_bwd",
-                    "window_attention_bf16", "leff_wgmma", "leff_bwd",
+                    "attention_wgmma_kernel", "window_attention_bf16",
+                    "leff_wgmma", "leff_bwd",
                     "leff_ln_bwd", "leff_bf16", "token_matmul",
                     "column_sum", "warp_homography", "warp_coords"):
             if key in e.key:
@@ -1554,12 +1645,12 @@ def phase_train(card: str) -> tuple[dict, float]:
     160 px, window 8, bf16 compute, f32 parameters, drop_path 0.1), random
     weights from a seed, AdamW at lr 1e-4, B=8 synthetic bursts with HR
     targets, 5 steps of `train.make_train_step`. Checks finite losses, that
-    every parameter moved, and 20 launches per step of each of K1-K4. Then
-    one f32 step at B=2 holds every parameter gradient of the kernel path
-    against the plain path, and the B=8 step is timed against the plain
-    versions and profiled. Returns the launch counts of the 5 steps and of
-    the f32 step's kernel path (K2's and K3's first kernels run there),
-    and the B=8 step's ms."""
+    every parameter moved, and 20 launches per step of each of K1-K4 (none
+    of K1's first kernel). Then one f32 step at B=2 holds every parameter
+    gradient of the kernel path against the plain path, and the B=8 step is
+    timed against the plain versions and profiled. Returns the launch
+    counts of the 5 steps and of the f32 step's kernel path (K1's, K2's and
+    K3's first kernels run there), and the B=8 step's ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1599,11 +1690,12 @@ def phase_train(card: str) -> tuple[dict, float]:
         f"launches {launches}, peak {peak:.2f} GiB")
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
-    for name in ("K1", "K2", "K3", "K4"):
+    for name in ("K1", "K2", "K3", "K4", "K1-base"):
         counts = [s[name] for s in per_step]
-        if counts != [layers * (i + 1) for i in range(5)]:
+        per = 0 if name == "K1-base" else layers
+        if counts != [per * (i + 1) for i in range(5)]:
             raise AssertionError(f"{name}: cumulative launches {counts} over "
-                                 f"5 steps, expected {layers} per step")
+                                 f"5 steps, expected {per} per step")
     still = [n for n, p in model.named_parameters()
              if torch.equal(p.detach(), before[n])]
     if still:
@@ -1612,7 +1704,7 @@ def phase_train(card: str) -> tuple[dict, float]:
 
     # f32, B=2: every parameter gradient, kernels against plain versions.
     # The kernel path's launches count as a path of their own: in f32 the
-    # plans send K2 and K3 to their first kernels, 20 launches each
+    # plans send K1, K2 and K3 to their first kernels, 20 launches each
     cfg32 = cfg.replace(dtype="float32")
     m32 = create_model(cfg32, device="cuda", seed=0)
     m32.load_state_dict(state, strict=True)
@@ -1628,7 +1720,7 @@ def phase_train(card: str) -> tuple[dict, float]:
                       if p.grad is not None})
     f32_launches = {k: c.launches for k, c in counters.items()}
     log(f"train f32 B=2 step: launches {f32_launches}")
-    for name in ("K1", "K2-base", "K3-base", "K4"):
+    for name in ("K1-base", "K2-base", "K3-base", "K4"):
         if f32_launches[name] != layers:
             raise AssertionError(f"{name}: {f32_launches[name]} launches in "
                                  f"the f32 step, expected {layers}")
@@ -1672,8 +1764,11 @@ def phase_train(card: str) -> tuple[dict, float]:
     k3 = ours.get("attention_bwd_wgmma", 0.0) + ours.get(
         "window_attention_bwd", 0.0)
     k2 = ours.get("leff_wgmma", 0.0) + ours.get("leff_bf16", 0.0)
+    k1 = ours.get("attention_wgmma_kernel", 0.0) + ours.get(
+        "window_attention_bf16", 0.0)
     log(f"train B=8 profile: device {total:.3f} ms, port kernels (ms) "
-        f"{ {k: round(v, 3) for k, v in ours.items()} }; K3 "
+        f"{ {k: round(v, 3) for k, v in ours.items()} }; K1 "
+        f"(attention_wgmma_kernel + window_attention_bf16) {k1:.3f} ms, K3 "
         f"(attention_bwd_wgmma + window_attention_bwd) {k3:.3f} ms, K2 "
         f"(leff_wgmma + leff_bf16) {k2:.3f} ms, K4 (leff_bwd + leff_ln_bwd) "
         f"{k4:.3f} ms")
@@ -1737,8 +1832,10 @@ def main() -> None:
         raise AssertionError(f"kernels never launched on a main path: "
                              f"{missing}")
     table = (
-        ("K1", "K1 fused window attention", "attention.cu",
+        ("K1", "K1 fused window attention (wgmma form)", "attention_wgmma.cu",
          "fbanet_tpu/ops/attention_pallas.py:250"),
+        ("K1-base", "K1 fused window attention (first kernel: f32, K7/K9 "
+         "base)", "attention.cu", "fbanet_tpu/ops/attention_pallas.py:250"),
         ("K2", "K2 fused LeFF (wgmma form)", "leff.cu",
          "fbanet_tpu/ops/leff_pallas.py:172"),
         ("K2-base", "K2 fused LeFF (first kernel: f32, K8/K10 base)",
@@ -1758,8 +1855,9 @@ def main() -> None:
          "fbanet_tpu/ops/warp_pallas.py:102"),
         ("K6", "K6 dense-coords bilinear warp", "warp.cu",
          "fbanet_tpu/ops/warp_pallas.py:128"),
-        ("K1b", "K1b fused window attention on [G, N, C] windows",
-         "attention.cu", "fbanet_tpu/ops/attention_pallas.py:234"),
+        ("K1b", "K1b fused window attention on [G, N, C] windows (K1's "
+         "wgmma form, windowed entry)", "attention_wgmma.cu",
+         "fbanet_tpu/ops/attention_pallas.py:234"),
         ("K9", "K9 attention ablation (measure_swin_rates)", "attention.cu",
          "scripts/measure_swin_rates.py:136"),
         ("K10", "K10 LeFF ablation (measure_swin_rates)", "leff.cu",

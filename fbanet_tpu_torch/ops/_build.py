@@ -45,6 +45,15 @@ SIGNATURES = {
     # W, C, heads, ws, variant, stream
     "fbanet_window_attention_windows": [_P] * 12 + [_I] * 6 + [_P],
     "fbanet_window_attention_ablation": [_P] * 12 + [_I] * 7 + [_P],
+    # K1's wgmma form: x, out, ln_s, ln_b, [Wq; Wkv], bq, bkv, wproj, bproj,
+    # bias, mask, then B, H, W, C, heads, ws, residual, warpgroups, windows
+    # per block, staged weights, stream; K1b on it: the same pointers, then
+    # G, tokens per window, C, heads, mask windows, warpgroups, windows per
+    # block, staged weights, stream; its shared memory, 0 for a shape it
+    # does not take: (tokens per window, C, heads, warpgroups, staged)
+    "fbanet_window_attention_wgmma": [_P] * 11 + [_I] * 10 + [_P],
+    "fbanet_window_attention_wgmma_windows": [_P] * 11 + [_I] * 8 + [_P],
+    "fbanet_window_attention_wgmma_smem": [_I] * 5,
     # x, out, ln_s, ln_b, w1, b1, wdw, bdw, w2, b2,
     # B, H, W, C, Ch, residual, bf16, stream
     "fbanet_leff": [_P] * 10 + [_I] * 7 + [_P],

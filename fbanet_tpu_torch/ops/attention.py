@@ -4,19 +4,24 @@ feature map and on pre-partitioned windows, and its backward.
 `fused_window_attention_2d` is the dispatcher (the counterpart of
 fbanet_tpu/ops/attention_pallas.py::fused_window_attention_2d). It is a
 `torch.autograd.Function`: its forward is K1 and its backward K3. For CUDA
-tensors the forward launches the hand-written kernel in `csrc/attention.cu`
-(which replaces the TPU kernel `_attention2d_kernel`) and the backward the
-one in `csrc/attention_bwd.cu` (which replaces `_attention_bwd_kernel`),
-followed by the fixed-order sums of `ops/reduce.py`; either raises for a
-shape its kernel does not take. For CPU tensors, or with `plain=True`, both
-run the plain PyTorch versions below. There is no silent fallback. As in the
+tensors the forward launches a hand-written kernel that replaces the TPU
+kernel `_attention2d_kernel` and the backward one that replaces
+`_attention_bwd_kernel`, followed by the fixed-order sums of
+`ops/reduce.py`; either raises for a shape its kernel does not take. Each
+has two forms: the bf16 wgmma form (`csrc/attention_wgmma.cu`,
+`csrc/attention_bwd_wgmma.cu`) for the shapes of the main path, and the
+first kernel (`csrc/attention.cu`, `csrc/attention_bwd.cu(h)`) for f32,
+other shapes and the ablation and variant kernels built on it; the plans
+`_attention_plan` and `_attention_bwd_plan` pick the form. For CPU
+tensors, or with `plain=True`, both run the plain PyTorch versions below.
+There is no silent fallback. As in the
 JAX custom_vjp (`_fused2d_fwd`), the forward saves only the layer input and
 the parameters; the backward recomputes the rest.
 
 `fused_window_attention` (the counterpart of attention_pallas.py::
 fused_window_attention) is the same pair on `[G, N, C]` windows: K1b, the
-second entry of `csrc/attention.cu` (which replaces `_attention_kernel`),
-and K3's windowed entry as its backward. Its plain versions are
+windowed entry of K1's two forms (which replaces `_attention_kernel`), and
+K3's windowed entry as its backward. Its plain versions are
 `window_attention_reference` and `window_attention_bwd_reference`. Where the
 JAX API falls back to XLA for a shape its kernel does not take
 (attention_pallas.py:785-788), the port raises on CUDA, naming the shape.
@@ -37,7 +42,10 @@ relative-position table through the index gather. The mask gets none.
 
 `fused_window_attention_2d.launches` counts K1 launches,
 `fused_window_attention.launches` K1b launches and
-`window_attention_bwd.launches` K3 launches (both entries).
+`window_attention_bwd.launches` K3 launches (both entries);
+`fused_window_attention_2d.wgmma` / `.base` count the launches of K1's two
+forms (K1b's and explicit plans' included), `_attention_bwd_launch.wgmma` /
+`.base` K3's.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ from fbanet_tpu_torch.ops.norm import LN_EPS, layer_norm_f32
 from fbanet_tpu_torch.ops.reduce import _SMS, _cdiv, column_sum, token_matmul
 
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use on the H100
+_SM_SMEM = 233472  # bytes of shared memory on one H100 SM (228 KB)
 
 
 def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
@@ -271,45 +280,167 @@ def _check_kernel_shape(x4, heads, ws, mask):
 def _kernel_args(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj, bias,
                  mask):
     """Parameters as the kernels take them: f32 vectors and bias/mask,
-    compute-dtype weights, all contiguous on x4's device."""
+    compute-dtype weights, all contiguous on x4's device (None stays
+    None)."""
     def f32(t):
-        return t.to(device=x4.device, dtype=torch.float32).contiguous()
+        return None if t is None else t.to(
+            device=x4.device, dtype=torch.float32).contiguous()
 
     def wt(t):
-        return t.to(device=x4.device, dtype=x4.dtype).contiguous()
+        return None if t is None else t.to(
+            device=x4.device, dtype=x4.dtype).contiguous()
 
     return [f32(ln_scale), f32(ln_bias), wt(wq), f32(bq), wt(wkv), f32(bkv),
-            wt(wproj), None if bproj is None else f32(bproj), f32(bias),
-            None if mask is None else f32(mask)]
+            wt(wproj), f32(bproj), f32(bias), f32(mask)]
 
 
 def _kernel_forward(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
                     bias, mask, heads, ws, residual):
-    """Launch K1."""
+    """Launch K1 under `_attention_plan`."""
+    _check_kernel_shape(x4, heads, ws, mask)
+    b, h, w, c = x4.shape
+    plan = _attention_plan(b, h, w, c, heads, ws, x4.dtype == torch.bfloat16,
+                           smem=_kernel_attention_smem)
+    out = _attention_launch(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
+                            bproj, bias, mask, heads, ws, residual, plan)
+    fused_window_attention_2d.launches += 1
+    return out
+
+
+# K1's plans: (warpgroups per block, windows per block, weights staged).
+# The wgmma form (csrc/attention_wgmma.cu) takes bf16 8 x 8 windows, C 64,
+# 128 or 256 and head size 16 or 64, with two or four warpgroups and the
+# weights staged once per block (where all 4 C^2 fit) or streamed per
+# window; warpgroups 0 is the first kernel (csrc/attention.cu: f32, every
+# other shape, the base of K9's and K7's flags), one window per block.
+_K1_BASE_PLAN = (0, 1, 0)
+# (warpgroups, staged) of the wgmma form, in the order the plan tries them
+_K1_FORMS = ((2, 1), (4, 1), (4, 0))
+_K1_SLOTS = 4  # TMA ring slots per warpgroup when the weights stream
+
+
+def _attention_smem(n: int, c: int, heads: int, nwg: int,
+                    staged: int) -> int:
+    """Dynamic shared memory of K1's wgmma form with `nwg` warpgroups and
+    the weights staged (1) or streamed (0), for windows of n tokens, C
+    channels and `heads` heads, or 0 for a shape it does not take: a model
+    of the kernel's `fbanet_window_attention_wgmma_smem` (the layout of
+    `AfLayout` in csrc/attention_wgmma.cu, byte for byte) that plans
+    without the card, as the CPU tests do; on the card K1 plans with the
+    kernel's own, and chip_smoke.py holds the two equal."""
+    if n != 64 or c % 64 or c > 256 or heads < 1 or c % heads:
+        return 0
+    if c // heads not in (16, 64) or nwg not in (2, 4) or staged not in (0, 1):
+        return 0
+    weights = 8 * c * c if staged else nwg * _K1_SLOTS * 4096
+    barriers = 8 * (1 if staged else nwg * _K1_SLOTS)
+    total = 4 * 128 * c + 4 * 64 * 64 + weights + barriers + 1024
+    return total if total <= _SMEM_LIMIT else 0
+
+
+def _kernel_attention_smem(n: int, c: int, heads: int, nwg: int,
+                           staged: int) -> int:
+    """The kernel's own `fbanet_window_attention_wgmma_smem` (builds the
+    library on first use)."""
+    return _build.library().fbanet_window_attention_wgmma_smem(
+        n, c, heads, nwg, staged)
+
+
+@functools.lru_cache(maxsize=256)
+def _attention_plan(b: int, h: int, w: int, c: int, heads: int, ws: int = 8,
+                    bf16: bool = True, sms: int = _SMS,
+                    smem=_attention_smem) -> tuple[int, int, int]:
+    """(warpgroups per block, windows per block, weights staged) of K1 for
+    x [b, h, w, c] (or b windows of ws x ws tokens with h = w = ws) and
+    `heads` heads.
+
+    bf16: the wgmma form, the first of `_K1_FORMS` whose shared memory
+    (`smem`: the kernel's `_kernel_attention_smem` or its model
+    `_attention_smem`) lets 4 // warpgroups blocks share an SM (the
+    kernel's launch bounds): the weights staged with two warpgroups at
+    C = 64 (two blocks per SM) and four at C = 128 (one), streamed by four
+    at C = 256; the windows dealt in order to as many blocks as the card
+    holds at once, each taking `wpb` consecutive windows (`_window_blocks`).
+    Measured at the five groups at B=2, 4 and 8 (tools/measure_attention.py
+    `plans`, NVIDIA H100 80GB HBM3 at 700 W): the fastest plan, or within
+    7 % of it, at every group (PERF.md §6). Else `_K1_BASE_PLAN`, the
+    first kernel."""
+    if bf16 and h % ws == 0 and w % ws == 0:
+        for nwg, staged in _K1_FORMS:
+            size = smem(ws * ws, c, heads, nwg, staged)
+            resident = min(_SM_SMEM // (size + 1024), 4 // nwg) if size else 0
+            if 0 < size <= _SMEM_LIMIT and resident >= 4 // nwg:
+                windows = b * (h // ws) * (w // ws)
+                return nwg, _cdiv(windows, resident * sms), staged
+    return _K1_BASE_PLAN
+
+
+def _attention_launch(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
+                      bias, mask, heads, ws, residual, plan):
+    """Launch K1 on the map with `plan` (see `_attention_plan`): the wgmma
+    form, counted in `fused_window_attention_2d.wgmma`, or the first kernel,
+    in `fused_window_attention_2d.base`."""
     _check_kernel_shape(x4, heads, ws, mask)
     b, h, w, c = x4.shape
     lib = _build.library()
-    n = ws * ws
-    bf16 = int(x4.dtype == torch.bfloat16)
+    bf16 = _check_plan(lib, x4, ws * ws, c, heads, plan,
+                       lambda why: _unsupported(why, x4, heads, ws))
+    ptrs, _kept = _forward_operands(x4, ln_scale, ln_bias, wq, bq, wkv, bkv,
+                                    wproj, bproj, bias, mask, plan)
+    out = torch.empty_like(x4)
+    nwg, wpb, staged = plan
+    if nwg:
+        err = lib.fbanet_window_attention_wgmma(
+            x4.data_ptr(), out.data_ptr(), *ptrs, b, h, w, c, heads, ws,
+            int(residual), nwg, wpb, staged, _build.stream(x4))
+        form = fused_window_attention_2d.wgmma
+    else:
+        err = lib.fbanet_window_attention(
+            x4.data_ptr(), out.data_ptr(), *ptrs, b, h, w, c, heads, ws,
+            int(residual), bf16, _build.stream(x4))
+        form = fused_window_attention_2d.base
+    _build.check(err, "fused_window_attention_2d")
+    form.launches += 1
+    return out
+
+
+def _check_plan(lib, x, n: int, c: int, heads: int, plan, fail) -> int:
+    """Call `fail(why)` (which raises) if K1's form under `plan` does not
+    take windows of n tokens, C channels and `heads` heads in x's dtype;
+    else return the first kernel's bf16 flag."""
+    nwg, _wpb, staged = plan
+    bf16 = int(x.dtype == torch.bfloat16)
+    if nwg:
+        if not bf16 or lib.fbanet_window_attention_wgmma_smem(
+                n, c, heads, nwg, staged) == 0:
+            fail(f"the wgmma form takes no plan {plan} of this shape "
+                 f"(bfloat16, 64-token windows, C 64, 128 or 256, head size "
+                 f"16 or 64)")
+        return bf16
     smem = lib.fbanet_window_attention_smem(n, c, heads, bf16)
     if smem == 0:
-        _unsupported("in bfloat16 the window's token count, C and the head "
-                     "size must be multiples of 16 (tensor-core tiles)",
-                     x4, heads, ws)
+        fail("in bfloat16 the window's token count, C and the head size "
+             "must be multiples of 16 (tensor-core tiles)")
     if smem > _SMEM_LIMIT:
-        _unsupported(f"needs {smem} B of shared memory per block "
-                     f"(limit {_SMEM_LIMIT})", x4, heads, ws)
-    args = _kernel_args(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
+        fail(f"needs {smem} B of shared memory per block (limit "
+             f"{_SMEM_LIMIT})")
+    return bf16
+
+
+def _forward_operands(x, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
+                      bias, mask, plan):
+    """(the parameter pointers of K1's entries under `plan` after x and
+    out, the parameters' copies): the wgmma form takes [Wq; Wkv] as one
+    [3C, C] weight (in wq's place), the first kernel wq and wkv apart."""
+    if plan[0]:
+        wq, wkv = torch.cat([wq, wkv]), None
+    kept = _kernel_args(x, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
                         bias, mask)
-    out = torch.empty_like(x4)
-    err = lib.fbanet_window_attention(
-        x4.data_ptr(), out.data_ptr(),
-        *[None if a is None else a.data_ptr() for a in args],
-        b, h, w, c, heads, ws, int(residual), bf16,
-        _build.stream(x4))
-    _build.check(err, "fused_window_attention_2d")
-    fused_window_attention_2d.launches += 1
-    return out
+    ptrs = [None if t is None else t.data_ptr() for t in kept]
+    if plan[0]:
+        del ptrs[4]  # no wkv apart
+    # the caller holds the parameters' copies until the launch is queued
+    return ptrs, kept
 
 
 # K3's plans: (warpgroups per block, windows per block). The wgmma form
@@ -348,9 +479,6 @@ def _kernel_bwd_smem(n: int, c: int, heads: int, nwg: int) -> int:
     the library on first use)."""
     return _build.library().fbanet_window_attention_bwd_wgmma_smem(
         n, c, heads, nwg)
-
-
-_SM_SMEM = 233472  # bytes of shared memory on one H100 SM (228 KB)
 
 
 @functools.lru_cache(maxsize=256)
@@ -554,29 +682,38 @@ def _check_windows_kernel(x, heads: int, mask, windows_per_image: int):
 
 
 def _launch_windows(x, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
-                    bias, mask, heads: int, windows_per_image: int):
-    """Launch K1b (uncounted)."""
+                    bias, mask, heads: int, windows_per_image: int,
+                    plan=None):
+    """Launch K1b under `plan` (default `_attention_plan` for its windows;
+    see there), counted in its form's `fused_window_attention_2d` count."""
     _check_windows_kernel(x, heads, mask, windows_per_image)
     g, n, c = x.shape
+    ws = math.isqrt(n)
+    if plan is None:
+        plan = (_attention_plan(g, ws, ws, c, heads, ws,
+                                x.dtype == torch.bfloat16,
+                                smem=_kernel_attention_smem)
+                if ws * ws == n else _K1_BASE_PLAN)
     lib = _build.library()
-    bf16 = int(x.dtype == torch.bfloat16)
-    smem = lib.fbanet_window_attention_smem(n, c, heads, bf16)
-    if smem == 0:
-        _unsupported_windows("in bfloat16 the window's token count, C and the "
-                             "head size must be multiples of 16 (tensor-core "
-                             "tiles)", x, heads)
-    if smem > _SMEM_LIMIT:
-        _unsupported_windows(f"needs {smem} B of shared memory per block "
-                             f"(limit {_SMEM_LIMIT})", x, heads)
-    args = _kernel_args(x, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
-                        bias, mask)
+    bf16 = _check_plan(lib, x, n, c, heads, plan,
+                       lambda why: _unsupported_windows(why, x, heads))
+    ptrs, _kept = _forward_operands(x, ln_scale, ln_bias, wq, bq, wkv, bkv,
+                                    wproj, bproj, bias, mask, plan)
     out = torch.empty_like(x)
-    err = lib.fbanet_window_attention_windows(
-        x.data_ptr(), out.data_ptr(),
-        *[None if a is None else a.data_ptr() for a in args],
-        g, n, c, heads, windows_per_image if mask is not None else 1, bf16,
-        _build.stream(x))
+    nw = windows_per_image if mask is not None else 1
+    nwg, wpb, staged = plan
+    if nwg:
+        err = lib.fbanet_window_attention_wgmma_windows(
+            x.data_ptr(), out.data_ptr(), *ptrs, g, n, c, heads, nw, nwg,
+            wpb, staged, _build.stream(x))
+        form = fused_window_attention_2d.wgmma
+    else:
+        err = lib.fbanet_window_attention_windows(
+            x.data_ptr(), out.data_ptr(), *ptrs, g, n, c, heads, nw, bf16,
+            _build.stream(x))
+        form = fused_window_attention_2d.base
     _build.check(err, "fused_window_attention")
+    form.launches += 1
     return out
 
 
@@ -713,6 +850,9 @@ def fused_window_attention_2d(x4: torch.Tensor, ln_scale, ln_bias, wq, bq,
 
 
 fused_window_attention_2d.launches = 0
+# launch counts per form, kept as the wrappers keep theirs
+fused_window_attention_2d.wgmma = SimpleNamespace(launches=0)
+fused_window_attention_2d.base = SimpleNamespace(launches=0)
 
 
 class _WindowAttention(torch.autograd.Function):

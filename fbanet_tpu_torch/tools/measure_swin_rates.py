@@ -33,7 +33,7 @@ depthwise kernel to a torch depthwise Conv2d weight.
 The ablation kernels (wrong math by design; they bound where the time goes):
 
 - K9, `ablation_attention` (csrc/attention.cu, fbanet_window_attention_
-  ablation): K1's bf16 kernel, mask-free, no residual, with one stage
+  ablation): K1's first kernel in bf16, mask-free, no residual, with one stage
   changed at compile time, as the script's `_abl_kernel`
   (measure_swin_rates.py:136-199): nosoftmax (p = logits / n, rounded),
   nocore (o = q + k + v in bf16, no per-head stage), notrans (window g is
@@ -42,17 +42,17 @@ The ablation kernels (wrong math by design; they bound where the time goes):
   plain version is `abl_attention` / `_abl_attention_plain`. The script's
   `full` normalises before the AV product (`jax.nn.softmax`, probabilities
   rounded to bf16), and so does the plain version; the kernel's `full` is
-  K1's own instantiation, which divides after it (attention_pallas.py:
-  217-223). The two differ by bf16 rounding only, within the bf16 limit.
+  the instantiation of K1's first kernel, which divides after it
+  (attention_pallas.py:217-223). The two differ by bf16 rounding only, within the bf16 limit.
 - K10, `ablation_leff` (csrc/leff.cu, fbanet_leff_ablation): K2's bf16
   kernel, no residual, as `_leff_abl_kernel` (measure_swin_rates.py:
   253-293): nogelu (both GELUs become x * 0.7), nodw (no depthwise 3x3:
   h2 = act(h1) on the tile's own tokens). Plain version `abl_leff`.
 
 Each kernel's variants are flags of a production kernel, so `full` is
-bitwise K1 (K10: K2's first kernel, which the plan keeps for f32 and
-shapes its wgmma form does not take; the stage shares describe that form)
-and each variant is that kernel minus one stage.
+bitwise K1's first kernel (K10: K2's; the plans keep both for f32 and the
+shapes their wgmma forms do not take, so the stage shares describe those
+forms) and each variant is that kernel minus one stage.
 On the card each wrapper launches its kernel or raises; on the CPU (or with
 `plain=True`) it runs the plain version. `.launches` counts kernel launches.
 """

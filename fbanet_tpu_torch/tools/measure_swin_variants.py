@@ -12,7 +12,9 @@ reuses):
 - K7 (`variant_attention`, csrc/attention_variants.cu): K1's function,
   mask-free, no residual, with the per-head stage as `loop` (one head at a
   time, softmax normalised before AV), `loop_ln` (K1's own order: the
-  division by the row sum after AV; bitwise K1), `stack3d` / `stack3d_ln`
+  division by the row sum after AV; bitwise K1's first kernel, which the
+  plan keeps for f32 and the shapes K1's wgmma form does not take),
+  `stack3d` / `stack3d_ln`
   (the heads of a chunk through each stage together: one barrier per stage
   instead of one per head), `lanepack` (heads in pairs, 2n-wide softmax
   rows, block-diagonal keys and values; even head counts), plus `ln+qkv1`

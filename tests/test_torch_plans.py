@@ -1,13 +1,14 @@
-"""The plans of K2's and K3's wgmma forms on the CPU, without JAX: which
-form and blocks each shape gets, the shared memory each plan needs (from
-the Python models of the kernels' own `*_smem` functions, which
-chip_smoke.py holds equal to the kernels'), K3's window-to-block
-assignment, the order of its per-block bias partial's sums, and what the
-new wrappers refuse.
+"""The plans of K1's, K2's and K3's wgmma forms on the CPU, without JAX:
+which form and blocks each shape gets, the shared memory each plan needs
+(from the Python models of the kernels' own `*_smem` functions, which
+chip_smoke.py holds equal to the kernels'), the window-to-block assignment
+of K1's and K3's forms, the order of K3's per-block bias partial's sums,
+and what the new wrappers refuse.
 
 The kernels run only on the card, where chip_smoke.py and
-tools/measure_leff.py / tools/measure_attention_bwd.py hold them against
-the plain versions at every shape of the main path.
+tools/measure_attention.py / tools/measure_leff.py /
+tools/measure_attention_bwd.py hold them against the plain versions at
+every shape of the main path.
 """
 
 import numpy as np
@@ -187,3 +188,131 @@ def test_new_wrappers_refuse_off_the_card():
     with pytest.raises(ValueError, match=r"\(4, 64, 64\)"):
         attention.launch_bwd_windows(xw, xw, *ap, None, heads=1,
                                      windows_per_image=4, plan=(2, 1))
+
+
+@pytest.mark.parametrize("batch", [2, 8])
+@pytest.mark.parametrize("h,c,heads", GROUPS, ids=IDS)
+def test_attention_plan_at_the_group_shapes(h, c, heads, batch):
+    """bf16 takes K1's wgmma form at every group: the weights staged once
+    per block by two warpgroups at C = 64 and by four at C = 128, streamed
+    by four at C = 256, each with as many resident blocks per SM as its
+    launch bounds allow (4 // warpgroups); the windows dealt to at most as
+    many blocks as the card holds at once, in as few windows per block as
+    that allows."""
+    nwg, wpb, staged = attention._attention_plan(batch, h, h, c, heads)
+    assert (nwg, staged) in attention._K1_FORMS
+    assert (nwg, staged) == {64: (2, 1), 128: (4, 1), 256: (4, 0)}[c]
+    size = attention._attention_smem(WS * WS, c, heads, nwg, staged)
+    assert 0 < size <= SMEM_LIMIT
+    resident = 4 // nwg
+    assert resident * (size + 1024) <= attention._SM_SMEM
+    windows = batch * (h // WS) ** 2
+    blocks = len(attention._window_blocks(windows, wpb))
+    assert blocks <= resident * SMS
+    assert wpb == 1 or -(-windows // (wpb - 1)) > resident * SMS
+
+
+@pytest.mark.parametrize("args,kw", [
+    ((2, 80, 80, 128, 2), dict(bf16=False)),  # f32
+    ((2, 16, 16, 128, 4), {}),  # head size 32
+    ((2, 16, 16, 96, 6), {}),  # C not a multiple of 64
+    ((2, 28, 28, 64, 1), dict(ws=7)),  # 49-token windows
+    ((2, 12, 16, 64, 1), {}),  # H not a multiple of the window
+], ids=["f32", "dh32", "c96", "ws7", "h12"])
+def test_attention_plan_keeps_the_first_kernel(args, kw):
+    """f32, and bf16 shapes K1's wgmma form does not take, get the first
+    kernel by an explicit rule (the wrapper launches it or raises)."""
+    assert attention._attention_plan(*args, **kw) == attention._K1_BASE_PLAN
+
+
+def test_attention_plan_sizes_with_the_given_smem():
+    """K1's plan takes its shared-memory sizes from the function it is
+    given (the wrapper passes the kernel's own on the card): a form that
+    function refuses is passed over, and with none left the first kernel
+    runs."""
+    def streamed_only(n, c, heads, nwg, staged):
+        return 0 if staged else attention._attention_smem(n, c, heads, nwg,
+                                                          staged)
+
+    def four_only(n, c, heads, nwg, staged):
+        return attention._attention_smem(n, c, heads, nwg, staged) \
+            if nwg == 4 else 0
+
+    assert attention._attention_plan(8, 160, 160, 64, 1,
+                                     smem=streamed_only) == (4, 25, 0)
+    assert attention._attention_plan(8, 160, 160, 64, 1,
+                                     smem=four_only) == (4, 25, 1)
+    assert attention._attention_plan(
+        8, 160, 160, 64, 1, smem=lambda *_a: 0) == attention._K1_BASE_PLAN
+
+
+def test_attention_smem_refuses_what_the_kernel_does_not_take():
+    """K1's wgmma form: only 64-token windows, C 64, 128 or 256, head size
+    16 or 64, two or four warpgroups, weights staged or streamed, and at
+    most the H100's 227 KB a block (staged weights fit up to C = 128)."""
+    assert attention._attention_smem(49, 64, 1, 2, 0) == 0
+    assert attention._attention_smem(64, 96, 6, 2, 0) == 0
+    assert attention._attention_smem(64, 320, 20, 4, 0) == 0
+    assert attention._attention_smem(64, 128, 4, 2, 0) == 0  # dh 32
+    assert attention._attention_smem(64, 128, 2, 3, 0) == 0
+    assert attention._attention_smem(64, 128, 2, 2, 2) == 0
+    assert attention._attention_smem(64, 256, 16, 4, 1) == 0  # 512 KB
+    assert attention._attention_smem(64, 256, 4, 2, 1) == 0
+    for c in (64, 128, 256):
+        for heads in (c // 64, c // 16):
+            for nwg in (2, 4):
+                assert 0 < attention._attention_smem(64, c, heads, nwg,
+                                                     0) <= SMEM_LIMIT
+    # the layout byte for byte: y, q, k, v, the mask, weights, barriers,
+    # alignment
+    assert attention._attention_smem(64, 64, 1, 2, 1) == \
+        4 * 8192 + 16384 + 8 * 64 * 64 + 8 + 1024
+    assert attention._attention_smem(64, 256, 16, 4, 0) == \
+        4 * 32768 + 16384 + 4 * 4 * 4096 + 16 * 8 + 1024
+
+
+def test_attention_wrappers_refuse_off_the_card():
+    """K1's launches under an explicit plan, and K1b's, take CUDA tensors
+    only, whatever the plan: any other device gets an error naming the
+    shape, never the plain version."""
+    c = 64
+    x = torch.empty(1, 16, 16, c, device="meta", dtype=torch.bfloat16)
+    ap = [torch.empty(s, device="meta") for s in (
+        (c,), (c,), (c, c), (c,), (2 * c, c), (2 * c,), (c, c), (c,),
+        (1, 64, 64))]
+    for plan in ((2, 1, 1), (4, 2, 0), attention._K1_BASE_PLAN):
+        with pytest.raises(ValueError, match=r"\(1, 16, 16, 64\)"):
+            attention._attention_launch(x, *ap, None, 1, WS, True, plan)
+    xw = torch.empty(4, 64, c, device="meta", dtype=torch.bfloat16)
+    for plan in (None, (2, 1, 0), attention._K1_BASE_PLAN):
+        with pytest.raises(ValueError, match=r"\(4, 64, 64\)"):
+            attention._launch_windows(xw, *ap, None, 1, 4, plan=plan)
+
+
+@pytest.mark.parametrize("plan", [(4, 2, 1), (0, 1, 0)], ids=["wgmma", "base"])
+def test_attention_operands_follow_the_form(plan):
+    """K1's pointer arguments after x and out: the wgmma form takes
+    [Wq; Wkv] as one [3C, C] compute-dtype weight in wq's place and no wkv
+    (9 pointers), the first kernel wq and wkv apart (10); f32 vectors, a
+    missing mask as a null pointer."""
+    c = 64
+    rng = np.random.default_rng(0)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    x = t(1, 8, 8, c).to(torch.bfloat16)
+    wq, wkv = t(c, c), t(2 * c, c)
+    args = (t(c), t(c), wq, t(c), wkv, t(2 * c), t(c, c), t(c), t(1, 64, 64),
+            None)
+    ptrs, kept = attention._forward_operands(x, *args, plan)
+    assert len(ptrs) == (9 if plan[0] else 10) and ptrs[-1] is None
+    assert ptrs[2] == kept[2].data_ptr() and kept[2].dtype == torch.bfloat16
+    if plan[0]:
+        assert torch.equal(kept[2], torch.cat([wq, wkv]).bfloat16())
+        assert kept[4] is None
+    else:
+        assert torch.equal(kept[2], wq.bfloat16())
+        assert ptrs[4] == kept[4].data_ptr()
+    assert all(k.dtype == torch.float32 for i, k in enumerate(kept)
+               if k is not None and i not in (2, 4, 6))
