@@ -80,34 +80,39 @@ non-zero:
    entry) against the plain backward on every gradient plus a bitwise
    repeat. K9, K10 and K11, every variant, against their plain versions on
    the tools' B=8 inputs (bf16, 3e-2 of max(1, |out|)), each `full`
-   bitwise against the kernel its flags are built on (K1's, K2's and K3's
-   first kernels) on the same inputs.
+   bitwise against the kernel its flags are built on (K1's and K2's first
+   kernels; K3's windowed entry under its plan, the wgmma form, for K11,
+   every K11 variant also bitwise on a repeat and with its device ms per
+   group) on the same inputs; K11 also on K3's first kernel through an
+   explicit plan, its `full` bitwise equal to that kernel.
    Then the slice's main path: both kernel-measurement tools at B=8
    (`measure_swin_rates attn leff ablate`, `measure_bwd check groups
-   plainref leffabl merged ablate`, their tables printed) and K1b forward +
-   backward through autograd at the five shapes.
+   plainref leffabl merged ablate`, K11's variants timed on both of K3's
+   forms, their tables printed) and K1b forward + backward through
+   autograd at the five shapes.
 10. variants: K7 (K1's function with its head stage rewritten: loop,
    loop_ln, stack3d, stack3d_ln, lanepack, ln+qkv1, ln+nr2) and K8 (K2's
    with packed-bf16 depthwise and/or GELUs), every variant against its
    plain version on the tool's B=8 inputs at the five shapes (bf16, 3e-2
-   of max(1, |out|)), K7 loop_ln bitwise against K1's first kernel and K8
-   with no flag bitwise against K2's first kernel, each K7 core's heads per
-   stage as
-   the kernel
-   reports it. Then the slice's main path: `measure_swin_variants check time`
-   at B=8 and `profile_components` over every component at the published
-   sizes (their tables printed); then mfu_forward / mfu_train
+   of max(1, |out|)), K7 loop_ln bitwise against K1's first kernel, K8
+   on both of K2's forms (the wgmma form under K2's plan, with its device
+   ms per group, and the first kernel through an explicit plan) with no
+   flag bitwise against K2 on that form, each K7 core's heads per stage as
+   the kernel reports it. Then the slice's main path:
+   `measure_swin_variants check time` at B=8 (K8's variants timed on
+   both of K2's forms) and `profile_components` over every component at
+   the published sizes (their tables printed); then mfu_forward / mfu_train
    (`flops_accounting.mfu_fields`) from the slice's forward and the train
    phase's step times.
 
-Each kernel wrapper counts its launches (K1, K2 and K3 per form); the
-counts are set to 0 just before the registration, the CLI stream, the
-serving, the training (the B=8 steps, then the f32 B=2 step, whose plans
-send K1, K2 and K3 to their first kernels), the measurement and the variant
-runs and read just after. The line before the last is a JSON object
+Each kernel wrapper counts its launches (K1, K2, K3, K8 and K11 per
+form); the counts are set to 0 just before the registration, the CLI
+stream, the serving, the training (the B=8 steps, then the f32 B=2 step,
+whose plans send K1, K2 and K3 to their first kernels), the measurement
+and the variant runs and read just after. The line before the last is a JSON object
 {"kernels": [...]} (launches on those runs; error, times and bound from
-phases 3-6, 9 and 10; K7 and K9-K11 also per variant; K1, K2 and K3 with
-their first kernels as entries of their own), preceded by the
+phases 3-6, 9 and 10; K7 and K9-K11 also per variant; K1, K2, K3, K8 and
+K11 with their first kernels as entries of their own), preceded by the
 nvidia-smi name/power-limit line; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1181,11 +1186,13 @@ def ablation_work(kernel, variant, h, c, heads):
     leff_work, mask-free) less what the variant no longer does. K9: nocore
     drops the logits and AV products (4 T n C) and the softmax for 2 T C
     adds; nosoftmax keeps one multiply per logit. K10: nodw drops the
-    depthwise taps (GELU is counted in neither). K11: norecompute drops the
-    q/k/v products (6 T C^2), nodx the dy product (6 T C^2), nowgrads the
-    weight-gradient products (8 T C^2) and the gradients' bytes, nocore the
-    core products (12 T n C) and its softmax work; nodsoftmax keeps one
-    multiply per logit of the softmax backward's five."""
+    depthwise taps (GELU is counted in neither). K11 (both forms):
+    norecompute drops the q/k/v products (6 T C^2), nodx the dy product
+    (6 T C^2), nowgrads the weight-gradient products (8 T C^2) and the
+    gradients' bytes, nocore the core products (12 T n C), its softmax work
+    and the q/k/v products, whose values only the core reads (both forms
+    skip them); nodsoftmax keeps one multiply per logit of the softmax
+    backward's five."""
     t, n = MEASURE_B * h * h, WS * WS
     if kernel == "K10":
         tc, f32, nbytes = leff_work(h, c, batch=MEASURE_B)
@@ -1205,7 +1212,7 @@ def ablation_work(kernel, variant, h, c, heads):
         tc -= 8 * t * c * c
         nbytes -= 4 * (4 * c * c + 6 * c + heads * n * n)
     elif variant == "nocore":
-        tc, f32 = tc - 12 * t * n * c, 0
+        tc, f32 = tc - 12 * t * n * c - 6 * t * c * c, 0
     elif variant == "nodsoftmax":
         f32 = 6 * t * n * heads
     return tc, f32, nbytes
@@ -1234,6 +1241,7 @@ def phase_measure(card: str) -> tuple[dict, dict]:
     from fbanet_tpu_torch.ops import leff
     from fbanet_tpu_torch.tools import measure_bwd as mb
     from fbanet_tpu_torch.tools import measure_swin_rates as mr
+    from fbanet_tpu_torch.tools.measure_reduce import device_ms
 
     failures = []
     k1b = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, backward_ms=0.0,
@@ -1335,10 +1343,24 @@ def phase_measure(card: str) -> tuple[dict, dict]:
     k1b.update(k1b_bound.fields(), library_ms=None)
 
     # K9, K10, K11 against their plain versions at the tools' B=8 inputs;
-    # each `full` bitwise against the kernel its flags are built on
+    # each `full` bitwise against the kernel its flags are built on. K11 on
+    # both of K3's forms: the one K3's plan picks (the wgmma form at every
+    # group; each variant bitwise on a repeat, its device ms per group) and
+    # the first kernel through an explicit _K3_BASE_PLAN
     abl = {k: dict(max_abs_err=0.0, plain_ms=0.0, variants={})
-           for k in ("K9", "K10", "K11")}
+           for k in ("K9", "K10", "K11", "K11-base")}
     bounds = {}
+    k11_forms = (("K11", None), ("K11-base", attention._K3_BASE_PLAN))
+
+    def ablation_entry(kernel, vname, err, res, c, heads):
+        entry = abl[kernel]["variants"].setdefault(
+            vname, dict(max_abs_err=0.0))
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        abl[kernel]["max_abs_err"] = max(abl[kernel]["max_abs_err"], err)
+        bounds.setdefault((kernel, vname), Bound()).add(
+            *ablation_work(kernel, vname, res, c, heads))
+        return entry
+
     for name, c, res, heads in mr.GROUPS:
         cases = (
             ("K9", mr.ATTN_ABLATIONS,
@@ -1346,32 +1368,15 @@ def phase_measure(card: str) -> tuple[dict, dict]:
              lambda kw, c=c, res=res, heads=heads:
              mr.abl_attention(c, res, heads, **kw)),
             ("K10", mr.LEFF_ABLATIONS, mr._leff_args(c, res, batch=MEASURE_B),
-             lambda kw, c=c, res=res: mr.abl_leff(c, res, **kw)),
-            ("K11", mb.BWD_ABLATIONS,
-             mb._win_args(c, res, heads, batch=MEASURE_B),
-             lambda kw, c=c, res=res, heads=heads:
-             mb.abl_backward(c, res, heads, **kw)))
+             lambda kw, c=c, res=res: mr.abl_leff(c, res, **kw)))
         for kernel, table, args, make in cases:
             for vname, kw in table:
                 fn = make(kw)
                 got, ref = fn(*args), fn(*args, plain=True)
                 torch.cuda.synchronize()
-                if kernel == "K11":
-                    errs = _grad_errors(got, ref)
-                    rel = max(errs)
-                    err = max(float((a.float() - b.float()).abs().max())
-                              for a, b in zip(got, ref))
-                    finite = all(bool(torch.isfinite(a).all()) for a in got)
-                else:
-                    err, rel = rel_err(got, ref)
-                    finite = bool(torch.isfinite(got).all())
-                entry = abl[kernel]["variants"].setdefault(
-                    vname, dict(max_abs_err=0.0))
-                entry["max_abs_err"] = max(entry["max_abs_err"], err)
-                abl[kernel]["max_abs_err"] = max(abl[kernel]["max_abs_err"],
-                                                 err)
-                bounds.setdefault((kernel, vname), Bound()).add(
-                    *ablation_work(kernel, vname, res, c, heads))
+                err, rel = rel_err(got, ref)
+                finite = bool(torch.isfinite(got).all())
+                ablation_entry(kernel, vname, err, res, c, heads)
                 line = (f"{kernel} {vname} {name} c{c}@{res} B={MEASURE_B} "
                         f"bf16: max_abs_err={err:.3e} rel={rel:.3e}")
                 if vname == "full":
@@ -1384,22 +1389,61 @@ def phase_measure(card: str) -> tuple[dict, dict]:
                             *args, None, heads, WS, False,
                             attention._K1_BASE_PLAN)
                         same = torch.equal(got, prod)
-                    elif kernel == "K10":  # K2's first kernel
+                    else:  # K2's first kernel
                         same = torch.equal(got, leff._leff_launch(
                             *args, False, leff._K2_BASE_PLAN))
-                    else:  # K3's first kernel on the map of one window
-                        x, g, *params = args  # per image
-                        prod = attention._attention_bwd_launch(
-                            x.view(-1, WS, WS, c), g.view(-1, WS, WS, c),
-                            *params, None, heads, WS, False,
-                            attention._K3_BASE_PLAN)
-                        same = all(torch.equal(a.reshape(b.shape), b)
-                                   for a, b in zip(prod, got))
                     line += f" bitwise_equal_to_base={same}"
                     if not same:
                         failures.append(line)
                 log(line)
                 if not (rel <= TOL["bfloat16"]) or not finite:
+                    failures.append(line)
+        args = mb._win_args(c, res, heads, batch=MEASURE_B)
+        x, g, *params = args
+        plan = mb.ablation_plan(x, heads)
+        for vname, kw in mb.BWD_ABLATIONS:
+            plain = mb.abl_backward(c, res, heads, **kw)
+            ref = plain(*args, plain=True)
+            if vname == "full":  # the plain version, beside both forms
+                pms = time_ms(lambda: plain(*args, plain=True), iters=3,
+                              repeats=3)
+                log(f"K11 plain {name} c{c}@{res} B={MEASURE_B}: "
+                    f"plain_ms={pms:.4f}")
+            for kernel, kplan in k11_forms:
+                fn = mb.abl_backward(c, res, heads, plan=kplan, **kw)
+                got, again = fn(*args), fn(*args)
+                torch.cuda.synchronize()
+                errs = _grad_errors(got, ref)
+                rel = max(errs)
+                err = max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(got, ref))
+                finite = all(bool(torch.isfinite(a).all()) for a in got)
+                repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+                entry = ablation_entry(kernel, vname, err, res, c, heads)
+                line = (f"{kernel} {vname} {name} c{c}@{res} B={MEASURE_B} "
+                        f"bf16 plan {kplan or plan}: max_abs_err={err:.3e} "
+                        f"rel={rel:.3e} bitwise_repeat={repeat}")
+                if kplan is None:  # the form's device ms, kernels and sums
+                    dms = device_ms(lambda fn=fn: fn(*args), traces=3)
+                    entry.setdefault("b8", {})[name] = dict(device_ms=dms)
+                    line += f" device_ms={dms:.4f}"
+                if vname == "full":
+                    if kplan is None:  # K3's windowed entry under its plan
+                        prod = attention.window_attention_bwd_windows(
+                            x, g, *params, None, heads=heads,
+                            windows_per_image=1)
+                    else:  # K3's first kernel on the map of one window
+                        prod = attention._attention_bwd_launch(
+                            x.view(-1, WS, WS, c), g.view(-1, WS, WS, c),
+                            *params, None, heads, WS, False, kplan)
+                    abl[kernel]["plain_ms"] += pms
+                    same = all(torch.equal(a.reshape(b.shape), b)
+                               for a, b in zip(prod, got))
+                    line += f" bitwise_equal_to_K3={same}"
+                    if not same:
+                        failures.append(line)
+                log(line)
+                if not (rel <= TOL["bfloat16"]) or not finite or not repeat:
                     failures.append(line)
     if failures:
         raise AssertionError("measurement slice disagrees with its plain "
@@ -1435,13 +1479,21 @@ def phase_measure(card: str) -> tuple[dict, dict]:
     res = {"K1b": k1b}
     for kernel, key, table in (("K9", "abl-attn", mr.ATTN_ABLATIONS),
                                ("K10", "abl-leff", mr.LEFF_ABLATIONS),
-                               ("K11", "ablbwd", mb.BWD_ABLATIONS)):
+                               ("K11", "ablbwd", mb.BWD_ABLATIONS),
+                               ("K11-base", "ablbwd-base", mb.BWD_ABLATIONS)):
         entry = abl[kernel]
         for vname, _kw in table:
             v = entry["variants"][vname]
-            v["ms"] = sum(ms for nm, ms in (rates | bwd).items()
-                          if nm.startswith(f"{key}/")
-                          and nm.endswith(f" {vname}"))
+            lines = {nm.split("/")[1].split(" ")[0]: ms
+                     for nm, ms in (rates | bwd).items()
+                     if nm.startswith(f"{key}/")
+                     and nm.endswith(f" {vname}")}
+            v["ms"] = sum(lines.values())
+            for group, ms in lines.items():  # per group, where kept
+                if group in v.get("b8", {}):
+                    v["b8"][group]["ms"] = ms
+            if "b8" in v:
+                v["device_ms"] = sum(d["device_ms"] for d in v["b8"].values())
             v.update(bounds[(kernel, vname)].fields())
         full = entry["variants"]["full"]
         res[kernel] = dict(max_abs_err=entry["max_abs_err"], ms=full["ms"],
@@ -1449,10 +1501,13 @@ def phase_measure(card: str) -> tuple[dict, dict]:
                            bound_ms=full["bound_ms"],
                            bound_by=full["bound_by"], library_ms=None,
                            variants=entry["variants"])
+        if "device_ms" in full:
+            res[kernel]["device_ms"] = full["device_ms"]
         log(f"{kernel} at B={MEASURE_B}, summed over the five groups: "
-            + "; ".join(f"{v} {d['ms']:.4f} ms (bound {d['bound_ms']:.4f}, "
-                        f"{d['bound_by']})"
-                        for v, d in entry["variants"].items()))
+            + "; ".join(f"{v} {d['ms']:.4f} ms" + (
+                f" (device {d['device_ms']:.4f})" if "device_ms" in d else "")
+                + f" (bound {d['bound_ms']:.4f}, {d['bound_by']})"
+                for v, d in entry["variants"].items()))
     return res, launches
 
 
@@ -1463,8 +1518,10 @@ def phase_variants(card: str, fwd_ms: float, train_ms: float
     (bf16, TOL), loop_ln bitwise against K1's first kernel, on which its
     cores are built (mask-free, no residual), each
     core's heads per stage and shared memory as the kernel reports them;
-    K8, every variant, against its plain
-    version, and with no flag bitwise against K2 (no residual). Then the
+    K8, every variant, on both of K2's forms (the wgmma form K2's plan
+    picks, with its device ms per group, and the first kernel through an
+    explicit _K2_BASE_PLAN) against its plain version, and with no flag
+    bitwise against K2 on that form (no residual). Then the
     main path, with the counts set to 0 just before and read just after:
     `measure_swin_variants check time` at B=8 and `profile_components` over
     every component at the published sizes. Then mfu_forward / mfu_train
@@ -1476,15 +1533,16 @@ def phase_variants(card: str, fwd_ms: float, train_ms: float
     from fbanet_tpu_torch.tools import flops_accounting, profile_components
     from fbanet_tpu_torch.tools import measure_swin_rates as mr
     from fbanet_tpu_torch.tools import measure_swin_variants as mv
+    from fbanet_tpu_torch.tools.measure_reduce import device_ms
 
     lib = _build.library()
     n = WS * WS
     failures = []
     res = {k: dict(max_abs_err=0.0, plain_ms=0.0, variants={})
-           for k in ("K7", "K8")}
+           for k in ("K7", "K8", "K8-base")}
     bounds = {}
 
-    def compare(kernel, vname, line, got, ref, prod, work):
+    def compare(kernel, vname, line, got, ref, prod, base, work):
         err, rel = rel_err(got, ref)
         entry = res[kernel]["variants"].setdefault(vname, dict(max_abs_err=0.0))
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
@@ -1492,7 +1550,7 @@ def phase_variants(card: str, fwd_ms: float, train_ms: float
         bounds.setdefault((kernel, vname), Bound()).add(*work)
         same = torch.equal(got, prod)
         line += (f": max_abs_err={err:.3e} rel={rel:.3e} bitwise_equal_to_"
-                 f"{'K1' if kernel == 'K7' else 'K2'}_first_kernel={same}")
+                 f"{base}={same}")
         if not (rel <= TOL["bfloat16"]) or not torch.isfinite(got).all():
             failures.append(line)
         return line, same
@@ -1517,8 +1575,8 @@ def phase_variants(card: str, fwd_ms: float, train_ms: float
             torch.cuda.synchronize()
             line, same = compare(
                 "K7", vname, f"K7 {vname} {name} c{c}@{r} B={MEASURE_B} bf16",
-                got, ref, prod, attention_work(r, c, heads, False,
-                                               batch=MEASURE_B))
+                got, ref, prod, "K1_first_kernel",
+                attention_work(r, c, heads, False, batch=MEASURE_B))
             if vname == "loop":
                 pms = time_ms(lambda fn=fn: fn(*args, plain=True), iters=3,
                               repeats=3)
@@ -1528,22 +1586,37 @@ def phase_variants(card: str, fwd_ms: float, train_ms: float
                 failures.append(line)
             log(line)
         la = mr._leff_args(c, r, batch=MEASURE_B)
-        k2 = leff._leff_launch(*la, False, leff._K2_BASE_PLAN)  # K8's base
+        plan = mv.variant_plan(la[0], la[3].shape[0])
+        # K2 with no residual on each form: K8's `prod` on it
+        k2 = {"K8": (leff._leff_launch(*la, False, plan), f"K2_plan_{plan}"),
+              "K8-base": (leff._leff_launch(*la, False, leff._K2_BASE_PLAN),
+                          "K2_first_kernel")}
         for vname, kw in [("prod", {})] + list(mv.LEFF_VARIANTS.items()):
-            fn = mv.variant_leff(c, r, **kw)
-            got, ref = fn(*la), fn(*la, plain=True)
-            torch.cuda.synchronize()
-            line, same = compare(
-                "K8", vname, f"K8 {vname} {name} c{c}@{r} B={MEASURE_B} bf16",
-                got, ref, k2, leff_work(r, c, batch=MEASURE_B))
+            ref = mv.variant_leff(c, r, **kw)(*la, plain=True)
             if vname == "prod":
-                pms = time_ms(lambda fn=fn: fn(*la, plain=True), iters=3,
-                              repeats=3)
-                res["K8"]["plain_ms"] += pms
-                line += f" plain_ms={pms:.4f}"
-                if not same:
-                    failures.append(line)
-            log(line)
+                pms = time_ms(lambda kw=kw: mv.variant_leff(c, r, **kw)(
+                    *la, plain=True), iters=3, repeats=3)
+                log(f"K8 plain {name} c{c}@{r} B={MEASURE_B}: "
+                    f"plain_ms={pms:.4f}")
+            for kernel, kplan in (("K8", None),
+                                  ("K8-base", leff._K2_BASE_PLAN)):
+                fn = mv.variant_leff(c, r, plan=kplan, **kw)
+                got = fn(*la)
+                torch.cuda.synchronize()
+                line, same = compare(
+                    kernel, vname, f"{kernel} {vname} {name} c{c}@{r} "
+                    f"B={MEASURE_B} bf16 plan {kplan or plan}", got, ref,
+                    *k2[kernel], leff_work(r, c, batch=MEASURE_B))
+                if kplan is None:  # the wgmma form's device ms
+                    dms = device_ms(lambda fn=fn: fn(*la), traces=3)
+                    res[kernel]["variants"][vname].setdefault(
+                        "b8", {})[name] = dict(device_ms=dms)
+                    line += f" device_ms={dms:.4f}"
+                if vname == "prod":
+                    res[kernel]["plain_ms"] += pms
+                    if not same:
+                        failures.append(line)
+                log(line)
     if failures:
         raise AssertionError("variant slice disagrees with its plain versions "
                              "or their base kernels:\n"
@@ -1569,22 +1642,32 @@ def phase_variants(card: str, fwd_ms: float, train_ms: float
                 if nm.startswith("var/") and nm.endswith(" prod"))
     for kernel, prefix, rep, beside in (
             ("K7", "var", "loop", f" (K1 at the five: {k1_ms:.4f} ms)"),
-            ("K8", "leffvar", "prod", " (prod: K2's instantiation)")):
+            ("K8", "leffvar", "prod", " (prod: K2's wgmma form)"),
+            ("K8-base", "leffvar-base", "prod", " (prod: K2's first kernel)")):
         entry = res[kernel]
         for vname, v in entry["variants"].items():
-            v["ms"] = sum(ms for nm, ms in timed.items()
-                          if nm.startswith(f"{prefix}/")
-                          and nm.endswith(f" {vname}"))
+            lines = {nm.split("/")[1].split(" ")[0]: ms
+                     for nm, ms in timed.items()
+                     if nm.startswith(f"{prefix}/")
+                     and nm.endswith(f" {vname}")}
+            v["ms"] = sum(lines.values())
+            if "b8" in v:
+                for group, ms in lines.items():
+                    v["b8"][group]["ms"] = ms
+                v["device_ms"] = sum(d["device_ms"] for d in v["b8"].values())
             v.update(bounds[(kernel, vname)].fields())
         entry.update(ms=entry["variants"][rep]["ms"],
                      bound_ms=entry["variants"][rep]["bound_ms"],
                      bound_by=entry["variants"][rep]["bound_by"],
                      library_ms=None)
+        if "device_ms" in entry["variants"][rep]:
+            entry["device_ms"] = entry["variants"][rep]["device_ms"]
         log(f"{kernel} at B={MEASURE_B}, summed over the groups each ran"
             f"{beside}: "
-            + "; ".join(f"{v} {d['ms']:.4f} ms (bound {d['bound_ms']:.4f}, "
-                        f"{d['bound_by']})"
-                        for v, d in entry["variants"].items()))
+            + "; ".join(f"{v} {d['ms']:.4f} ms" + (
+                f" (device {d['device_ms']:.4f})" if "device_ms" in d else "")
+                + f" (bound {d['bound_ms']:.4f}, {d['bound_by']})"
+                for v, d in entry["variants"].items()))
     mfu = flops_accounting.mfu_fields(8, 14, 160, 64, fwd_ms / 1e3,
                                       8e3 / train_ms, 8)
     log(f"mfu at B=8 on {card}: {mfu} (forward {fwd_ms:.2f} ms from the "
@@ -1615,17 +1698,22 @@ def _counters():
             "K1b": attention.fused_window_attention,
             "K9": measure_swin_rates.ablation_attention,
             "K10": measure_swin_rates.ablation_leff,
-            "K11": measure_bwd.ablation_backward,
+            "K11": measure_bwd.ablation_backward.wgmma,
+            "K11-base": measure_bwd.ablation_backward.base,
             "K7": measure_swin_variants.attention_variant,
-            "K8": measure_swin_variants.leff_variant}
+            "K8": measure_swin_variants.leff_variant.wgmma,
+            "K8-base": measure_swin_variants.leff_variant.base}
 
 
 def _device_ms(events) -> tuple[float, dict]:
     """(total device ms of a profile, device ms of the port's kernels by
-    name)."""
+    name). A user annotation's span on the device timeline (such as
+    torch's `Optimizer.step#AdamW.step`) covers kernels counted in their
+    own rows and is left out."""
     total, ours = 0.0, {}
     for e in events:
-        if "CUDA" not in str(e.device_type):  # device events only
+        if "CUDA" not in str(e.device_type) or getattr(
+                e, "is_user_annotation", False):  # kernels only
             continue
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))
@@ -1838,12 +1926,12 @@ def main() -> None:
          "base)", "attention.cu", "fbanet_tpu/ops/attention_pallas.py:250"),
         ("K2", "K2 fused LeFF (wgmma form)", "leff.cu",
          "fbanet_tpu/ops/leff_pallas.py:172"),
-        ("K2-base", "K2 fused LeFF (first kernel: f32, K8/K10 base)",
+        ("K2-base", "K2 fused LeFF (first kernel: f32, K8-base/K10 base)",
          "leff.cu", "fbanet_tpu/ops/leff_pallas.py:172"),
         ("K3", "K3 fused window attention backward (wgmma form)",
          "attention_bwd_wgmma.cu", "fbanet_tpu/ops/attention_pallas.py:334"),
         ("K3-base", "K3 fused window attention backward (first kernel: "
-         "f32, K11 base)", "attention_bwd.cu",
+         "f32, K11-base base)", "attention_bwd.cu",
          "fbanet_tpu/ops/attention_pallas.py:334"),
         ("K4", "K4 fused LeFF backward (and K4b)", "leff_bwd.cu",
          "fbanet_tpu/ops/leff_pallas.py:278 and :528"),
@@ -1862,12 +1950,20 @@ def main() -> None:
          "scripts/measure_swin_rates.py:136"),
         ("K10", "K10 LeFF ablation (measure_swin_rates)", "leff.cu",
          "scripts/measure_swin_rates.py:253"),
-        ("K11", "K11 attention backward ablation (measure_bwd)",
-         "attention_bwd_ablation.cu", "scripts/measure_bwd.py:182"),
+        ("K11", "K11 attention backward ablation (measure_bwd; K3's wgmma "
+         "form)", "attention_bwd_wgmma_ablation.cu",
+         "scripts/measure_bwd.py:182"),
+        ("K11-base", "K11 attention backward ablation (measure_bwd; K3's "
+         "first kernel)", "attention_bwd_ablation.cu",
+         "scripts/measure_bwd.py:182"),
         ("K7", "K7 attention head-stage variants (measure_swin_variants)",
          "attention_variants.cu", "scripts/measure_swin_variants.py:241"),
-        ("K8", "K8 LeFF packed-bf16 variants (measure_swin_variants)",
-         "leff_variants.cu", "scripts/measure_swin_variants.py:355"),
+        ("K8", "K8 LeFF packed-bf16 variants (measure_swin_variants; K2's "
+         "wgmma form)", "leff_variants.cu",
+         "scripts/measure_swin_variants.py:355"),
+        ("K8-base", "K8 LeFF packed-bf16 variants (measure_swin_variants; "
+         "K2's first kernel)", "leff_variants.cu",
+         "scripts/measure_swin_variants.py:355"),
     )
     kernels = [{"name": name, "route": "cuda",
                 "source": f"fbanet_tpu_torch/csrc/{src}", "replaces": where,

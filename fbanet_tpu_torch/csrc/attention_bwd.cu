@@ -1,7 +1,8 @@
 // K3's entries: the backward of K1 on the post-roll map and of K1b on
 // pre-partitioned windows, in f32 and bf16. The kernel and its notes are in
-// attention_bwd.cuh; K11's instantiations are in attention_bwd_ablation.cu,
-// a file of their own so that nvcc builds them in parallel with these.
+// attention_bwd.cuh; K11's instantiations of it are in
+// attention_bwd_ablation.cu, a file of their own so that nvcc builds them in
+// parallel with these.
 #include "attention_bwd.cuh"
 
 namespace fbanet {

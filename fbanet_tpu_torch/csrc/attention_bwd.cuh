@@ -2,9 +2,9 @@
 // attention) on a post-roll [B, H, W, C] map: dx, plus what the parameter
 // gradients need. Entries: attention_bwd.cu (K3), attention_bwd_ablation.cu
 // (K11). K3's bf16 form for Hopper (wgmma, TMA, several windows per block)
-// is attention_bwd_wgmma.cu; ops/attention.py::_attention_bwd_plan keeps
-// this kernel for f32, for the shapes that form does not take, and as the
-// base of K11's flags.
+// is attention_bwd_wgmma.cuh; ops/attention.py::_attention_bwd_plan keeps
+// this kernel for f32 and for the shapes that form does not take, and K11
+// runs its flags here at those shapes.
 //
 // Replaces the TPU kernel fbanet_tpu/ops/attention_pallas.py::
 // _attention_bwd_kernel (launched by _pallas_backward, reached from K1's
@@ -60,9 +60,6 @@
 
 namespace fbanet {
 namespace {
-
-// Stages K11 removes (bits of kSkip).
-enum : int { kNoRecompute = 1, kNoDsoftmax = 2, kNoWgrads = 4, kNoDx = 8, kNoCore = 16 };
 
 struct BwdArgs {
   const void *x, *g;

@@ -1,6 +1,9 @@
-// K11: K3 on bf16 windows [G, n, C], mask-free, with one stage removed at
-// compile time (the kNo* bits of attention_bwd.cuh, where the kernel and
-// what each bit removes are described). Its `full` variant is K3's windowed
+// K11 on K3's first kernel: K3 on bf16 windows [G, n, C], mask-free, with
+// one stage removed at compile time (the kNo* bits of attention_bwd.cuh,
+// where the kernel and what each bit removes are described), at the shapes
+// ops/attention.py::_attention_bwd_plan keeps on that kernel (and under an
+// explicit first-kernel plan); the wgmma form's bits are in
+// attention_bwd_wgmma_ablation.cu. Its `full` variant is K3's windowed
 // entry itself (fbanet_window_attention_bwd_windows). These instantiations
 // live in a file of their own so that nvcc builds them in parallel with
 // K3's.

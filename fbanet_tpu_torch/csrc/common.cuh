@@ -19,6 +19,10 @@ namespace wmma = nvcuda::wmma;
 constexpr int kThreads = 256;  // threads per block for every kernel here
 constexpr float kLnEps = 1e-5f;  // torch nn.LayerNorm default, as in JAX
 
+// Stages K11 removes from K3 (bits of the kSkip / SKIP template parameter of
+// both of K3's forms, attention_bwd.cuh and attention_bwd_wgmma.cuh).
+enum : int { kNoRecompute = 1, kNoDsoftmax = 2, kNoWgrads = 4, kNoDx = 8, kNoCore = 16 };
+
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 

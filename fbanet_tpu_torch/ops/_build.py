@@ -77,8 +77,10 @@ SIGNATURES = {
     "fbanet_attention_variant": [_P] * 11 + [_I] * 9 + [_P],
     "fbanet_attention_variant_smem": [_I] * 4,
     "fbanet_attention_variant_chunk": [_I] * 4,
-    # K8: K2's pointers, then B, H, W, C, Ch, variant, stream
-    "fbanet_leff_variant": [_P] * 10 + [_I] * 6 + [_P],
+    # K8: K2's pointers (W2^T for w2 on the wgmma form), then B, H, W, C,
+    # Ch, variant, and the plan: tile rows (0: the first kernel), tile
+    # columns, hidden chunk; stream
+    "fbanet_leff_variant": [_P] * 10 + [_I] * 9 + [_P],
     # K3: x, g, dx, y/o/dq/dkv scratch, partial sums, ln_s, ln_b, wq, bq,
     # wkv, bkv, wproj, bias, mask, B, H, W, C, heads, ws, residual, bf16,
     # stream; and its head-group width, 0 for a shape it does not take:
@@ -99,6 +101,10 @@ SIGNATURES = {
     "fbanet_window_attention_bwd_wgmma": [_P] * 16 + [_I] * 9 + [_P],
     "fbanet_window_attention_bwd_wgmma_windows": [_P] * 16 + [_I] * 7 + [_P],
     "fbanet_window_attention_bwd_wgmma_smem": [_I] * 4,
+    # K11 on K3's wgmma form: the windowed entry's pointers (mask ignored),
+    # then G, tokens per window, C, heads, warpgroups, windows per block,
+    # stages skipped, stream
+    "fbanet_window_attention_bwd_wgmma_ablation": [_P] * 16 + [_I] * 7 + [_P],
     # K4: x, g, dx, y/h2/dz1 scratch, partial sums, dy partials, ln_s,
     # ln_b, w1, b1, wdw, bdw, w2, w2^T, B, H, W, C, Ch, residual, bf16, and
     # the plan: tile rows, tile columns (0: the WMMA form), hidden chunk,

@@ -444,10 +444,10 @@ def _forward_operands(x, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
 
 
 # K3's plans: (warpgroups per block, windows per block). The wgmma form
-# (csrc/attention_bwd_wgmma.cu) takes bf16 8 x 8 windows, C 64, 128 or 256
+# (csrc/attention_bwd_wgmma.cuh) takes bf16 8 x 8 windows, C 64, 128 or 256
 # and head size 16 or 64; warpgroups 0 is the first kernel
-# (csrc/attention_bwd.cuh: f32, every other shape, K11's base), one window
-# per block.
+# (csrc/attention_bwd.cuh: f32, every other shape), one window per block.
+# K11's flags follow the plan onto either form.
 _K3_BASE_PLAN = (0, 1)
 
 
@@ -722,10 +722,12 @@ def launch_bwd_windows(x, g, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bias,
                        skip: int = 0, what: str = "window_attention_bwd"):
     """K3's windowed entry on CUDA windows [G, N, C] under `plan` (see
     `_attention_bwd_plan`), uncounted: with `skip` 0 K1b's backward, else
-    K11 on the first kernel (`_K3_BASE_PLAN`), the variant without the
-    stages in the bit mask `skip` (csrc/attention_bwd.cuh's kNo* bits;
-    bfloat16). Returns what `attention_bwd_math` returns; with the
-    kNoWgrads bit the parameter gradients are zeros and no sums run."""
+    K11 on the plan's form, the variant without the stage in the bit
+    `skip` (csrc/common.cuh's kNo* bits; bfloat16, no mask): on the wgmma
+    form csrc/attention_bwd_wgmma_ablation.cu, on the first kernel
+    (`_K3_BASE_PLAN`) csrc/attention_bwd_ablation.cu. Returns what
+    `attention_bwd_math` returns; with the kNoWgrads bit the parameter
+    gradients are zeros and no sums run."""
     _check_windows_kernel(x, heads, mask, windows_per_image)
     gsz, n, c = x.shape
     lib = _build.library()
@@ -745,12 +747,16 @@ def launch_bwd_windows(x, g, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bias,
     stream = _build.stream(x)
     nw = windows_per_image if mask is not None else 1
     if skip:
-        if bf16 == 0 or mask is not None or nwg:
+        if bf16 == 0 or mask is not None or skip not in _SKIP_BITS:
             _unsupported_windows("the ablation variants take bfloat16 "
-                                 "windows without a mask, on the first "
-                                 "kernel", x, heads)
-        err = lib.fbanet_window_attention_bwd_ablation(
-            *ptrs, gsz, n, c, heads, skip, stream)
+                                 "windows without a mask, one stage off "
+                                 f"(skip {skip})", x, heads)
+        if nwg:
+            err = lib.fbanet_window_attention_bwd_wgmma_ablation(
+                *ptrs, gsz, n, c, heads, nwg, wpb, skip, stream)
+        else:
+            err = lib.fbanet_window_attention_bwd_ablation(
+                *ptrs, gsz, n, c, heads, skip, stream)
     elif nwg:
         err = lib.fbanet_window_attention_bwd_wgmma_windows(
             *ptrs, gsz, n, c, heads, nw, nwg, wpb, stream)
@@ -767,7 +773,8 @@ def launch_bwd_windows(x, g, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bias,
     return (dx, *zeros)
 
 
-_NO_WGRADS = 4  # csrc/attention_bwd.cuh: kNoWgrads
+_NO_WGRADS = 4  # csrc/common.cuh: kNoWgrads
+_SKIP_BITS = (1, 2, 4, 8, 16)  # kNoRecompute .. kNoCore, one at a time
 
 
 def window_attention_bwd_windows(x, g, ln_scale, ln_bias, wq, bq, wkv, bkv,

@@ -29,12 +29,13 @@ there. That is a TPU memory limit, not another function, and its bf16
 training forward rounds differently there (ROADMAP Queue 3 item 1). The port
 runs K2 + K4 at all five shapes.
 
-K2 has two forms in `csrc/leff.cu`: the wgmma form (bf16: TMA-staged W1
-and W2^T chunks, wgmma products with dense2's sums in registers, the
-depthwise stage on 16 warps, 16 x 8 or 8 x 8 tiles) and the first kernel
-(8 x 8 tiles, WMMA; f32, bf16 shapes the wgmma form does not take, and the
-base of K8's and K10's flags). `_leff_plan` picks the form and tile from
-the shapes alone.
+K2 has two forms, entered from `csrc/leff.cu`: the wgmma form
+(`csrc/leff_wgmma.cuh`; bf16: TMA-staged W1 and W2^T chunks, wgmma
+products with dense2's sums in registers, the depthwise stage on 16 warps,
+16 x 8 or 8 x 8 tiles) and the first kernel (`csrc/leff.cuh`; 8 x 8
+tiles, WMMA; f32, bf16 shapes the wgmma form does not take, and the base
+of K10's flags). `_leff_plan` picks the form and tile from the shapes
+alone; K8's flags follow it onto either form.
 
 K4 has two forms in `csrc/leff_bwd.cu`: the wgmma form (bf16: TMA-staged
 weight chunks, wgmma products, 16 warps on the depthwise stages, 16 x 8 or

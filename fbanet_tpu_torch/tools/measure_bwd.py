@@ -30,7 +30,10 @@ bf16 activations, f32 parameters, as the script:
   function is the same, and so is the card's kernel: the line prints the
   parity and both times.
 - ablate: the six K11 variants (full, norecompute, nodsoftmax, nowgrads,
-  nodx, nocore), each line with its delta from `full`.
+  nodx, nocore), each line with its delta from `full`: `ablbwd/<group>` on
+  the form K3's plan picks (the wgmma form at every group), then
+  `ablbwd-base/<group>` on the first kernel (`_K3_BASE_PLAN`), so both
+  forms' stage splits come from one run.
 
 - blocks: the script's mode sweeps the TPU's VMEM budget and head-chunk
   cap; on Hopper it is K3's plan sweep (`measure_attention_bwd.plans`, card
@@ -40,32 +43,42 @@ bf16 activations, f32 parameters, as the script:
 `time_fn` and the inputs are `measure_swin_rates`'s. With `--device cpu`
 the plain versions run on the host clock.
 
-K11, `ablation_backward` (csrc/attention_bwd_ablation.cu, kernel in
-attention_bwd.cuh, fbanet_window_attention_bwd_ablation): K3's first
-kernel (not its wgmma form, which the plan picks for K3 itself) on windows
-[8 nW, 64, C], bf16, mask-free, with one stage removed at compile time,
-each switch as the script's `_abl_bwd_kernel` (measure_bwd.py:182-357)
-gives it: norecompute (inv = 1, xhat = x, y = q = x, kv = [x, x]),
-nodsoftmax (dlogits = dp / n), nocore (o = dq = dk = dv = do, the bias
-gradient 0), nodx (dx = x, and dy = x for the LN gradients), nowgrads
-(every parameter gradient 0: no o = p v product, no per-token scratch, no
-partial sums, no R1/R2 sums, so a variant's time includes the sums as
-K3's does). The kernel keeps its dq and dk|dv rows in
-device memory for its dx chain in every variant. Plain version:
-`abl_backward` / `ops.attention.attention_bwd_math`. The wrapper launches
-K11 on a CUDA tensor or raises; `.launches` counts its launches.
+K11, `ablation_backward`: K3 on windows [8 nW, 64, C], bf16, mask-free,
+with one stage removed at compile time, on the form K3's own plan
+(`ops.attention._attention_bwd_plan`, as `window_attention_bwd_windows`
+calls it) picks for the shape: K3's wgmma form
+(csrc/attention_bwd_wgmma_ablation.cu, the SKIP bits of
+attention_bwd_wgmma.cuh) at the five groups, its first kernel
+(csrc/attention_bwd_ablation.cu, the kNo* bits of attention_bwd.cuh) at
+the shapes the plan keeps there, such as `check`'s head size 32, or under
+an explicit `plan`. Each switch as the script's `_abl_bwd_kernel`
+(measure_bwd.py:182-357) gives it: norecompute (inv = 1, xhat = x, y = q
+= x, kv = [x, x]), nodsoftmax (dlogits = dp / n), nocore (o = dq = dk = dv
+= do, the bias gradient 0), nodx (dx = x, and dy = x for the LN
+gradients), nowgrads (every parameter gradient 0: no o = p v product, no
+per-token scratch, no partial sums, no R1/R2 sums, so a variant's time
+includes the sums as K3's does). `full` is K3's windowed entry itself.
+The first kernel keeps its dq and dk|dv rows in device memory for its dx
+chain in every variant; the wgmma form keeps them in shared memory. Plain
+version: `abl_backward` / `ops.attention.attention_bwd_math`. The wrapper
+launches K11 on a CUDA tensor or raises; `.launches` counts its launches,
+`.wgmma` / `.base` those of each form.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 import sys
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
 
 from fbanet_tpu_torch.ops.attention import (
     _K3_BASE_PLAN,
+    _attention_bwd_plan,
+    _kernel_bwd_smem,
     attention_bwd_math,
     fused_window_attention_2d,
     launch_bwd_windows,
@@ -141,18 +154,31 @@ def grad_wrapper(fn, n_args: int):
 _SKIP = {"recompute": 1, "dsoftmax": 2, "wgrads": 4, "dxchain": 8, "core": 16}
 
 
+def ablation_plan(x, heads: int, smem=_kernel_bwd_smem):
+    """K11's form for bf16 windows x [G, N, C]: K3's own plan for them
+    (`_attention_bwd_plan`, as `window_attention_bwd_windows` asks it, with
+    the kernel's shared memory or `smem`, its Python model), so that each
+    variant runs on the form K3 runs on at that shape."""
+    gsz, n, c = x.shape
+    ws = math.isqrt(n)
+    if ws * ws != n:
+        return _K3_BASE_PLAN
+    return _attention_bwd_plan(gsz, ws, ws, c, heads, ws, True, smem=smem)
+
+
 def ablation_backward(x, g, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bias,
                       *, heads: int, recompute: bool = True,
                       dsoftmax: bool = True, wgrads: bool = True,
                       dxchain: bool = True, core: bool = True,
-                      merged: bool = False, plain: bool = False):
+                      merged: bool = False, plain: bool = False, plan=None):
     """K11 on bf16 CUDA windows [G, N, C] (mask-free, at most one stage
-    off), or its plain version for CPU tensors or with `plain=True`.
-    `merged` names the script's fused-dot form of the same function, which
-    is this same computation. Returns what the script's `call` returns, in
-    its order and shapes ((1, D) bias rows), weight gradients in torch
-    Linear layouts: (dx, dlns, dlnb, dwq [C, C], dbq, dwkv [2C, C], dbkv,
-    dwproj [C, C], dbproj, dbias [heads, N, N])."""
+    off) under `plan` (default `ablation_plan`; `_K3_BASE_PLAN` for the
+    first kernel), or its plain version for CPU tensors or with
+    `plain=True`. `merged` names the script's fused-dot form of the same
+    function, which is this same computation. Returns what the script's
+    `call` returns, in its order and shapes ((1, D) bias rows), weight
+    gradients in torch Linear layouts: (dx, dlns, dlnb, dwq [C, C], dbq,
+    dwkv [2C, C], dbkv, dwproj [C, C], dbproj, dbias [heads, N, N])."""
     del merged
     flags = dict(recompute=recompute, dsoftmax=dsoftmax, wgrads=wgrads,
                  dxchain=dxchain, core=core)
@@ -164,14 +190,18 @@ def ablation_backward(x, g, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bias,
     if plain or x.device.type == "cpu":
         out = attention_bwd_math(x, g, *params, heads=heads, **flags)
     else:
-        if x.dtype != torch.bfloat16:
+        if x.dtype != torch.bfloat16 or x.device.type != "cuda":
             raise ValueError(f"ablation_backward kernel does not take x "
-                             f"{tuple(x.shape)} {x.dtype}: bfloat16 only")
+                             f"{tuple(x.shape)} {x.dtype} {x.device}: "
+                             f"bfloat16 CUDA windows only")
+        if plan is None:
+            plan = ablation_plan(x, heads)
         out = launch_bwd_windows(x, g, *params, heads=heads,
                                  windows_per_image=1,
                                  skip=sum(_SKIP[k] for k in off),
-                                 what="ablation_backward",
-                                 plan=_K3_BASE_PLAN)
+                                 what="ablation_backward", plan=plan)
+        form = ablation_backward.wgmma if plan[0] else ablation_backward.base
+        form.launches += 1
         ablation_backward.launches += 1
     dx, dlns, dlnb, dwq, dbq, dwkv, dbkv, dwproj, dbproj, dbias = out
     return (dx, dlns[None], dlnb[None], dwq, dbq[None], dwkv, dbkv[None],
@@ -179,18 +209,22 @@ def ablation_backward(x, g, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bias,
 
 
 ablation_backward.launches = 0
+# launch counts per form, kept as the wrappers keep theirs
+ablation_backward.wgmma = SimpleNamespace(launches=0)
+ablation_backward.base = SimpleNamespace(launches=0)
 
 
-def abl_backward(c: int, res: int, heads: int, **flags):
-    """The script's factory, without its TPU block size (the card runs one
-    window per block): call(x, g, lns, lnb, wq, bq, wkv, bkv, wproj, bias)
-    runs K11 (or its plain version on the CPU) on [G, N, c] windows."""
+def abl_backward(c: int, res: int, heads: int, *, plan=None, **flags):
+    """The script's factory, without its TPU block size (the card's blocks
+    come from K3's plan, or `plan`): call(x, g, lns, lnb, wq, bq, wkv, bkv,
+    wproj, bias) runs K11 (or its plain version on the CPU) on [G, N, c]
+    windows."""
     def call(x, g, *params, plain: bool = False):
         if tuple(x.shape[1:]) != (N, c) or x.shape[0] % ((res // WS) ** 2):
             raise ValueError(f"abl_backward({c}, {res}, {heads}) got x "
                              f"{tuple(x.shape)}")
         return ablation_backward(x, g, *params, heads=heads, plain=plain,
-                                 **flags)
+                                 plan=plan, **flags)
     return call
 
 
@@ -227,8 +261,8 @@ def _rel_errs(got, ref) -> list[float]:
 
 def run_check(device: str) -> None:
     """K11's full variant against K3's windowed entry under the first
-    kernel (the form K11's flags are built on) on the script's shape, every
-    output."""
+    kernel (the form K3's plan keeps for this head size, 32) on the
+    script's shape, every output."""
     c, res, heads = 64, 16, 2
     x, g, *params = _win_args(c, res, heads, device=device)
     mine = abl_backward(c, res, heads)(x, g, *params)
@@ -436,10 +470,12 @@ def main(argv=None) -> dict:
               flush=True)
         for name, c, res, heads in groups:
             a = win_args(c, res, heads)
-            fns = [abl_backward(c, res, heads, **kw)
-                   for _v, kw in BWD_ABLATIONS]
-            _timed_variants(f"ablbwd/{name}", BWD_ABLATIONS, fns, a,
-                            attn_bwd_gflops(c, res), ms)
+            for prefix, plan in (("ablbwd", None),
+                                 ("ablbwd-base", _K3_BASE_PLAN)):
+                fns = [abl_backward(c, res, heads, plan=plan, **kw)
+                       for _v, kw in BWD_ABLATIONS]
+                _timed_variants(f"{prefix}/{name}", BWD_ABLATIONS, fns, a,
+                                attn_bwd_gflops(c, res), ms)
 
     if "blocks" in what:
         print(f"\n== K3's plans at B={B} (device ms of the K3 kernel alone)",

@@ -150,25 +150,35 @@ def time_ms(fn, device: str, iters: int = 10, repeats: int = 3) -> float:
     return statistics.median(per)
 
 
-def device_ms(fn, iters: int = 10, keys: tuple = ()) -> float:
+def device_ms(fn, iters: int = 10, keys: tuple = (),
+              traces: int = 1) -> float:
     """Device ms per call of `fn`: the kernels' own time in a torch.profiler
     trace of `iters` calls after one warm-up (no launch gaps, no host);
-    with `keys`, only the kernels whose name holds one of them."""
+    with `keys`, only the kernels whose name holds one of them. With
+    `traces` > 1 the median over that many traces: now and then a trace
+    comes back missing some of its kernels, which reads low."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # now and then a trace comes back without kernels
+    per, attempts = [], traces + 6
+    for attempt in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         us = sum(getattr(e, "self_device_time_total", 0.0)
                  for e in prof.key_averages() if "CUDA" in str(e.device_type)
+                 and not getattr(e, "is_user_annotation", False)
                  and (not keys or any(k in e.key for k in keys)))
         if us > 0:
-            return us / iters / 1e3
-    raise RuntimeError("torch.profiler recorded no kernel in 3 traces")
+            per.append(us / iters / 1e3)
+        else:  # now and then a trace has no kernels, a few in a row
+            time.sleep(0.1 * (attempt + 1))
+        if len(per) == traces:
+            return statistics.median(per)
+    raise RuntimeError(f"torch.profiler recorded kernels in {len(per)} of "
+                       f"{attempts} traces")
 
 
 def _library_mm(a, b):
@@ -342,7 +352,10 @@ def step(batch: int = 8, device: str = "cuda") -> dict:
             float(train_step(lr, hr, gen, tcfg.lr_initial))
         total = r1 = r2 = 0.0
         for e in prof.key_averages():
-            if "CUDA" not in str(e.device_type):
+            # kernels only: a user annotation's span (torch's
+            # `Optimizer.step#AdamW.step`) covers kernels counted apart
+            if "CUDA" not in str(e.device_type) or getattr(
+                    e, "is_user_annotation", False):
                 continue
             us = getattr(e, "self_device_time_total",
                          getattr(e, "self_cuda_time_total", 0.0))

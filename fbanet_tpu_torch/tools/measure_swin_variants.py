@@ -25,9 +25,11 @@ reuses):
 - K8 (`variant_leff`, csrc/leff_variants.cu): K2's function, no residual,
   with the depthwise 3x3 (`dwbf16`), both GELUs (`gelubf16`) or both
   (`bothbf16`) in packed bf16 arithmetic (`__nv_bfloat162`, two hidden
-  channels per instruction); with no flag it is K2's first kernel (the
-  form K2's plan keeps for f32 and the shapes its wgmma form does not
-  take), so the variants are rewrites of that form.
+  channels per instruction), as flags of the form K2's own plan
+  (`ops.leff._leff_plan`) picks for the shape: K2's wgmma form
+  (csrc/leff_wgmma.cuh) at the five groups, its first kernel (leff.cuh)
+  at the shapes the plan keeps there, or the form of an explicit `plan`.
+  With no flag it is K2's instantiation of that form.
 
 Modes: `check` holds every K7 core to the `loop` kernel within the script's
 limit, max(4e-3, 2 * 2^-8 * max |out|) (two bf16 ulps at the output's
@@ -36,14 +38,16 @@ probabilities elsewhere), says which are bitwise equal to it, and holds each
 K8 variant within 0.05 of K8 with no flag (the script's limit for trading
 precision for packing); `time` (`time-attn`, `time-leff`) prints the
 script's lines `var/<group> <core>` and `leffvar/<group> <variant>`, each
-beside `prod` (K1, or K8 with no flag). Times are CUDA-event medians
+beside `prod` (K1, or K8 with no flag), and `leffvar-base/<group>
+<variant>`, K8 on K2's first kernel (`_K2_BASE_PLAN`), so that both forms'
+answers come from one run. Times are CUDA-event medians
 (`measure_swin_rates.time_fn`). With `--device cpu` the same modes run the
 plain versions on the host (CPU numbers; the header names the device).
 
 On the card each wrapper launches its kernel or raises, naming the shape;
 on the CPU (or with `plain=True`) it runs the plain version below, which
 follows the script's `_var_kernel` / `_leff_var_kernel`. `.launches`
-counts kernel launches.
+counts kernel launches, `leff_variant.wgmma` / `.base` K8's per form.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from __future__ import annotations
 import functools
 import math
 import sys
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
@@ -64,8 +69,14 @@ from fbanet_tpu_torch.ops.attention import (
     window_partition,
     window_reverse,
 )
+from fbanet_tpu_torch.ops.leff import (
+    _K2_BASE_PLAN,
+    _kernel_leff_smem,
+    _leff_plan,
+    _taps,
+    leff_reference,
+)
 from fbanet_tpu_torch.ops.leff import _kernel_args as _leff_kernel_args
-from fbanet_tpu_torch.ops.leff import _taps, leff_reference
 from fbanet_tpu_torch.ops.norm import layer_norm_f32
 from fbanet_tpu_torch.tools.measure_swin_rates import (
     GROUPS,
@@ -318,12 +329,22 @@ def _leff_var_plain(x, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, b2, *,
     return (h2 @ _rounded(w2, cd).t() + b2.float()).to(cd)
 
 
+def variant_plan(x, ch: int, smem=_kernel_leff_smem):
+    """K8's form for a bf16 map x [B, H, W, C] with hidden width ch: K2's
+    own plan for it (`_leff_plan`, with the kernel's shared memory or
+    `smem`, its Python model), so that each variant runs on the form K2
+    runs on at that shape."""
+    return _leff_plan(*x.shape, ch, True, smem=smem)
+
+
 def leff_variant(x, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, b2, *,
                  dw_bf16: bool = False, gelu_bf16: bool = False,
-                 plain: bool = False) -> torch.Tensor:
-    """K8 on a bf16 CUDA map [B, H, W, C] (no residual), or its plain
-    version for CPU tensors or with `plain=True`. With no flag the kernel
-    is K2's own instantiation."""
+                 plain: bool = False, plan=None) -> torch.Tensor:
+    """K8 on a bf16 CUDA map [B, H, W, C] (no residual) under `plan`
+    (default K2's own `_leff_plan` for the map; `_K2_BASE_PLAN` for the
+    first kernel), or its plain version for CPU tensors or with
+    `plain=True`. With no flag the kernel is K2's own instantiation of the
+    plan's form."""
     if plain or x.device.type == "cpu":
         return _leff_var_plain(x, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, b2,
                                dw_bf16=dw_bf16, gelu_bf16=gelu_bf16)
@@ -336,31 +357,41 @@ def leff_variant(x, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, b2, *,
                          f"{tuple(x.shape)} {x.dtype} {x.device}, hidden {ch}: "
                          f"a contiguous bfloat16 CUDA map, C and the hidden "
                          f"width multiples of 16")
+    if plan is None:
+        plan = variant_plan(x, ch)
     args = _leff_kernel_args(x, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, b2)
+    if plan[0]:  # W2 as W2^T [Ch, C], as K2's wgmma form takes it
+        args[6] = w2.t().to(device=x.device, dtype=x.dtype,
+                            memory_format=torch.contiguous_format)
     out = torch.empty_like(x)
     err = _build.library().fbanet_leff_variant(
         x.data_ptr(), out.data_ptr(), *[a.data_ptr() for a in args],
-        b, h, w, c, ch, int(dw_bf16) + 2 * int(gelu_bf16),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "leff_variant")
+        b, h, w, c, ch, int(dw_bf16) + 2 * int(gelu_bf16), *plan,
+        _build.stream(x))
+    _build.check(err, f"leff_variant (x {tuple(x.shape)}, plan {plan})")
+    form = leff_variant.wgmma if plan[0] else leff_variant.base
+    form.launches += 1
     leff_variant.launches += 1
     return out
 
 
 leff_variant.launches = 0
+# launch counts per form, kept as the wrappers keep theirs
+leff_variant.wgmma = SimpleNamespace(launches=0)
+leff_variant.base = SimpleNamespace(launches=0)
 
 
 def variant_leff(c: int, res: int, *, dw_bf16: bool = False,
-                 gelu_bf16: bool = False):
+                 gelu_bf16: bool = False, plan=None):
     """The script's factory: call(x, lns, lnb, w1, b1, wdw, bdw, w2, b2)
     runs K8 (or its plain version on the CPU) on a [batch, res, res, c]
-    map."""
+    map, under K2's plan or `plan`."""
     def call(x, *params, plain: bool = False):
         if tuple(x.shape[1:]) != (res, res, c):
             raise ValueError(f"variant_leff({c}, {res}) got x "
                              f"{tuple(x.shape)}")
         return leff_variant(x, *params, dw_bf16=dw_bf16, gelu_bf16=gelu_bf16,
-                            plain=plain)
+                            plain=plain, plan=plan)
     return call
 
 
@@ -474,10 +505,13 @@ def main(argv=None) -> dict:
             for name, c, res, _heads in groups:
                 a = _leff_args(c, res, device=dev)
                 gf = leff_gflops(c, res)
-                run(f"leffvar/{name} prod", variant_leff(c, res), a, gf)
-                for vname, kw in LEFF_VARIANTS.items():
-                    run(f"leffvar/{name} {vname}", variant_leff(c, res, **kw),
-                        a, gf)
+                for prefix, plan in (("leffvar", None),
+                                     ("leffvar-base", _K2_BASE_PLAN)):
+                    run(f"{prefix}/{name} prod",
+                        variant_leff(c, res, plan=plan), a, gf)
+                    for vname, kw in LEFF_VARIANTS.items():
+                        run(f"{prefix}/{name} {vname}",
+                            variant_leff(c, res, plan=plan, **kw), a, gf)
     return out
 
 

@@ -3,7 +3,8 @@ which form and blocks each shape gets, the shared memory each plan needs
 (from the Python models of the kernels' own `*_smem` functions, which
 chip_smoke.py holds equal to the kernels'), the window-to-block assignment
 of K1's and K3's forms, the order of K3's per-block bias partial's sums,
-and what the new wrappers refuse.
+the forms K11 and K8 take (K3's and K2's own plans), and what the new
+wrappers refuse.
 
 The kernels run only on the card, where chip_smoke.py and
 tools/measure_attention.py / tools/measure_leff.py /
@@ -17,6 +18,7 @@ import torch
 
 from fbanet_tpu_torch.ops import attention, leff
 from fbanet_tpu_torch.ops.reduce import column_sum
+from fbanet_tpu_torch.tools import measure_bwd, measure_swin_variants
 
 SMEM_LIMIT, SMS, WS = 232448, 132, 8
 # (H, C, heads) of the five SwinGroups at 160 px: enc0, enc1, bott, dec0,
@@ -316,3 +318,67 @@ def test_attention_operands_follow_the_form(plan):
         assert ptrs[4] == kept[4].data_ptr()
     assert all(k.dtype == torch.float32 for i, k in enumerate(kept)
                if k is not None and i not in (2, 4, 6))
+
+
+@pytest.mark.parametrize("batch", [2, 8])
+@pytest.mark.parametrize("h,c,heads", GROUPS, ids=IDS)
+def test_k11_takes_k3s_form(h, c, heads, batch):
+    """K11 runs each variant on the form K3's own plan gives its windows:
+    the wgmma form at every group, with K3's warpgroups and windows per
+    block."""
+    xw = torch.empty(batch * (h // WS) ** 2, WS * WS, c, device="meta",
+                     dtype=torch.bfloat16)
+    plan = measure_bwd.ablation_plan(xw, heads,
+                                     smem=attention._attention_bwd_smem)
+    assert plan == attention._attention_bwd_plan(xw.shape[0], WS, WS, c,
+                                                 heads)
+    assert plan[0] == (2 if c <= 128 else 4)
+
+
+def test_k11_keeps_the_first_kernel_where_k3_does():
+    """The tool's `check` shape (C 64, 2 heads: head size 32) and windows
+    of 49 tokens stay on K3's first kernel, as K3's plan keeps them."""
+    smem = attention._attention_bwd_smem
+    for n, c, heads in ((64, 64, 2), (49, 64, 1), (64, 96, 6)):
+        xw = torch.empty(16, n, c, device="meta", dtype=torch.bfloat16)
+        assert measure_bwd.ablation_plan(xw, heads, smem=smem) == \
+            attention._K3_BASE_PLAN
+
+
+@pytest.mark.parametrize("h,c,heads", GROUPS, ids=IDS)
+def test_k8_takes_k2s_form(h, c, heads):
+    """K8 runs each variant on the form K2's own plan gives the map: the
+    wgmma form at every group; the first kernel at C = 32, which the wgmma
+    form does not take."""
+    ch = 4 * c
+    x = torch.empty(8, h, h, c, device="meta", dtype=torch.bfloat16)
+    plan = measure_swin_variants.variant_plan(x, ch, smem=leff._leff_smem)
+    assert plan == leff._leff_plan(8, h, h, c, ch) and plan[0] > 0
+    x32 = torch.empty(8, 16, 16, 32, device="meta", dtype=torch.bfloat16)
+    assert measure_swin_variants.variant_plan(
+        x32, 128, smem=leff._leff_smem) == leff._K2_BASE_PLAN
+
+
+def test_k11_and_k8_refuse_off_the_card():
+    """K11's and K8's wrappers take CUDA tensors only, on either form: any
+    other device gets an error naming the shape, never the plain version;
+    K11 takes one stage off at a time."""
+    c, ch = 64, 256
+    xw = torch.empty(4, 64, c, device="meta", dtype=torch.bfloat16)
+    ap = [torch.empty(s, device="meta") for s in (
+        (c,), (c,), (c, c), (c,), (2 * c, c), (2 * c,), (c, c), (1, 64, 64))]
+    for plan in ((2, 1), attention._K3_BASE_PLAN, None):
+        with pytest.raises(ValueError, match=r"\(4, 64, 64\)"):
+            measure_bwd.ablation_backward(xw, xw, *ap, heads=1, plan=plan,
+                                          core=False)
+    with pytest.raises(ValueError, match=r"\(4, 64, 64\)"):
+        attention.launch_bwd_windows(xw, xw, *ap, None, heads=1,
+                                     windows_per_image=4, plan=(2, 1),
+                                     skip=16)
+    x = torch.empty(1, 16, 16, c, device="meta", dtype=torch.bfloat16)
+    lp = [torch.empty(s, device="meta") for s in (
+        (c,), (c,), (ch, c), (ch,), (ch, 1, 3, 3), (ch,), (c, ch), (c,))]
+    for plan in (leff._K2_FORMS[0], leff._K2_BASE_PLAN, None):
+        with pytest.raises(ValueError, match=r"\(1, 16, 16, 64\)"):
+            measure_swin_variants.leff_variant(x, *lp, dw_bf16=True,
+                                               plan=plan)
