@@ -80,39 +80,44 @@ non-zero:
    entry) against the plain backward on every gradient plus a bitwise
    repeat. K9, K10 and K11, every variant, against their plain versions on
    the tools' B=8 inputs (bf16, 3e-2 of max(1, |out|)), each `full`
-   bitwise against the kernel its flags are built on (K1's and K2's first
-   kernels; K3's windowed entry under its plan, the wgmma form, for K11,
-   every K11 variant also bitwise on a repeat and with its device ms per
-   group) on the same inputs; K11 also on K3's first kernel through an
-   explicit plan, its `full` bitwise equal to that kernel.
+   bitwise against the kernel its flags are built on on the same inputs:
+   K9 on K1's first kernel; K10 and K11 on both forms of K2 / K3 (the
+   wgmma form their plans pick, every variant also bitwise on a repeat
+   and with its device ms per group (K10: on both forms), `full` bitwise
+   equal to K2 / K3's windowed entry under that plan; and the first
+   kernel through an explicit plan, `full` bitwise equal to it).
    Then the slice's main path: both kernel-measurement tools at B=8
    (`measure_swin_rates attn leff ablate`, `measure_bwd check groups
-   plainref leffabl merged ablate`, K11's variants timed on both of K3's
+   plainref leffabl merged ablate`, K10's and K11's variants timed on both
    forms, their tables printed) and K1b forward + backward through
    autograd at the five shapes.
 10. variants: K7 (K1's function with its head stage rewritten: loop,
    loop_ln, stack3d, stack3d_ln, lanepack, ln+qkv1, ln+nr2) and K8 (K2's
-   with packed-bf16 depthwise and/or GELUs), every variant against its
+   with packed-bf16 depthwise and/or GELUs), every variant on both forms
+   of K1 / K2 (the wgmma form their plans pick, with its device ms per
+   group, and the first kernel through an explicit plan, K7's also with
+   its device ms) against its
    plain version on the tool's B=8 inputs at the five shapes (bf16, 3e-2
-   of max(1, |out|)), K7 loop_ln bitwise against K1's first kernel, K8
-   on both of K2's forms (the wgmma form under K2's plan, with its device
-   ms per group, and the first kernel through an explicit plan) with no
-   flag bitwise against K2 on that form, each K7 core's heads per stage as
-   the kernel reports it. Then the slice's main path:
-   `measure_swin_variants check time` at B=8 (K8's variants timed on
-   both of K2's forms) and `profile_components` over every component at
-   the published sizes (their tables printed); then mfu_forward / mfu_train
-   (`flops_accounting.mfu_fields`) from the slice's forward and the train
-   phase's step times.
+   of max(1, |out|)); K7 loop_ln, stack3d_ln, ln+qkv1 and ln+nr2 bitwise
+   against K1 on the wgmma form and stack3d against loop, K7 loop_ln
+   bitwise against K1's first kernel on that kernel, K8 with no flag
+   bitwise against K2 on each form; each K7 core's heads per stage and
+   shared memory on each form as the kernels report them (the wgmma
+   form's against the tool's models), lanepack's bytes. Then the slice's
+   main path: `measure_swin_variants check time` at B=8 (K7's and K8's
+   variants checked and timed on both forms) and `profile_components`
+   over every component at the published sizes (their tables printed);
+   then mfu_forward / mfu_train (`flops_accounting.mfu_fields`) from the
+   slice's forward and the train phase's step times.
 
-Each kernel wrapper counts its launches (K1, K2, K3, K8 and K11 per
-form); the counts are set to 0 just before the registration, the CLI
+Each kernel wrapper counts its launches (K1, K2, K3, K7, K8, K10 and
+K11 per form); the counts are set to 0 just before the registration, the CLI
 stream, the serving, the training (the B=8 steps, then the f32 B=2 step,
 whose plans send K1, K2 and K3 to their first kernels), the measurement
 and the variant runs and read just after. The line before the last is a JSON object
 {"kernels": [...]} (launches on those runs; error, times and bound from
-phases 3-6, 9 and 10; K7 and K9-K11 also per variant; K1, K2, K3, K8 and
-K11 with their first kernels as entries of their own), preceded by the
+phases 3-6, 9 and 10; K7 and K9-K11 also per variant; K1, K2, K3, K7, K8,
+K10 and K11 with their first kernels as entries of their own), preceded by the
 nvidia-smi name/power-limit line; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -439,8 +444,8 @@ def phase_kernels(shapes) -> dict:
                     failures.append(line)
                 if bf16 and batch == 2:
                     # the first kernel in bf16, which the plan keeps for
-                    # bf16 shapes the wgmma form does not take (and K7's,
-                    # K9's base)
+                    # bf16 shapes the wgmma form does not take (and
+                    # K7-base's, K9's base)
                     def k1_base(x=x, a=a, heads=heads):
                         return attention._attention_launch(
                             x, *a.values(), heads, WS, True,
@@ -490,7 +495,8 @@ def phase_kernels(shapes) -> dict:
                 failures.append(line)
             if dname == "bfloat16":
                 # the first kernel in bf16, which the plan keeps for bf16
-                # shapes the wgmma form does not take (and K8's, K10's base)
+                # shapes the wgmma form does not take (and K8-base's and
+                # K10-base's)
                 def k2_base(x=x, a=a):
                     return leff._leff_launch(x, *a.values(), True,
                                              leff._K2_BASE_PLAN)
@@ -1194,7 +1200,7 @@ def ablation_work(kernel, variant, h, c, heads):
     skip them); nodsoftmax keeps one multiply per logit of the softmax
     backward's five."""
     t, n = MEASURE_B * h * h, WS * WS
-    if kernel == "K10":
+    if kernel in ("K10", "K10-base"):
         tc, f32, nbytes = leff_work(h, c, batch=MEASURE_B)
         return tc, 0 if variant == "nodw" else f32, nbytes
     if kernel == "K9":
@@ -1225,8 +1231,8 @@ def phase_measure(card: str) -> tuple[dict, dict]:
     gradient plus a bitwise repeat, at the five SwinGroup shapes, B=2, f32
     and bf16, masked and not. K9, K10 and K11, every variant, against their
     plain versions at the tools' B=8 inputs, bf16, and each `full` variant
-    bitwise against the kernel its flags are built on (K1's, K2's and K3's
-    first kernels) on the same inputs.
+    bitwise against the kernel its flags are built on on the same inputs
+    (K9: K1's first kernel; K10 / K11: K2 / K3 on each of their forms).
     Then the main path: both tools' modes at B=8 and K1b forward + backward
     through autograd at the five shapes, with the counts set to 0 just
     before and read just after. Returns (per-kernel results, launches)."""
@@ -1343,13 +1349,15 @@ def phase_measure(card: str) -> tuple[dict, dict]:
     k1b.update(k1b_bound.fields(), library_ms=None)
 
     # K9, K10, K11 against their plain versions at the tools' B=8 inputs;
-    # each `full` bitwise against the kernel its flags are built on. K11 on
-    # both of K3's forms: the one K3's plan picks (the wgmma form at every
-    # group; each variant bitwise on a repeat, its device ms per group) and
-    # the first kernel through an explicit _K3_BASE_PLAN
+    # each `full` bitwise against the kernel its flags are built on. K10
+    # and K11 on both of K2's / K3's forms: the one K2's / K3's plan picks
+    # (the wgmma form at every group; each variant bitwise on a repeat, its
+    # device ms per group) and the first kernel through an explicit
+    # _K2_BASE_PLAN / _K3_BASE_PLAN (K10's device ms too)
     abl = {k: dict(max_abs_err=0.0, plain_ms=0.0, variants={})
-           for k in ("K9", "K10", "K11", "K11-base")}
+           for k in ("K9", "K10", "K10-base", "K11", "K11-base")}
     bounds = {}
+    k10_forms = (("K10", None), ("K10-base", leff._K2_BASE_PLAN))
     k11_forms = (("K11", None), ("K11-base", attention._K3_BASE_PLAN))
 
     def ablation_entry(kernel, vname, err, res, c, heads):
@@ -1362,41 +1370,63 @@ def phase_measure(card: str) -> tuple[dict, dict]:
         return entry
 
     for name, c, res, heads in mr.GROUPS:
-        cases = (
-            ("K9", mr.ATTN_ABLATIONS,
-             mr._attn_args(c, res, heads, batch=MEASURE_B),
-             lambda kw, c=c, res=res, heads=heads:
-             mr.abl_attention(c, res, heads, **kw)),
-            ("K10", mr.LEFF_ABLATIONS, mr._leff_args(c, res, batch=MEASURE_B),
-             lambda kw, c=c, res=res: mr.abl_leff(c, res, **kw)))
-        for kernel, table, args, make in cases:
-            for vname, kw in table:
-                fn = make(kw)
-                got, ref = fn(*args), fn(*args, plain=True)
+        args = mr._attn_args(c, res, heads, batch=MEASURE_B)
+        for vname, kw in mr.ATTN_ABLATIONS:
+            fn = mr.abl_attention(c, res, heads, **kw)
+            got, ref = fn(*args), fn(*args, plain=True)
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, ref)
+            finite = bool(torch.isfinite(got).all())
+            ablation_entry("K9", vname, err, res, c, heads)
+            line = (f"K9 {vname} {name} c{c}@{res} B={MEASURE_B} "
+                    f"bf16: max_abs_err={err:.3e} rel={rel:.3e}")
+            if vname == "full":
+                pms = time_ms(lambda fn=fn: fn(*args, plain=True),
+                              iters=3, repeats=3)
+                abl["K9"]["plain_ms"] += pms
+                line += f" plain_ms={pms:.4f}"
+                prod = attention._attention_launch(  # K1's first kernel
+                    *args, None, heads, WS, False, attention._K1_BASE_PLAN)
+                same = torch.equal(got, prod)
+                line += f" bitwise_equal_to_base={same}"
+                if not same:
+                    failures.append(line)
+            log(line)
+            if not (rel <= TOL["bfloat16"]) or not finite:
+                failures.append(line)
+        args = mr._leff_args(c, res, batch=MEASURE_B)
+        plan = mr.leff_plan(args[0], args[3].shape[0])
+        for vname, kw in mr.LEFF_ABLATIONS:
+            ref = mr.abl_leff(c, res, **kw)(*args, plain=True)
+            if vname == "full":  # the plain version, beside both forms
+                pms = time_ms(lambda kw=kw: mr.abl_leff(c, res, **kw)(
+                    *args, plain=True), iters=3, repeats=3)
+                log(f"K10 plain {name} c{c}@{res} B={MEASURE_B}: "
+                    f"plain_ms={pms:.4f}")
+            for kernel, kplan in k10_forms:
+                fn = mr.abl_leff(c, res, plan=kplan, **kw)
+                got, again = fn(*args), fn(*args)
                 torch.cuda.synchronize()
                 err, rel = rel_err(got, ref)
                 finite = bool(torch.isfinite(got).all())
-                ablation_entry(kernel, vname, err, res, c, heads)
+                repeat = torch.equal(got, again)
+                entry = ablation_entry(kernel, vname, err, res, c, heads)
                 line = (f"{kernel} {vname} {name} c{c}@{res} B={MEASURE_B} "
-                        f"bf16: max_abs_err={err:.3e} rel={rel:.3e}")
-                if vname == "full":
-                    pms = time_ms(lambda fn=fn: fn(*args, plain=True),
-                                  iters=3, repeats=3)
+                        f"bf16 plan {kplan or plan}: max_abs_err={err:.3e} "
+                        f"rel={rel:.3e} bitwise_repeat={repeat}")
+                # the form's device ms
+                dms = device_ms(lambda fn=fn: fn(*args), traces=3)
+                entry.setdefault("b8", {})[name] = dict(device_ms=dms)
+                line += f" device_ms={dms:.4f}"
+                if vname == "full":  # K2 (no residual) on the same form
                     abl[kernel]["plain_ms"] += pms
-                    line += f" plain_ms={pms:.4f}"
-                    if kernel == "K9":  # K1's first kernel
-                        prod = attention._attention_launch(
-                            *args, None, heads, WS, False,
-                            attention._K1_BASE_PLAN)
-                        same = torch.equal(got, prod)
-                    else:  # K2's first kernel
-                        same = torch.equal(got, leff._leff_launch(
-                            *args, False, leff._K2_BASE_PLAN))
-                    line += f" bitwise_equal_to_base={same}"
+                    same = torch.equal(got, leff._leff_launch(
+                        *args, False, kplan or plan))
+                    line += f" bitwise_equal_to_K2={same}"
                     if not same:
                         failures.append(line)
                 log(line)
-                if not (rel <= TOL["bfloat16"]) or not finite:
+                if not (rel <= TOL["bfloat16"]) or not finite or not repeat:
                     failures.append(line)
         args = mb._win_args(c, res, heads, batch=MEASURE_B)
         x, g, *params = args
@@ -1479,6 +1509,8 @@ def phase_measure(card: str) -> tuple[dict, dict]:
     res = {"K1b": k1b}
     for kernel, key, table in (("K9", "abl-attn", mr.ATTN_ABLATIONS),
                                ("K10", "abl-leff", mr.LEFF_ABLATIONS),
+                               ("K10-base", "abl-leff-base",
+                                mr.LEFF_ABLATIONS),
                                ("K11", "ablbwd", mb.BWD_ABLATIONS),
                                ("K11-base", "ablbwd-base", mb.BWD_ABLATIONS)):
         entry = abl[kernel]
@@ -1513,11 +1545,15 @@ def phase_measure(card: str) -> tuple[dict, dict]:
 
 def phase_variants(card: str, fwd_ms: float, train_ms: float
                    ) -> tuple[dict, dict]:
-    """The kernel-variant slice. K7, every variant the tool times, against
-    its plain version on the tool's B=8 inputs at the five SwinGroup shapes
-    (bf16, TOL), loop_ln bitwise against K1's first kernel, on which its
-    cores are built (mask-free, no residual), each
-    core's heads per stage and shared memory as the kernel reports them;
+    """The kernel-variant slice. K7, every variant the tool times, on both
+    of K1's forms (the wgmma form K1's plan picks and the first kernel
+    through an explicit _K1_BASE_PLAN, each with its device ms per group)
+    against its plain version on the tool's B=8 inputs at the five
+    SwinGroup shapes (bf16, TOL); loop_ln, stack3d_ln, ln+qkv1 and ln+nr2
+    bitwise against K1 (mask-free, no residual) on the wgmma form, stack3d
+    against loop, loop_ln against K1's first kernel on that kernel; each
+    core's heads per stage and shared memory on each form as the kernels
+    report them;
     K8, every variant, on both of K2's forms (the wgmma form K2's plan
     picks, with its device ms per group, and the first kernel through an
     explicit _K2_BASE_PLAN) against its plain version, and with no flag
@@ -1539,7 +1575,7 @@ def phase_variants(card: str, fwd_ms: float, train_ms: float
     n = WS * WS
     failures = []
     res = {k: dict(max_abs_err=0.0, plain_ms=0.0, variants={})
-           for k in ("K7", "K8", "K8-base")}
+           for k in ("K7", "K7-base", "K8", "K8-base")}
     bounds = {}
 
     def compare(kernel, vname, line, got, ref, prod, base, work):
@@ -1555,36 +1591,95 @@ def phase_variants(card: str, fwd_ms: float, train_ms: float
             failures.append(line)
         return line, same
 
+    # K7's cores that the wgmma form holds bitwise equal to K1 (mask-free,
+    # no residual) on it, and stack3d to loop; on the first kernel loop_ln
+    k7_bitwise = {"K7": ("loop_ln", "stack3d_ln", "ln+qkv1", "ln+nr2"),
+                  "K7-base": ("loop_ln",)}
     for name, c, r, heads in mr.GROUPS:
-        chunks = {core: (lib.fbanet_attention_variant_chunk(n, c, heads, cid),
-                         lib.fbanet_attention_variant_smem(n, c, heads, cid))
-                  for core, cid in mv._CORE_IDS.items()}
-        line = (f"K7 {name} c{c}@{r} heads={heads}: (heads per stage, shared "
-                f"memory bytes) by core {chunks}")
-        if any(chunks[kw["core"]][0] == 0
-               for _v, kw in mv.attention_cases(name, c, r, heads)):
+        args = mr._attn_args(c, r, heads, batch=MEASURE_B)
+        plan = attention._attention_plan(
+            MEASURE_B, r, r, c, heads, WS, True,
+            smem=attention._kernel_attention_smem)
+        # heads per stage and shared memory of every core, on each form, as
+        # the kernels report them (the wgmma form's against the tool's
+        # models)
+        forms = {}
+        for core, cid in mv._CORE_IDS.items():
+            kp = mv.attention_plan(args[0], heads, core)
+            got_w = (lib.fbanet_attention_variant_wgmma_stage(
+                n, c, heads, cid, plan[0], plan[2]),
+                lib.fbanet_attention_variant_wgmma_smem(
+                n, c, heads, cid, plan[0], plan[2]))
+            model = (mv.heads_per_stage(core, c, heads, plan[0])
+                     if got_w[1] else 0,
+                     mv._variant_smem(n, c, heads, cid, plan[0], plan[2]))
+            forms[core] = dict(
+                plan=kp, wgmma=got_w,
+                base=(lib.fbanet_attention_variant_chunk(n, c, heads, cid),
+                      lib.fbanet_attention_variant_smem(n, c, heads, cid)))
+            if got_w != model:
+                failures.append(f"K7 {name} {core}: the wgmma form reports "
+                                f"{got_w}, the tool's model {model}")
+        line = (f"K7 {name} c{c}@{r} heads={heads} plan {plan}: (heads per "
+                f"stage, shared memory bytes) by core on the wgmma form "
+                f"{ {k: v['wgmma'] for k, v in forms.items()} }, on the first "
+                f"kernel { {k: v['base'] for k, v in forms.items()} }")
+        if heads % 2 == 0:
+            lp = forms["lanepack"]
+            where = "wgmma form" if lp["plan"][0] else "first kernel"
+            line += (f"; lanepack runs on the {where} "
+                     f"({lp['wgmma'][1] or 'does not fit'} of 232448 bytes "
+                     f"on the wgmma form)")
+        cases = mv.attention_cases(name, c, r, heads)
+        if any(forms[kw["core"]]["base"][0] == 0 for _v, kw in cases):
             failures.append(line + ": a core the tool runs does not fit")
         log(line)
-        args = mr._attn_args(c, r, heads, batch=MEASURE_B)
-        prod = attention._attention_launch(  # K1's first kernel
-            *args, None, heads, WS, False, attention._K1_BASE_PLAN)
-        for vname, kw in mv.attention_cases(name, c, r, heads):
+        k1 = {"K7": (attention._attention_launch(
+                  *args, None, heads, WS, False, plan), f"K1_plan_{plan}"),
+              "K7-base": (attention._attention_launch(
+                  *args, None, heads, WS, False, attention._K1_BASE_PLAN),
+                  "K1_first_kernel")}
+        loops = {}
+        for vname, kw in cases:
             kw = dict(kw)
-            fn = mv.variant_attention(c, r, heads, kw.pop("core"), **kw)
-            got, ref = fn(*args), fn(*args, plain=True)
-            torch.cuda.synchronize()
-            line, same = compare(
-                "K7", vname, f"K7 {vname} {name} c{c}@{r} B={MEASURE_B} bf16",
-                got, ref, prod, "K1_first_kernel",
-                attention_work(r, c, heads, False, batch=MEASURE_B))
+            core = kw.pop("core")
+            ref = mv.variant_attention(c, r, heads, core, **kw)(
+                *args, plain=True)
             if vname == "loop":
-                pms = time_ms(lambda fn=fn: fn(*args, plain=True), iters=3,
+                loop = mv.variant_attention(c, r, heads, "loop")
+                pms = time_ms(lambda: loop(*args, plain=True), iters=3,
                               repeats=3)
-                res["K7"]["plain_ms"] += pms
-                line += f" plain_ms={pms:.4f}"
-            if vname == "loop_ln" and not same:
-                failures.append(line)
-            log(line)
+                log(f"K7 plain {name} c{c}@{r} B={MEASURE_B}: "
+                    f"plain_ms={pms:.4f}")
+            for kernel, kplan in (("K7", None),
+                                  ("K7-base", attention._K1_BASE_PLAN)):
+                fn = mv.variant_attention(c, r, heads, core, plan=kplan, **kw)
+                got = fn(*args)
+                torch.cuda.synchronize()
+                line, same = compare(
+                    kernel, vname, f"{kernel} {vname} {name} c{c}@{r} "
+                    f"B={MEASURE_B} bf16 plan "
+                    f"{kplan or mv.attention_plan(args[0], heads, core)}",
+                    got, ref, *k1[kernel],
+                    attention_work(r, c, heads, False, batch=MEASURE_B))
+                # the form's device ms
+                dms = device_ms(lambda fn=fn: fn(*args), traces=3)
+                res[kernel]["variants"][vname].setdefault(
+                    "b8", {})[name] = dict(device_ms=dms)
+                line += f" device_ms={dms:.4f}"
+                if vname in ("loop", "stack3d"):
+                    loops.setdefault(kernel, {})[vname] = got
+                if vname == "loop":
+                    res[kernel]["plain_ms"] += pms
+                if vname in k7_bitwise[kernel] and not same:
+                    failures.append(line)
+                log(line)
+        for kernel, outs in loops.items():
+            if kernel == "K7" and "stack3d" in outs:
+                same = torch.equal(outs["stack3d"], outs["loop"])
+                log(f"K7 stack3d {name}: bitwise_equal_to_loop={same}")
+                if not same:
+                    failures.append(f"K7 stack3d {name} differs from loop")
         la = mr._leff_args(c, r, batch=MEASURE_B)
         plan = mv.variant_plan(la[0], la[3].shape[0])
         # K2 with no residual on each form: K8's `prod` on it
@@ -1638,10 +1733,14 @@ def phase_variants(card: str, fwd_ms: float, train_ms: float
     if not all(math.isfinite(v) and v > 0 for v in comps.values()):
         raise AssertionError(f"component profile not finite: {comps}")
 
-    k1_ms = sum(ms for nm, ms in timed.items()
-                if nm.startswith("var/") and nm.endswith(" prod"))
+    k1_ms = {pre: sum(ms for nm, ms in timed.items()
+                      if nm.startswith(f"{pre}/") and nm.endswith(" prod"))
+             for pre in ("var", "var-base")}
     for kernel, prefix, rep, beside in (
-            ("K7", "var", "loop", f" (K1 at the five: {k1_ms:.4f} ms)"),
+            ("K7", "var", "loop", f" (K1's wgmma form at the five: "
+             f"{k1_ms['var']:.4f} ms)"),
+            ("K7-base", "var-base", "loop", f" (K1's first kernel at the "
+             f"five: {k1_ms['var-base']:.4f} ms)"),
             ("K8", "leffvar", "prod", " (prod: K2's wgmma form)"),
             ("K8-base", "leffvar-base", "prod", " (prod: K2's first kernel)")):
         entry = res[kernel]
@@ -1697,10 +1796,12 @@ def _counters():
             "K6": warp_kernels.warp_burst_coords,
             "K1b": attention.fused_window_attention,
             "K9": measure_swin_rates.ablation_attention,
-            "K10": measure_swin_rates.ablation_leff,
+            "K10": measure_swin_rates.ablation_leff.wgmma,
+            "K10-base": measure_swin_rates.ablation_leff.base,
             "K11": measure_bwd.ablation_backward.wgmma,
             "K11-base": measure_bwd.ablation_backward.base,
-            "K7": measure_swin_variants.attention_variant,
+            "K7": measure_swin_variants.attention_variant.wgmma,
+            "K7-base": measure_swin_variants.attention_variant.base,
             "K8": measure_swin_variants.leff_variant.wgmma,
             "K8-base": measure_swin_variants.leff_variant.base}
 
@@ -1922,11 +2023,13 @@ def main() -> None:
     table = (
         ("K1", "K1 fused window attention (wgmma form)", "attention_wgmma.cu",
          "fbanet_tpu/ops/attention_pallas.py:250"),
-        ("K1-base", "K1 fused window attention (first kernel: f32, K7/K9 "
-         "base)", "attention.cu", "fbanet_tpu/ops/attention_pallas.py:250"),
+        ("K1-base", "K1 fused window attention (first kernel: f32, K9 and "
+         "K7-base base)", "attention.cu",
+         "fbanet_tpu/ops/attention_pallas.py:250"),
         ("K2", "K2 fused LeFF (wgmma form)", "leff.cu",
          "fbanet_tpu/ops/leff_pallas.py:172"),
-        ("K2-base", "K2 fused LeFF (first kernel: f32, K8-base/K10 base)",
+        ("K2-base", "K2 fused LeFF (first kernel: f32, K8-base/K10-base "
+         "base)",
          "leff.cu", "fbanet_tpu/ops/leff_pallas.py:172"),
         ("K3", "K3 fused window attention backward (wgmma form)",
          "attention_bwd_wgmma.cu", "fbanet_tpu/ops/attention_pallas.py:334"),
@@ -1948,16 +2051,22 @@ def main() -> None:
          "fbanet_tpu/ops/attention_pallas.py:234"),
         ("K9", "K9 attention ablation (measure_swin_rates)", "attention.cu",
          "scripts/measure_swin_rates.py:136"),
-        ("K10", "K10 LeFF ablation (measure_swin_rates)", "leff.cu",
-         "scripts/measure_swin_rates.py:253"),
+        ("K10", "K10 LeFF ablation (measure_swin_rates; K2's wgmma form)",
+         "leff_ablation.cu", "scripts/measure_swin_rates.py:253"),
+        ("K10-base", "K10 LeFF ablation (measure_swin_rates; K2's first "
+         "kernel)", "leff_ablation.cu", "scripts/measure_swin_rates.py:253"),
         ("K11", "K11 attention backward ablation (measure_bwd; K3's wgmma "
          "form)", "attention_bwd_wgmma_ablation.cu",
          "scripts/measure_bwd.py:182"),
         ("K11-base", "K11 attention backward ablation (measure_bwd; K3's "
          "first kernel)", "attention_bwd_ablation.cu",
          "scripts/measure_bwd.py:182"),
-        ("K7", "K7 attention head-stage variants (measure_swin_variants)",
-         "attention_variants.cu", "scripts/measure_swin_variants.py:241"),
+        ("K7", "K7 attention head-stage variants (measure_swin_variants; "
+         "K1's wgmma form)", "attention_variants_wgmma.cu",
+         "scripts/measure_swin_variants.py:241"),
+        ("K7-base", "K7 attention head-stage variants (measure_swin_variants; "
+         "K1's first kernel)", "attention_variants.cu",
+         "scripts/measure_swin_variants.py:241"),
         ("K8", "K8 LeFF packed-bf16 variants (measure_swin_variants; K2's "
          "wgmma form)", "leff_variants.cu",
          "scripts/measure_swin_variants.py:355"),

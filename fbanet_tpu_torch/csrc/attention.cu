@@ -41,9 +41,10 @@
 // is K1's own instantiation. The changed math is deliberate: the variants
 // exist to split K1's time by stage.
 //
-// K7 (attention_variants.cu) rewrites this body's head stage; the pieces
-// both use (head group, shared-memory layout, softmax) are in
-// attention_fwd.cuh.
+// K7's first-kernel cores (attention_variants.cu, for the shapes K1's plan
+// keeps here; on K1's wgmma form they are attention_variants_wgmma*.cu)
+// rewrite this body's head stage; the pieces both use (head group,
+// shared-memory layout, softmax) are in attention_fwd.cuh.
 #include "attention_fwd.cuh"
 
 namespace fbanet {

@@ -3,7 +3,10 @@
 // mask-free and with no residual, on a bf16 [B, H, W, C] map, with the
 // per-head stage chosen at compile time. The counterpart of the TPU kernel
 // scripts/measure_swin_variants.py::_var_kernel (launched by
-// variant_attention), which times rewrites of K1's head stage.
+// variant_attention), which times rewrites of K1's head stage. These are
+// the cores on K1's first kernel, for the shapes K1's plan keeps there
+// (the tools' `-base` lines); on K1's wgmma form they are
+// attention_variants_wgmma.cu's.
 //
 // Rounding points are K1's (attention.cu:1-11): LN in f32 rounded to bf16;
 // q, k, v from f32-accumulated products plus f32 bias (q scaled in f32)

@@ -22,20 +22,12 @@
 // CUDA cores. The halo recompute costs 100/64 of dense1; larger tiles and a
 // wgmma pipeline are later work.
 //
-// K10 (fbanet_leff_ablation) is the bf16 kernel with one stage changed at
-// compile time, the counterpart of the ablation copy
-// scripts/measure_swin_rates.py::_leff_abl_kernel (no residual): nogelu
-// (both GELUs become x 0.7) and nodw (no depthwise 3x3: h2 = act(h1) on the
-// tile's own tokens; dense1 still runs on the halo, as the script's does).
-// Its `full` variant is K2's own instantiation. The changed math is
-// deliberate: the variants exist to split K2's time by stage.
-//
 // The bf16 kernel and its stages live in leff.cuh, and the wgmma form
 // (bf16; ops/leff.py::_leff_plan picks the form and tile per shape; the
-// kernel above stays for f32, for bf16 shapes the plan does not send
-// there, and as the base of K10's flags) in leff_wgmma.cuh, so that K8
-// (leff_variants.cu, packed-bf16 flags of both) builds in its own file.
-// The wgmma form's entries are below.
+// kernel above stays for f32 and for bf16 shapes the plan does not send
+// there) in leff_wgmma.cuh, so that K8 (leff_variants.cu, packed-bf16
+// flags of both forms) and K10 (leff_ablation.cu, stage ablations of both
+// forms) build in files of their own. The wgmma form's entries are below.
 #include "leff.cuh"
 #include "leff_wgmma.cuh"
 
@@ -105,15 +97,6 @@ Kernel production_kernel(int use_bf16) {
   return leff_f32_kernel;
 }
 
-Kernel ablation_kernel(int variant) {
-  switch (variant) {
-    case 1: return leff_bf16_kernel<false, true>;
-    case 2: return leff_bf16_kernel<true, false>;
-    default: return leff_bf16_kernel<true, true>;
-  }
-}
-
-
 }  // namespace
 }  // namespace fbanet
 
@@ -137,21 +120,6 @@ int fbanet_leff(const void* x, void* out, const void* ln_s, const void* ln_b,
                        (const float*)b2, H, W, C, Ch, residual};
   return fbanet::launch(fbanet::production_kernel(bf16), a, B, smem, stream);
 }
-
-// K10 on a bf16 map, no residual. variant: 0 full (K2's instantiation),
-// 1 nogelu, 2 nodw.
-int fbanet_leff_ablation(const void* x, void* out, const void* ln_s, const void* ln_b,
-                         const void* w1, const void* b1, const void* wdw, const void* bdw,
-                         const void* w2, const void* b2, int B, int H, int W, int C,
-                         int Ch, int variant, void* stream) {
-  const int smem = fbanet_leff_smem(C, Ch, 1);
-  if (smem == 0 || variant < 0 || variant > 2) return (int)cudaErrorInvalidValue;
-  const fbanet::Args a{x, out, (const float*)ln_s, (const float*)ln_b, w1, w2,
-                       (const float*)b1, (const float*)wdw, (const float*)bdw,
-                       (const float*)b2, H, W, C, Ch, 0};
-  return fbanet::launch(fbanet::ablation_kernel(variant), a, B, smem, stream);
-}
-
 
 // Dynamic shared memory of the wgmma form for tile th x tw and hidden chunk
 // kc, or 0 for one it does not take (C 64, 128 or 256; the forms (th, tw,

@@ -1,5 +1,5 @@
-// K2's first kernel's block body (and K8's, K10's), shared by leff.cu (K2,
-// K10) and leff_variants.cu (K8): the tile, the shared-memory layout, the
+// K2's first kernel's block body (and K8's, K10's), shared by leff.cu (K2),
+// leff_ablation.cu (K10) and leff_variants.cu (K8): the tile, the layout, the
 // stages and the bf16 kernel with its compile-time flags. What K2 computes
 // and why it is built so is at the top of leff.cu, with K2's wgmma form.
 #pragma once

@@ -4,8 +4,8 @@
 // rounding points and what bounds it are at the top of leff.cu.
 //
 // The form (ops/leff.py::_leff_plan picks the form and tile per shape; the
-// first kernel, leff.cuh, stays for f32, for bf16 shapes the plan does not
-// send here, and as the base of K10's flags) is K4's design run forwards:
+// first kernel, leff.cuh, stays for f32 and for bf16 shapes the plan does
+// not send here) is K4's design run forwards:
 //  - the W1 and W2^T slices of a hidden chunk arrive by TMA in 128-byte
 //    swizzled atoms, one chunk ahead in a ring of two mbarrier slots;
 //  - z1 = y W1^T runs on K-major wgmma over the tile's halo rows (a TH x TW
@@ -31,6 +31,15 @@
 // rounded to bf16 once per chunk in registers, each product and add
 // rounded, in depthwise_pairs' order). Both false is K2's instantiation,
 // the flags' branches folded away at compile time.
+//
+// K10 is this kernel with two more flags, the counterpart of the ablation
+// copy scripts/measure_swin_rates.py::_leff_abl_kernel (no residual):
+// NOGELU makes both activations x * 0.7 (the z1 epilogue and the one after
+// the depthwise sum; the rounding points stay K2's), NODW drops the
+// depthwise stage: h2 = round(act(h1)) on the tile's interior tokens, read
+// from h1 at their halo positions, with the taps and bdw never loaded; z1
+// still runs over the whole halo, as the script's dense1 does. K10 sets one
+// of them and neither of K8's.
 #pragma once
 
 #include "hopper.cuh"
@@ -139,7 +148,50 @@ __device__ __forceinline__ void depthwise_pairs_wgmma(const bf16* sH1, int hp, i
   }
 }
 
-template <int KC, int TH, int TW, bool DWBF16 = false, bool GELUBF16 = false>
+// K10's stage in place of the depthwise 3 x 3 + GELU, on the interior's NI
+// tokens as h2^T: NODW h2 = round(act(h1)) (h1 at the token's halo
+// position), else K2's f32 taps and sum in K2's order; act is x * 0.7 with
+// NOGELU, else the tanh GELU, on the f32 value, rounded once.
+template <int KC, int TW, int NT, int NI, bool NOGELU, bool NODW>
+__device__ __forceinline__ void depthwise_ablation_wgmma(const bf16* sH1, int hp, int YW,
+                                                         const float* sTaps, const float* sBdw,
+                                                         uint8_t* sH2t) {
+  constexpr int P = KC / 2;
+  auto act = [](float v) { return NOGELU ? v * 0.7f : gelu_tanh(v); };
+  const int j = 2 * (threadIdx.x % P);
+  float2 wt[9], bdw = make_float2(0.f, 0.f);
+  if constexpr (!NODW) {
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap)
+      wt[tap] = *reinterpret_cast<const float2*>(sTaps + tap * KC + j);
+    bdw = *reinterpret_cast<const float2*>(sBdw + j);
+  }
+  for (int t = threadIdx.x / P; t < NI; t += NT / P) {
+    const int ti = t / TW, tj = t % TW;
+    float2 z;
+    if constexpr (NODW) {
+      z = unpack_bf2(*reinterpret_cast<const uint32_t*>(sH1 + ((ti + 1) * YW + tj + 1) * hp + j));
+    } else {
+      z = bdw;
+#pragma unroll
+      for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) {
+          const float2 hv = unpack_bf2(*reinterpret_cast<const uint32_t*>(
+              sH1 + ((ti + ky) * YW + tj + kx) * hp + j));
+          z.x += hv.x * wt[ky * 3 + kx].x;
+          z.y += hv.y * wt[ky * 3 + kx].y;
+        }
+    }
+    const uint32_t w = pack_bf2(act(z.x), act(z.y));
+    uint8_t* col = sH2t + (size_t)(t / 64) * KC * 128 + (t % 8) * 2;
+    *reinterpret_cast<uint16_t*>(col + swz(j, (t % 64) / 8)) = (uint16_t)(w & 0xffffu);
+    *reinterpret_cast<uint16_t*>(col + swz(j + 1, (t % 64) / 8)) = (uint16_t)(w >> 16);
+  }
+}
+
+template <int KC, int TH, int TW, bool DWBF16 = false, bool GELUBF16 = false,
+          bool NOGELU = false, bool NODW = false>
 __global__ void __launch_bounds__(kFwThreads, 1)
     leff_wgmma_kernel(const __grid_constant__ CUtensorMap map_w1,
                       const __grid_constant__ CUtensorMap map_w2t, FwArgs a) {
@@ -147,6 +199,7 @@ __global__ void __launch_bounds__(kFwThreads, 1)
   constexpr int P = KC / 2;  // channel pairs of a chunk
   static_assert(KC == 32 || KC == 64, "the chunk widths instantiated here");
   static_assert(NT % P == 0, "the depthwise stage keeps one channel pair per thread");
+  static_assert(!((NOGELU || NODW) && (DWBF16 || GELUBF16)), "K10's flags go without K8's");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -245,6 +298,9 @@ __global__ void __launch_bounds__(kFwThreads, 1)
     const int k0 = i * KC;
     for (int e = threadIdx.x; e < 11 * KC; e += NT) {
       const int j = e % KC, r = e / KC;
+      if constexpr (NODW) {  // K10 nodw: b1 only
+        if (r != 9) continue;
+      }
       if (r < 9)
         sTaps[r * KC + j] = a.wdw[(size_t)(k0 + j) * 9 + r];
       else
@@ -280,6 +336,10 @@ __global__ void __launch_bounds__(kFwThreads, 1)
             if (inside(row / q.YW, row % q.YW))
               v = bits(gelu_bf16x2(__floats2bfloat162_rn(acc[4 * jj + 2 * h] + sB1[col],
                                                          acc[4 * jj + 2 * h + 1] + sB1[col + 1])));
+          } else if constexpr (NOGELU) {  // K10: act = x * 0.7
+            if (inside(row / q.YW, row % q.YW))
+              v = pack_bf2((acc[4 * jj + 2 * h] + sB1[col]) * 0.7f,
+                           (acc[4 * jj + 2 * h + 1] + sB1[col + 1]) * 0.7f);
           } else {
             if (inside(row / q.YW, row % q.YW))
               v = pack_bf2(gelu_tanh(acc[4 * jj + 2 * h] + sB1[col]),
@@ -295,6 +355,8 @@ __global__ void __launch_bounds__(kFwThreads, 1)
     // multiple of P) and its taps in registers
     if constexpr (DWBF16 || GELUBF16) {
       depthwise_pairs_wgmma<KC, TW, NT, q.NI, DWBF16, GELUBF16>(sH1, hp, q.YW, sTaps, sBdw, sH2t);
+    } else if constexpr (NOGELU || NODW) {
+      depthwise_ablation_wgmma<KC, TW, NT, q.NI, NOGELU, NODW>(sH1, hp, q.YW, sTaps, sBdw, sH2t);
     } else {
       const int j = 2 * (threadIdx.x % P);
       float2 wt[9];
@@ -372,13 +434,16 @@ __global__ void __launch_bounds__(kFwThreads, 1)
   }
 }
 
-template <int KC, int TH, int TW, bool DWBF16 = false, bool GELUBF16 = false>
+template <int KC, int TH, int TW, bool DWBF16 = false, bool GELUBF16 = false,
+          bool NOGELU = false, bool NODW = false>
 cudaError_t launch_wgmma(const CUtensorMap& m1, const CUtensorMap& m2, const FwArgs& a,
                          unsigned grid, int smem, cudaStream_t s) {
-  const cudaError_t e = cudaFuncSetAttribute(leff_wgmma_kernel<KC, TH, TW, DWBF16, GELUBF16>,
-                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t e =
+      cudaFuncSetAttribute(leff_wgmma_kernel<KC, TH, TW, DWBF16, GELUBF16, NOGELU, NODW>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  leff_wgmma_kernel<KC, TH, TW, DWBF16, GELUBF16><<<grid, kFwThreads, smem, s>>>(m1, m2, a);
+  leff_wgmma_kernel<KC, TH, TW, DWBF16, GELUBF16, NOGELU, NODW>
+      <<<grid, kFwThreads, smem, s>>>(m1, m2, a);
   return cudaGetLastError();
 }
 
@@ -396,9 +461,10 @@ inline int leff_wgmma_smem(int C, int th, int tw, int kc) {
   return (int)L.total;
 }
 
-// Launch the form <kc, th, tw, DWBF16, GELUBF16> on a bf16 map (w2t = W2^T
-// [Ch, C]); the caller has checked th x tw divides H x W and kc divides Ch.
-template <bool DWBF16, bool GELUBF16>
+// Launch the form <kc, th, tw, DWBF16, GELUBF16, NOGELU, NODW> on a bf16
+// map (w2t = W2^T [Ch, C]); the caller has checked th x tw divides H x W
+// and kc divides Ch.
+template <bool DWBF16, bool GELUBF16, bool NOGELU = false, bool NODW = false>
 int launch_leff_form(const void* w1, const void* w2t, const FwArgs& a, int B, int th, int tw,
                      int kc, void* stream) {
   const int smem = leff_wgmma_smem(a.C, th, tw, kc);
@@ -410,11 +476,15 @@ int launch_leff_form(const void* w1, const void* w2t, const FwArgs& a, int B, in
   const unsigned grid = (unsigned)B * (a.H / th) * (a.W / tw);
   const cudaStream_t s = (cudaStream_t)stream;
   if (th == 16)
-    e = kc == 64 ? launch_wgmma<64, 16, 8, DWBF16, GELUBF16>(map_w1, map_w2t, a, grid, smem, s)
-                 : launch_wgmma<32, 16, 8, DWBF16, GELUBF16>(map_w1, map_w2t, a, grid, smem, s);
+    e = kc == 64 ? launch_wgmma<64, 16, 8, DWBF16, GELUBF16, NOGELU, NODW>(map_w1, map_w2t, a,
+                                                                          grid, smem, s)
+                 : launch_wgmma<32, 16, 8, DWBF16, GELUBF16, NOGELU, NODW>(map_w1, map_w2t, a,
+                                                                          grid, smem, s);
   else
-    e = kc == 64 ? launch_wgmma<64, 8, 8, DWBF16, GELUBF16>(map_w1, map_w2t, a, grid, smem, s)
-                 : launch_wgmma<32, 8, 8, DWBF16, GELUBF16>(map_w1, map_w2t, a, grid, smem, s);
+    e = kc == 64 ? launch_wgmma<64, 8, 8, DWBF16, GELUBF16, NOGELU, NODW>(map_w1, map_w2t, a,
+                                                                         grid, smem, s)
+                 : launch_wgmma<32, 8, 8, DWBF16, GELUBF16, NOGELU, NODW>(map_w1, map_w2t, a,
+                                                                         grid, smem, s);
   return (int)e;
 }
 }  // namespace

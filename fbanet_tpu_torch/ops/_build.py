@@ -57,8 +57,10 @@ SIGNATURES = {
     # x, out, ln_s, ln_b, w1, b1, wdw, bdw, w2, b2,
     # B, H, W, C, Ch, residual, bf16, stream
     "fbanet_leff": [_P] * 10 + [_I] * 7 + [_P],
-    # K10: the same pointers, then B, H, W, C, Ch, variant, stream
-    "fbanet_leff_ablation": [_P] * 10 + [_I] * 6 + [_P],
+    # K10: the same pointers (W2^T for w2 on the wgmma form), then B, H, W,
+    # C, Ch, variant, tile rows (0: the first kernel), tile columns, hidden
+    # chunk, stream
+    "fbanet_leff_ablation": [_P] * 10 + [_I] * 9 + [_P],
     # K2's wgmma form: the same pointers with W2^T [Ch, C] for w2, then B,
     # H, W, C, Ch, residual, tile rows, tile columns, hidden chunk, stream;
     # its shared memory, 0 for a plan it does not take: (C, tile rows, tile
@@ -77,6 +79,14 @@ SIGNATURES = {
     "fbanet_attention_variant": [_P] * 11 + [_I] * 9 + [_P],
     "fbanet_attention_variant_smem": [_I] * 4,
     "fbanet_attention_variant_chunk": [_I] * 4,
+    # K7 on K1's wgmma form: x, out, ln_s, ln_b, [Wq; Wkv], bq, bkv, wproj,
+    # bproj, bias, then B, H, W, C, heads, ws, core, and K1's plan:
+    # warpgroups, windows per block, staged; stream. Its shared memory and
+    # heads per stage, 0 for a shape it does not take: (tokens per window,
+    # C, heads, core, warpgroups, staged)
+    "fbanet_attention_variant_wgmma": [_P] * 10 + [_I] * 10 + [_P],
+    "fbanet_attention_variant_wgmma_smem": [_I] * 6,
+    "fbanet_attention_variant_wgmma_stage": [_I] * 6,
     # K8: K2's pointers (W2^T for w2 on the wgmma form), then B, H, W, C,
     # Ch, variant, and the plan: tile rows (0: the first kernel), tile
     # columns, hidden chunk; stream

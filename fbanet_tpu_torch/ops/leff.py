@@ -33,9 +33,9 @@ K2 has two forms, entered from `csrc/leff.cu`: the wgmma form
 (`csrc/leff_wgmma.cuh`; bf16: TMA-staged W1 and W2^T chunks, wgmma
 products with dense2's sums in registers, the depthwise stage on 16 warps,
 16 x 8 or 8 x 8 tiles) and the first kernel (`csrc/leff.cuh`; 8 x 8
-tiles, WMMA; f32, bf16 shapes the wgmma form does not take, and the base
-of K10's flags). `_leff_plan` picks the form and tile from the shapes
-alone; K8's flags follow it onto either form.
+tiles, WMMA; f32 and bf16 shapes the wgmma form does not take).
+`_leff_plan` picks the form and tile from the shapes alone; K8's and K10's
+flags follow it onto either form.
 
 K4 has two forms in `csrc/leff_bwd.cu`: the wgmma form (bf16: TMA-staged
 weight chunks, wgmma products, 16 warps on the depthwise stages, 16 x 8 or

@@ -13,8 +13,8 @@ parameters, as the script:
   residual);
 - leff: K2 (`ops.leff.fused_leff`, no residual);
 - ablate: K9 full / nosoftmax / nocore / notrans and K10 full / nogelu /
-  nodw, each line with its delta from `full` (the time the removed stage
-  costs, and its share of the kernel).
+  nodw (K10 on both of K2's forms), each line with its delta from `full`
+  (the time the removed stage costs, and its share of the kernel).
 
 Every line is the script's: name, ms per call, GFLOP of the unablated
 function, TFLOP/s. `time_fn` times with CUDA events: three warm-up calls,
@@ -44,17 +44,26 @@ The ablation kernels (wrong math by design; they bound where the time goes):
   rounded to bf16), and so does the plain version; the kernel's `full` is
   the instantiation of K1's first kernel, which divides after it
   (attention_pallas.py:217-223). The two differ by bf16 rounding only, within the bf16 limit.
-- K10, `ablation_leff` (csrc/leff.cu, fbanet_leff_ablation): K2's bf16
-  kernel, no residual, as `_leff_abl_kernel` (measure_swin_rates.py:
+- K10, `ablation_leff` (csrc/leff_ablation.cu, fbanet_leff_ablation): K2
+  in bf16, no residual, as `_leff_abl_kernel` (measure_swin_rates.py:
   253-293): nogelu (both GELUs become x * 0.7), nodw (no depthwise 3x3:
-  h2 = act(h1) on the tile's own tokens). Plain version `abl_leff`.
+  h2 = act(h1) on the tile's own tokens). Its variants are flags of the
+  form K2's own plan picks for the map (`leff_plan`: K2's wgmma form,
+  csrc/leff_wgmma.cuh, NOGELU / NODW, at the five groups; its first
+  kernel, leff.cuh, at the shapes the plan keeps there) or of the form of
+  an explicit `plan`; `ablate` times them under K2's plan (`abl-leff/`
+  lines) and on K2's first kernel (`_K2_BASE_PLAN`, `abl-leff-base/`
+  lines), so that one run answers for both forms. Plain version
+  `abl_leff`.
 
 Each kernel's variants are flags of a production kernel, so `full` is
-bitwise K1's first kernel (K10: K2's; the plans keep both for f32 and the
-shapes their wgmma forms do not take, so the stage shares describe those
-forms) and each variant is that kernel minus one stage.
+bitwise K1's first kernel (K9) or K2 on the form it runs on (K10), and
+each variant is that kernel minus one stage: K9's stage shares describe
+K1's first kernel (the plan keeps it for f32 and the shapes K1's wgmma
+form does not take), K10's both of K2's forms.
 On the card each wrapper launches its kernel or raises; on the CPU (or with
-`plain=True`) it runs the plain version. `.launches` counts kernel launches.
+`plain=True`) it runs the plain version. `.launches` counts kernel launches,
+`ablation_leff.wgmma` / `.base` K10's per form.
 """
 
 from __future__ import annotations
@@ -64,6 +73,7 @@ import functools
 import statistics
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -77,7 +87,13 @@ from fbanet_tpu_torch.ops.attention import (
     window_partition,
     window_reverse,
 )
-from fbanet_tpu_torch.ops.leff import _taps, fused_leff
+from fbanet_tpu_torch.ops.leff import (
+    _K2_BASE_PLAN,
+    _kernel_leff_smem,
+    _leff_plan,
+    _taps,
+    fused_leff,
+)
 from fbanet_tpu_torch.ops.leff import _kernel_args as _leff_kernel_args
 from fbanet_tpu_torch.ops.norm import layer_norm_f32
 
@@ -301,11 +317,23 @@ def _abl_leff_plain(x, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, b2, *,
 _LEFF_VARIANTS = {(True, True): 0, (False, True): 1, (True, False): 2}
 
 
+def leff_plan(x, ch: int, smem=_kernel_leff_smem):
+    """The form of K2's flags (K10 here, K8 in measure_swin_variants) for a
+    bf16 map x [B, H, W, C] with hidden width ch: K2's own plan for it
+    (`_leff_plan`, with the kernel's shared memory or `smem`, its Python
+    model), so that each variant runs on the form K2 runs on at that
+    shape."""
+    return _leff_plan(*x.shape, ch, True, smem=smem)
+
+
 def ablation_leff(x, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, b2, *,
-                  gelu: bool = True, dw: bool = True,
-                  plain: bool = False) -> torch.Tensor:
-    """K10 on a bf16 CUDA map [B, H, W, C] (at most one stage off), or its
-    plain version for CPU tensors or with `plain=True`."""
+                  gelu: bool = True, dw: bool = True, plain: bool = False,
+                  plan=None) -> torch.Tensor:
+    """K10 on a bf16 CUDA map [B, H, W, C] (at most one stage off) under
+    `plan` (default K2's own `_leff_plan` for the map, the wgmma form at
+    the five groups; `_K2_BASE_PLAN` for the first kernel), or its plain
+    version for CPU tensors or with `plain=True`. `full` is K2's own
+    instantiation of the plan's form."""
     if (gelu, dw) not in _LEFF_VARIANTS:
         raise ValueError("ablation_leff takes one stage off at a time")
     if plain or x.device.type == "cpu":
@@ -314,36 +342,45 @@ def ablation_leff(x, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, b2, *,
     b, h, w, c = x.shape
     ch = w1.shape[0]
     if (x.device.type != "cuda" or x.dtype != torch.bfloat16
-            or not x.is_contiguous() or tuple(wdw.shape) != (ch, 1, 3, 3)):
+            or not x.is_contiguous() or tuple(wdw.shape) != (ch, 1, 3, 3)
+            or c % 16 or ch % 16):
         raise ValueError(f"ablation_leff kernel does not take x "
                          f"{tuple(x.shape)} {x.dtype} {x.device}, hidden "
-                         f"{ch}: a contiguous bfloat16 CUDA map")
-    lib = _build.library()
-    if lib.fbanet_leff_smem(c, ch, 1) == 0:
-        raise ValueError(f"ablation_leff kernel does not take C={c}, hidden "
-                         f"{ch}: both must be multiples of 16")
+                         f"{ch}: a contiguous bfloat16 CUDA map, C and the "
+                         f"hidden width multiples of 16")
+    if plan is None:
+        plan = leff_plan(x, ch)
     args = _leff_kernel_args(x, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, b2)
+    if plan[0]:  # W2 as W2^T [Ch, C], as K2's wgmma form takes it
+        args[6] = w2.t().to(device=x.device, dtype=x.dtype,
+                            memory_format=torch.contiguous_format)
     out = torch.empty_like(x)
-    err = lib.fbanet_leff_ablation(
+    err = _build.library().fbanet_leff_ablation(
         x.data_ptr(), out.data_ptr(), *[a.data_ptr() for a in args],
-        b, h, w, c, ch, _LEFF_VARIANTS[(gelu, dw)],
-        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "ablation_leff")
+        b, h, w, c, ch, _LEFF_VARIANTS[(gelu, dw)], *plan, _build.stream(x))
+    _build.check(err, f"ablation_leff (x {tuple(x.shape)}, plan {plan})")
+    form = ablation_leff.wgmma if plan[0] else ablation_leff.base
+    form.launches += 1
     ablation_leff.launches += 1
     return out
 
 
 ablation_leff.launches = 0
+# launch counts per form, kept as the wrappers keep theirs
+ablation_leff.wgmma = SimpleNamespace(launches=0)
+ablation_leff.base = SimpleNamespace(launches=0)
 
 
-def abl_leff(c: int, res: int, *, gelu: bool = True, dw: bool = True):
+def abl_leff(c: int, res: int, *, gelu: bool = True, dw: bool = True,
+             plan=None):
     """The script's factory: call(x, lns, lnb, w1, b1, wdw, bdw, w2, b2)
     runs K10 (or its plain version on the CPU) on a [batch, res, res, c]
-    map."""
+    map, under K2's plan or `plan`."""
     def call(x, *params, plain: bool = False):
         if tuple(x.shape[1:]) != (res, res, c):
             raise ValueError(f"abl_leff({c}, {res}) got x {tuple(x.shape)}")
-        return ablation_leff(x, *params, gelu=gelu, dw=dw, plain=plain)
+        return ablation_leff(x, *params, gelu=gelu, dw=dw, plain=plain,
+                             plan=plan)
     return call
 
 
@@ -407,20 +444,25 @@ def main(argv=None) -> dict:
                 leff_gflops(c, res))
 
     if "ablate" in what:
-        for kind, table, make, gflops in (
-                ("attn", ATTN_ABLATIONS, abl_attention, attn_gflops),
-                ("leff", LEFF_ABLATIONS, abl_leff, leff_gflops)):
+        # K9 on K1's first kernel; K10 on the form K2's plan picks, then on
+        # K2's first kernel (`abl-leff-base/`)
+        runs = [("abl-attn", ATTN_ABLATIONS, attn_gflops,
+                 lambda c, res, heads, kw: abl_attention(c, res, heads, **kw),
+                 lambda c, res, heads: attn_args(c, res, heads))]
+        for prefix, plan in (("abl-leff", None),
+                             ("abl-leff-base", _K2_BASE_PLAN)):
+            runs.append((prefix, LEFF_ABLATIONS, leff_gflops,
+                         lambda c, res, heads, kw, plan=plan: abl_leff(
+                             c, res, plan=plan, **kw),
+                         lambda c, res, heads: leff_args(c, res)))
+        for prefix, table, gflops, make, inputs in runs:
             for name, c, res, heads in groups:
-                if kind == "attn":
-                    a = attn_args(c, res, heads)
-                    fns = [make(c, res, heads, **kw) for _v, kw in table]
-                else:
-                    a = leff_args(c, res)
-                    fns = [make(c, res, **kw) for _v, kw in table]
+                a = inputs(c, res, heads)
                 gf = gflops(c, res)
                 full = None
-                for (vname, _kw), fn in zip(table, fns):
-                    t = run(f"abl-{kind}/{name} {vname}", fn, a, gf)
+                for vname, kw in table:
+                    t = run(f"{prefix}/{name} {vname}",
+                            make(c, res, heads, kw), a, gf)
                     if full is None:
                         full = t
                     else:

@@ -9,19 +9,28 @@ At the five SwinGroup shapes of the published model (the groups, inputs,
 B = 8 and line format of `tools/measure_swin_rates.py`, which this tool
 reuses):
 
-- K7 (`variant_attention`, csrc/attention_variants.cu): K1's function,
-  mask-free, no residual, with the per-head stage as `loop` (one head at a
-  time, softmax normalised before AV), `loop_ln` (K1's own order: the
-  division by the row sum after AV; bitwise K1's first kernel, which the
-  plan keeps for f32 and the shapes K1's wgmma form does not take),
-  `stack3d` / `stack3d_ln`
-  (the heads of a chunk through each stage together: one barrier per stage
-  instead of one per head), `lanepack` (heads in pairs, 2n-wide softmax
-  rows, block-diagonal keys and values; even head counts), plus `ln+qkv1`
-  (stack3d_ln with q, k, v from one [3 gw, C] weight panel) and, at enc0,
-  `ln+nr2` (two windows per block). The TPU script's default `nr` (rows of
-  windows per grid step, picked by its VMEM budget) has no Hopper
-  counterpart: a block here runs one window unless told otherwise.
+- K7 (`variant_attention`): K1's function, mask-free, no residual, with
+  the per-head stage as `loop` (softmax normalised before AV), `loop_ln`
+  (K1's own order: the division by the row sum after AV), `stack3d` /
+  `stack3d_ln` (heads stacked through each stage together), `lanepack`
+  (heads in pairs, 2n-wide softmax rows, block-diagonal keys and values;
+  even head counts), plus `ln+qkv1` (stack3d_ln with q, k, v from one
+  weight panel) and, at enc0, `ln+nr2` (two windows per block). The cores
+  run on the form K1's own plan picks for the shape (`attention_plan`:
+  K1's wgmma form, csrc/attention_variants_wgmma.cu, the CORE parameter of
+  attention_wgmma.cuh, at the five groups; its first kernel,
+  csrc/attention_variants.cu, at the shapes the plan keeps there, or where
+  a core's layout does not fit the wgmma form) or on the form of an
+  explicit `plan`. On the wgmma form loop_ln is K1's own instantiation;
+  stack3d(_ln) takes a warpgroup's heads two at a time (one logits and
+  one p v wait per pair) and is loop(_ln) where a warpgroup holds one
+  head (enc0, enc1); ln+qkv1 is stack3d_ln, since the form forms q | k | v
+  in one product already; ln+nr2 is K1's plan with 2 windows per block;
+  lanepack keeps k and v as [k_a, 0, k_b] per pair, so each block-diagonal
+  operand is one 128-row wgmma operand (`wgmma_core`, `heads_per_stage`,
+  `_variant_smem` model what the kernel runs and needs). On the first
+  kernel the cores are pieces of K1's first kernel (a chunk of heads per
+  stacked stage, qkv1 one [3 gw, C] panel, `nr` windows per block).
 - K8 (`variant_leff`, csrc/leff_variants.cu): K2's function, no residual,
   with the depthwise 3x3 (`dwbf16`), both GELUs (`gelubf16`) or both
   (`bothbf16`) in packed bf16 arithmetic (`__nv_bfloat162`, two hidden
@@ -31,23 +40,27 @@ reuses):
   at the shapes the plan keeps there, or the form of an explicit `plan`.
   With no flag it is K2's instantiation of that form.
 
-Modes: `check` holds every K7 core to the `loop` kernel within the script's
-limit, max(4e-3, 2 * 2^-8 * max |out|) (two bf16 ulps at the output's
-scale: the cores sum in another order, and late normalisation rounds the
-probabilities elsewhere), says which are bitwise equal to it, and holds each
-K8 variant within 0.05 of K8 with no flag (the script's limit for trading
-precision for packing); `time` (`time-attn`, `time-leff`) prints the
-script's lines `var/<group> <core>` and `leffvar/<group> <variant>`, each
-beside `prod` (K1, or K8 with no flag), and `leffvar-base/<group>
-<variant>`, K8 on K2's first kernel (`_K2_BASE_PLAN`), so that both forms'
-answers come from one run. Times are CUDA-event medians
-(`measure_swin_rates.time_fn`). With `--device cpu` the same modes run the
-plain versions on the host (CPU numbers; the header names the device).
+Modes: `check` holds every K7 core to the `loop` kernel of the same form
+(`check` lines: K1's plan; `check-base`: K1's first kernel) within the
+script's limit, max(4e-3, 2 * 2^-8 * max |out|) (two bf16 ulps at the
+output's scale: the cores sum in another order, and late normalisation
+rounds the probabilities elsewhere), says which are bitwise equal to it,
+and holds each K8 variant within 0.05 of K8 with no flag (the script's
+limit for trading precision for packing); `time` (`time-attn`,
+`time-leff`) prints the script's lines `var/<group> <core>` and
+`leffvar/<group> <variant>`, each beside `prod` (K1, or K8 with no flag),
+and `var-base/<group> <core>` / `leffvar-base/<group> <variant>`, K7 / K8
+on K1's / K2's first kernel (`_K1_BASE_PLAN` / `_K2_BASE_PLAN`, beside
+that kernel as `prod`), so that both forms' answers come from one run.
+Times are CUDA-event medians (`measure_swin_rates.time_fn`). With
+`--device cpu` the same modes run the plain versions on the host (CPU
+numbers; the header names the device).
 
 On the card each wrapper launches its kernel or raises, naming the shape;
 on the CPU (or with `plain=True`) it runs the plain version below, which
 follows the script's `_var_kernel` / `_leff_var_kernel`. `.launches`
-counts kernel launches, `leff_variant.wgmma` / `.base` K8's per form.
+counts kernel launches, `attention_variant.wgmma` / `.base` and
+`leff_variant.wgmma` / `.base` K7's and K8's per form.
 """
 
 from __future__ import annotations
@@ -62,20 +75,20 @@ import torch.nn.functional as F
 
 from fbanet_tpu_torch.ops import _build
 from fbanet_tpu_torch.ops.attention import (
+    _K1_BASE_PLAN,
+    _attention_launch,
+    _attention_plan,
+    _attention_smem,
+    _forward_operands,
     _kernel_args,
+    _kernel_attention_smem,
     _rounded,
     fused_window_attention_2d,
     window_attention_reference,
     window_partition,
     window_reverse,
 )
-from fbanet_tpu_torch.ops.leff import (
-    _K2_BASE_PLAN,
-    _kernel_leff_smem,
-    _leff_plan,
-    _taps,
-    leff_reference,
-)
+from fbanet_tpu_torch.ops.leff import _K2_BASE_PLAN, _taps, leff_reference
 from fbanet_tpu_torch.ops.leff import _kernel_args as _leff_kernel_args
 from fbanet_tpu_torch.ops.norm import layer_norm_f32
 from fbanet_tpu_torch.tools.measure_swin_rates import (
@@ -223,13 +236,98 @@ def _var_attention_plain(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
     return window_reverse(out, WS, h, w).to(cd)
 
 
+# K7 on K1's wgmma form: the (head size, warpgroups, staged) triples it is
+# built for, those `_attention_plan` picks at the five groups
+# (csrc/attention_variants_wgmma.cu)
+_K7_TRIPLES = ((64, 2, 1), (64, 4, 1), (16, 4, 0), (16, 4, 1))
+
+
+def _variant_smem(n: int, c: int, heads: int, cid: int, nwg: int,
+                  staged: int) -> int:
+    """Dynamic shared memory of K7's core `cid` on K1's wgmma form, or 0
+    for a shape it does not take: a model of the kernel's
+    `fbanet_attention_variant_wgmma_smem` (AfLayout in
+    csrc/attention_wgmma.cuh: K1's layout, or for lanepack k and v as 1.5
+    tensors each with zero tiles between the heads of a pair and no mask)
+    for planning without the card; chip_smoke.py holds the two equal."""
+    if (n != N or c % 64 or c > 256 or heads < 1 or c % heads
+            or cid not in _CORE_IDS.values()):
+        return 0
+    if (c // heads, nwg, staged) not in _K7_TRIPLES or (
+            cid == _CORE_IDS["lanepack"] and heads % 2):
+        return 0
+    if cid != _CORE_IDS["lanepack"]:
+        return _attention_smem(n, c, heads, nwg, staged)
+    weights = 8 * c * c if staged else nwg * 4 * 4096
+    total = 5 * 128 * c + weights + 8 * (1 if staged else nwg * 4) + 1024
+    return total if total <= 232448 else 0
+
+
+def _kernel_variant_smem(n, c, heads, cid, nwg, staged) -> int:
+    """The kernel's own `fbanet_attention_variant_wgmma_smem` (builds the
+    library on first use)."""
+    return _build.library().fbanet_attention_variant_wgmma_smem(
+        n, c, heads, cid, nwg, staged)
+
+
+def attention_plan(x4, heads: int, core: str = "loop",
+                   smem=_kernel_attention_smem, vsmem=_kernel_variant_smem):
+    """K7's form for a bf16 map x4 [B, H, W, C]: K1's own plan for it
+    (`_attention_plan`, with the kernel's shared memory or `smem`, its
+    model) where K7 builds that form and `core` fits it (`vsmem`: the
+    kernel's `fbanet_attention_variant_wgmma_smem` or `_variant_smem`),
+    else K1's first kernel, `_K1_BASE_PLAN`."""
+    b, h, w, c = x4.shape
+    plan = _attention_plan(b, h, w, c, heads, WS, True, smem=smem)
+    if plan[0] and vsmem(N, c, heads, _CORE_IDS[core], plan[0],
+                         plan[2]) == 0:
+        return _K1_BASE_PLAN
+    return plan
+
+
+def wgmma_core(core: str, c: int, heads: int, nwg: int) -> str:
+    """The core whose instantiation runs `core` on K1's wgmma form with
+    `nwg` warpgroups (the kernel's `variant_core`): stack3d(_ln) is
+    loop(_ln) where a warpgroup holds one head, and at head size 64;
+    ln+qkv1 reaches this as stack3d_ln (the form forms q | k | v in one
+    product already)."""
+    if core in ("stack3d", "stack3d_ln") and (
+            c // heads != 16 or -(-heads // nwg) < 2):
+        return core.replace("stack3d", "loop")
+    return core
+
+
+def heads_per_stage(core: str, c: int, heads: int, nwg: int) -> int:
+    """Heads a warpgroup takes through each stage of `core` on the wgmma
+    form (the kernel's `fbanet_attention_variant_wgmma_stage`)."""
+    return 1 if wgmma_core(core, c, heads, nwg) in ("loop", "loop_ln") \
+        else 2
+
+
+def variant_launch(core: str, qkv1: bool, nr, c: int, heads: int, plan):
+    """(the core whose instantiation runs, its qkv1 flag, windows per
+    block) of K7 under `plan`: on the wgmma form `wgmma_core`'s core without
+    qkv1 (the form forms q | k | v in one product, so ln+qkv1 is
+    stack3d_ln) and `nr` or the plan's windows per block; on the first
+    kernel the core and flag as given and `nr` or one."""
+    nwg, wpb, _staged = plan
+    if nwg:
+        return wgmma_core(core, c, heads, nwg), False, nr or wpb
+    return core, qkv1, nr or 1
+
+
 def attention_variant(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
                       bias, *, heads: int, core: str, qkv1: bool = False,
-                      nr: int = 1, plain: bool = False) -> torch.Tensor:
+                      nr: int | None = None, plain: bool = False,
+                      plan=None) -> torch.Tensor:
     """K7 on a bf16 CUDA map [B, H, W, C] (window 8, mask-free, no
-    residual): `core` one of CORES, `qkv1` with stack3d_ln only, `nr`
-    windows per block; or its plain version for CPU tensors or with
-    `plain=True`. Weights in torch Linear layouts, bias [heads, n, n]."""
+    residual) under `plan` (default `attention_plan`: K1's own plan, the
+    wgmma form at the five groups; `_K1_BASE_PLAN` for the first kernel),
+    or its plain version for CPU tensors or with `plain=True`. `core` one of
+    CORES, `qkv1` with stack3d_ln only (on the wgmma form that is
+    stack3d_ln itself), `nr` windows per block (default: the plan's, one on
+    the first kernel). Weights in torch Linear layouts, bias [heads, n,
+    n]."""
     if core not in CORES or (qkv1 and core != "stack3d_ln"):
         raise ValueError(f"attention_variant has no core {core!r} with "
                          f"qkv1={qkv1} (qkv1 goes with stack3d_ln)")
@@ -240,51 +338,78 @@ def attention_variant(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
     b, h, w, c = x4.shape
     windows = b * (h // WS) * (w // WS)
     if (x4.device.type != "cuda" or x4.dtype != torch.bfloat16
-            or not x4.is_contiguous() or h % WS or w % WS
-            or windows % nr):
+            or not x4.is_contiguous() or h % WS or w % WS or c % heads):
         raise ValueError(
             f"attention_variant kernel does not take x {tuple(x4.shape)} "
-            f"{x4.dtype} {x4.device}, nr={nr}: a contiguous bfloat16 CUDA "
-            f"map with H, W multiples of {WS} and nr dividing its windows")
+            f"{x4.dtype} {x4.device}, heads={heads}: a contiguous bfloat16 "
+            f"CUDA map with H, W multiples of {WS} and C of heads")
+    if plan is None:
+        plan = attention_plan(x4, heads, core)
     lib = _build.library()
+    nwg, _wpb, staged = plan
+    core, qkv1, nr = variant_launch(core, qkv1, nr, c, heads, plan)
     cid = _CORE_IDS[core]
-    smem = lib.fbanet_attention_variant_smem(N, c, heads, cid)
-    if smem == 0:
-        raise ValueError(
-            f"attention_variant kernel does not take C={c}, heads={heads}, "
-            f"core={core}: C and the head size must be multiples of 16 "
-            f"(lanepack: even heads) and a stage must fit shared memory")
-    if core == "lanepack":
-        bias = pack_bias_pairs(bias)
-    args = _kernel_args(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
-                        bias, None)[:-1]
     out = torch.empty_like(x4)
-    err = lib.fbanet_attention_variant(
-        x4.data_ptr(), out.data_ptr(), *[a.data_ptr() for a in args],
-        b, h, w, c, heads, WS, cid, int(qkv1), nr,
-        torch.cuda.current_stream(x4.device).cuda_stream)
-    _build.check(err, "attention_variant")
+    if nwg:
+        if lib.fbanet_attention_variant_wgmma_smem(N, c, heads, cid, nwg,
+                                                   staged) == 0:
+            raise ValueError(
+                f"attention_variant's wgmma form does not take x "
+                f"{tuple(x4.shape)}, heads={heads}, core={core}, plan "
+                f"{plan}: triples (head size, warpgroups, staged) "
+                f"{_K7_TRIPLES}, lanepack with even heads")
+        ptrs, _kept = _forward_operands(x4, ln_scale, ln_bias, wq, bq, wkv,
+                                        bkv, wproj, bproj, bias, None, plan)
+        err = lib.fbanet_attention_variant_wgmma(
+            x4.data_ptr(), out.data_ptr(), *ptrs[:-1], b, h, w, c, heads,
+            WS, cid, nwg, nr, staged, _build.stream(x4))
+        form = attention_variant.wgmma
+    else:
+        if windows % nr:
+            raise ValueError(f"attention_variant kernel does not take x "
+                             f"{tuple(x4.shape)}, nr={nr}: nr must divide "
+                             f"its windows")
+        if lib.fbanet_attention_variant_smem(N, c, heads, cid) == 0:
+            raise ValueError(
+                f"attention_variant kernel does not take C={c}, heads="
+                f"{heads}, core={core}: C and the head size must be multiples "
+                f"of 16 (lanepack: even heads) and a stage must fit shared "
+                f"memory")
+        if core == "lanepack":
+            bias = pack_bias_pairs(bias)
+        args = _kernel_args(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
+                            bproj, bias, None)[:-1]
+        err = lib.fbanet_attention_variant(
+            x4.data_ptr(), out.data_ptr(), *[a.data_ptr() for a in args],
+            b, h, w, c, heads, WS, cid, int(qkv1), nr, _build.stream(x4))
+        form = attention_variant.base
+    _build.check(err, f"attention_variant (x {tuple(x4.shape)}, core "
+                      f"{core}, plan {plan})")
+    form.launches += 1
     attention_variant.launches += 1
     return out
 
 
 attention_variant.launches = 0
+# launch counts per form, kept as the wrappers keep theirs
+attention_variant.wgmma = SimpleNamespace(launches=0)
+attention_variant.base = SimpleNamespace(launches=0)
 
 
 def variant_attention(c: int, res: int, heads: int, core: str, *,
-                      qkv1: bool = False, nr_override: int | None = None):
+                      qkv1: bool = False, nr_override: int | None = None,
+                      plan=None):
     """The script's factory: call(x4, lns, lnb, wq, bq, wkv, bkv, wproj,
     bproj, bias) runs K7 (or its plain version on the CPU) on a
-    [batch, res, res, c] map, mask-free, with `nr_override` windows per
-    block (default 1, K1's)."""
-    nr = nr_override or 1
-
+    [batch, res, res, c] map, mask-free, under K1's plan or `plan`, with
+    `nr_override` windows per block (default the plan's)."""
     def call(x4, *params, plain: bool = False):
         if tuple(x4.shape[1:]) != (res, res, c):
             raise ValueError(f"variant_attention({c}, {res}, {heads}) got x "
                              f"{tuple(x4.shape)}")
         return attention_variant(x4, *params, heads=heads, core=core,
-                                 qkv1=qkv1, nr=nr, plain=plain)
+                                 qkv1=qkv1, nr=nr_override, plain=plain,
+                                 plan=plan)
     return call
 
 
@@ -329,12 +454,8 @@ def _leff_var_plain(x, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, b2, *,
     return (h2 @ _rounded(w2, cd).t() + b2.float()).to(cd)
 
 
-def variant_plan(x, ch: int, smem=_kernel_leff_smem):
-    """K8's form for a bf16 map x [B, H, W, C] with hidden width ch: K2's
-    own plan for it (`_leff_plan`, with the kernel's shared memory or
-    `smem`, its Python model), so that each variant runs on the form K2
-    runs on at that shape."""
-    return _leff_plan(*x.shape, ch, True, smem=smem)
+# K8's form: K2's own plan for the map (the helper K10 shares)
+variant_plan = measure_swin_rates.leff_plan
 
 
 def leff_variant(x, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, b2, *,
@@ -420,30 +541,37 @@ def attention_cases(name: str, c: int, res: int, heads: int):
 
 def check(groups, device: str = "cuda") -> dict:
     """Every K7 variant against the `loop` kernel on two images of the
-    tool's inputs, within max(4e-3, 2 * 2^-8 * max |out|), and whether it
-    is bitwise equal to it; `loop` itself against the plain reference
-    (window_attention_reference: late-normalised, so it differs by bf16
-    rounding). Returns {group/variant: max abs difference}."""
+    tool's inputs, on each form (K1's plan, `check` lines; K1's first
+    kernel, `check-base` lines), within max(4e-3, 2 * 2^-8 * max |out|),
+    and whether it is bitwise equal to it; `loop` itself against the plain
+    reference (window_attention_reference: late-normalised, so it differs
+    by bf16 rounding). Returns {group/variant[ base]: max abs
+    difference}."""
     diffs = {}
     for name, c, res, heads in groups:
         x4, *rest = _attn_args(c, res, heads, batch=2, device=device)
-        oracle = variant_attention(c, res, heads, "loop")(x4, *rest)
         ref = window_reverse(window_attention_reference(
             window_partition(x4, WS), *rest, None, heads=heads), WS, res, res)
-        print(f"check {name} loop vs plain reference: "
-              f"{_max_abs(oracle, ref):.3e} (bf16 rounding)", flush=True)
-        tol = max(4e-3, 2 * 2.0 ** -8 * float(oracle.float().abs().max()))
-        for vname, kw in attention_cases(name, c, res, heads):
-            if vname == "loop":
-                continue
-            core = kw.pop("core")
-            out = variant_attention(c, res, heads, core, **kw)(x4, *rest)
-            diff = diffs[f"{name}/{vname}"] = _max_abs(out, oracle)
-            status = "OK" if diff <= tol else f"DIFF {diff:.3e}"
-            print(f"check {name} {vname:10s}: {status} ({diff:.1e}, tol "
-                  f"{tol:.1e}) bitwise={torch.equal(out, oracle)}",
-                  flush=True)
-            assert diff <= tol, (name, vname, diff)
+        for tag, plan in (("check", None), ("check-base", _K1_BASE_PLAN)):
+            key = "" if plan is None else " base"
+            oracle = variant_attention(c, res, heads, "loop", plan=plan)(
+                x4, *rest)
+            print(f"{tag} {name} loop vs plain reference: "
+                  f"{_max_abs(oracle, ref):.3e} (bf16 rounding)", flush=True)
+            tol = max(4e-3, 2 * 2.0 ** -8 * float(oracle.float().abs().max()))
+            for vname, kw in attention_cases(name, c, res, heads):
+                if vname == "loop":
+                    continue
+                kw = dict(kw)
+                core = kw.pop("core")
+                out = variant_attention(c, res, heads, core, plan=plan,
+                                        **kw)(x4, *rest)
+                diff = diffs[f"{name}/{vname}{key}"] = _max_abs(out, oracle)
+                status = "OK" if diff <= tol else f"DIFF {diff:.3e}"
+                print(f"{tag} {name} {vname:10s}: {status} ({diff:.1e}, tol "
+                      f"{tol:.1e}) bitwise={torch.equal(out, oracle)}",
+                      flush=True)
+                assert diff <= tol, (tag, name, vname, diff)
     return diffs
 
 
@@ -466,6 +594,15 @@ def check_leff(groups, device: str = "cuda") -> dict:
                   f"{_max_abs(out, ref):.3e}", flush=True)
             assert d_prod <= 0.05, (name, vname, d_prod)
     return diffs
+
+
+def _first_kernel(args, heads: int):
+    """K1's first kernel (mask-free, no residual) on the tool's inputs; its
+    plain version on the CPU."""
+    if args[0].device.type == "cpu":
+        return fused_window_attention_2d(*args, None, heads=heads,
+                                         window_size=WS)
+    return _attention_launch(*args, None, heads, WS, False, _K1_BASE_PLAN)
 
 
 def main(argv=None) -> dict:
@@ -501,6 +638,14 @@ def main(argv=None) -> dict:
                     kw = dict(kw)
                     run(f"var/{name} {vname}", variant_attention(
                         c, res, heads, kw.pop("core"), **kw), a, gf)
+                # the same cores on K1's first kernel, beside it
+                run(f"var-base/{name} prod",
+                    lambda *t, heads=heads: _first_kernel(t, heads), a, gf)
+                for vname, kw in attention_cases(name, c, res, heads):
+                    kw = dict(kw)
+                    run(f"var-base/{name} {vname}", variant_attention(
+                        c, res, heads, kw.pop("core"), plan=_K1_BASE_PLAN,
+                        **kw), a, gf)
         if mode in ("time", "time-leff"):
             for name, c, res, _heads in groups:
                 a = _leff_args(c, res, device=dev)

@@ -195,7 +195,8 @@ def test_rates_tool_runs_on_the_cpu(tiny_tools, capsys):
     assert sorted(ms) == sorted(
         ["attn/enc0_c32@16h2", "leff/enc0_c32@16"]
         + [f"abl-attn/enc0 {v}" for v, _ in measure_swin_rates.ATTN_ABLATIONS]
-        + [f"abl-leff/enc0 {v}" for v, _ in measure_swin_rates.LEFF_ABLATIONS])
+        + [f"{prefix}/enc0 {v}" for prefix in ("abl-leff", "abl-leff-base")
+           for v, _ in measure_swin_rates.LEFF_ABLATIONS])
     assert all(np.isfinite(v) and v > 0 for v in ms.values())
     assert "full - nocore:" in out and "full - nodw:" in out
     assert measure_swin_rates.ablation_attention.launches == 0

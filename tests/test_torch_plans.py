@@ -18,7 +18,11 @@ import torch
 
 from fbanet_tpu_torch.ops import attention, leff
 from fbanet_tpu_torch.ops.reduce import column_sum
-from fbanet_tpu_torch.tools import measure_bwd, measure_swin_variants
+from fbanet_tpu_torch.tools import (
+    measure_bwd,
+    measure_swin_rates,
+    measure_swin_variants,
+)
 
 SMEM_LIMIT, SMS, WS = 232448, 132, 8
 # (H, C, heads) of the five SwinGroups at 160 px: enc0, enc1, bott, dec0,
@@ -382,3 +386,130 @@ def test_k11_and_k8_refuse_off_the_card():
         with pytest.raises(ValueError, match=r"\(1, 16, 16, 64\)"):
             measure_swin_variants.leff_variant(x, *lp, dw_bf16=True,
                                                plan=plan)
+
+
+# K2's form per group: 16 x 8 tiles where the pieces fit (C <= 128), 8 x 8
+# at C = 256, 64-wide hidden chunks
+K2_FORM = {"enc0": (16, 8, 64), "enc1": (16, 8, 64), "bott": (8, 8, 64),
+           "dec0": (8, 8, 64), "dec1": (16, 8, 64)}
+
+
+@pytest.mark.parametrize("h,c,heads", GROUPS, ids=IDS)
+def test_k10_takes_k2s_form(h, c, heads, request):
+    """K10 runs each ablation on the form K2's own plan gives the map: the
+    wgmma form at every group (16 x 8 x 64 at enc0, enc1, dec1; 8 x 8 x 64
+    at bott, dec0); the first kernel at C = 32, which it does not take."""
+    ch = 4 * c
+    x = torch.empty(8, h, h, c, device="meta", dtype=torch.bfloat16)
+    plan = measure_swin_rates.leff_plan(x, ch, smem=leff._leff_smem)
+    assert plan == leff._leff_plan(8, h, h, c, ch)
+    assert plan == K2_FORM[request.node.callspec.id.split("-")[-1]]
+    x32 = torch.empty(8, 16, 16, 32, device="meta", dtype=torch.bfloat16)
+    assert measure_swin_rates.leff_plan(
+        x32, 128, smem=leff._leff_smem) == leff._K2_BASE_PLAN
+
+
+def _k7_plan(x, heads, core):
+    return measure_swin_variants.attention_plan(
+        x, heads, core, smem=attention._attention_smem,
+        vsmem=measure_swin_variants._variant_smem)
+
+
+@pytest.mark.parametrize("batch", [2, 8])
+@pytest.mark.parametrize("h,c,heads", GROUPS, ids=IDS)
+def test_k7_takes_k1s_form(h, c, heads, batch):
+    """K7 runs every core on the form K1's own plan gives the map (the
+    wgmma form, with its windows per block, at every group; lanepack where
+    the heads pair up, its layout within the H100's 227 KB); ln+nr2 is
+    that plan with 2 windows per block."""
+    mv = measure_swin_variants
+    x = torch.empty(batch, h, h, c, device="meta", dtype=torch.bfloat16)
+    k1 = attention._attention_plan(batch, h, h, c, heads)
+    assert k1[0] > 0
+    for core, cid in mv._CORE_IDS.items():
+        if core == "lanepack" and heads % 2:
+            assert _k7_plan(x, heads, core) == attention._K1_BASE_PLAN
+            continue
+        assert _k7_plan(x, heads, core) == k1
+        smem = mv._variant_smem(64, c, heads, cid, k1[0], k1[2])
+        assert 0 < smem <= SMEM_LIMIT
+        if core != "lanepack":
+            assert smem == attention._attention_smem(64, c, heads, k1[0],
+                                                     k1[2])
+    nwg, _wpb, staged = k1
+    assert mv.variant_launch("stack3d_ln", False, 2, c, heads, k1)[2] == 2
+    assert mv.variant_launch("loop", False, None, c, heads, k1)[2] == k1[1]
+    assert (c // heads, nwg, staged) in mv._K7_TRIPLES
+
+
+def test_k7_lanepack_layout_adds_half_a_tensor_to_k_and_v():
+    """lanepack's layout on the wgmma form: K1's less the mask, plus a zero
+    head tile per pair in k and in v (half a 64 x C bf16 tensor each):
+    230,528 bytes at C = 256 streamed, 214,024 at C = 128 staged."""
+    mv = measure_swin_variants
+    lp = mv._CORE_IDS["lanepack"]
+    assert mv._variant_smem(64, 256, 16, lp, 4, 0) == 230528
+    assert mv._variant_smem(64, 128, 8, lp, 4, 1) == 214024
+    assert mv._variant_smem(64, 128, 2, lp, 4, 1) == 214024
+    assert mv._variant_smem(64, 128, 3, lp, 4, 1) == 0  # odd heads
+
+
+def test_k7_keeps_the_first_kernel_where_k1_does():
+    """Head size 32, C = 96 and 49-token windows stay on K1's first kernel
+    (K1's plan keeps them there; K7's wgmma form builds none of them), and
+    a triple K7 does not build (head size 16, two warpgroups) too."""
+    mv = measure_swin_variants
+    for c, heads in ((64, 2), (96, 6), (96, 3)):
+        x = torch.empty(8, 80, 80, c, device="meta", dtype=torch.bfloat16)
+        for core in mv.CORES:
+            assert _k7_plan(x, heads, core) == attention._K1_BASE_PLAN
+    for cid in mv._CORE_IDS.values():
+        assert mv._variant_smem(49, 64, 1, cid, 2, 1) == 0
+        assert mv._variant_smem(64, 64, 4, cid, 2, 1) == 0
+    x = torch.empty(8, 80, 80, 64, device="meta", dtype=torch.bfloat16)
+    assert attention._attention_plan(8, 80, 80, 64, 4)[0] == 2
+    assert _k7_plan(x, 4, "loop") == attention._K1_BASE_PLAN
+
+
+def test_k7_core_to_instantiation():
+    """ln+qkv1 is stack3d_ln on the wgmma form (one q | k | v product
+    already) and keeps its flag on the first kernel; stack3d(_ln) is
+    loop(_ln) where a warpgroup holds one head (enc0, enc1: head size 64),
+    and stacks two heads per stage at head size 16 (bott, dec0: four heads
+    per warpgroup; dec1: two)."""
+    mv = measure_swin_variants
+    base = attention._K1_BASE_PLAN
+    assert mv.variant_launch("stack3d_ln", True, None, 256, 16,
+                             (4, 2, 0)) == ("stack3d_ln", False, 2)
+    assert mv.variant_launch("stack3d_ln", True, None, 256, 16,
+                             base) == ("stack3d_ln", True, 1)
+    for c, heads, nwg, one in ((64, 1, 2, True), (128, 2, 4, True),
+                               (256, 16, 4, False), (128, 8, 4, False),
+                               (64, 4, 4, True)):
+        for core in ("stack3d", "stack3d_ln"):
+            want = core.replace("stack3d", "loop") if one else core
+            assert mv.wgmma_core(core, c, heads, nwg) == want
+            assert mv.heads_per_stage(core, c, heads, nwg) == (1 if one
+                                                               else 2)
+        assert mv.heads_per_stage("loop", c, heads, nwg) == 1
+        assert mv.wgmma_core("lanepack", c, heads, nwg) == "lanepack"
+
+
+def test_k10_and_k7_refuse_off_the_card():
+    """K10's and K7's wrappers take CUDA tensors only, on either form and
+    with the default plan: any other device gets an error naming the
+    shape, never the plain version."""
+    c, ch = 64, 256
+    x = torch.empty(1, 16, 16, c, device="meta", dtype=torch.bfloat16)
+    lp = [torch.empty(s, device="meta") for s in (
+        (c,), (c,), (ch, c), (ch,), (ch, 1, 3, 3), (ch,), (c, ch), (c,))]
+    for plan in (leff._K2_FORMS[0], leff._K2_BASE_PLAN, None):
+        with pytest.raises(ValueError, match=r"\(1, 16, 16, 64\)"):
+            measure_swin_rates.ablation_leff(x, *lp, dw=False, plan=plan)
+    ap = [torch.empty(s, device="meta") for s in (
+        (c,), (c,), (c, c), (c,), (2 * c, c), (2 * c,), (c, c), (c,),
+        (1, 64, 64))]
+    for plan in ((2, 1, 1), attention._K1_BASE_PLAN, None):
+        with pytest.raises(ValueError, match=r"\(1, 16, 16, 64\)"):
+            measure_swin_variants.attention_variant(
+                x, *ap, heads=1, core="stack3d", plan=plan)
