@@ -43,8 +43,9 @@ non-zero:
    the bound per shape and summed (tools/measure_reduce.py).
 6. registration: K5 (homography warp) and K6 (dense-coords warp) against
    their plain versions on the published burst, B=8 x 13 non-reference
-   frames of 160 x 160 x 3 f32, nearest and constant mode (K6 at the three
-   ECC pyramid sizes, and its general kernel at one channel at 40 px),
+   frames of 160 x 160 x 3 f32, nearest and constant mode, with a bitwise
+   repeat (K5's and K6's C = 3 kernels; K6 at the three ECC pyramid
+   sizes; their general kernels at one channel, K5 at 160 px, K6 at 40),
    timed beside one grid_sample call each, per call (CUDA events) and on
    the device (torch.profiler). Then
    `align_burst(motion="homography")` at B=8, 3 levels x 25 iterations, on
@@ -80,16 +81,17 @@ non-zero:
    entry) against the plain backward on every gradient plus a bitwise
    repeat. K9, K10 and K11, every variant, against their plain versions on
    the tools' B=8 inputs (bf16, 3e-2 of max(1, |out|)), each `full`
-   bitwise against the kernel its flags are built on on the same inputs:
-   K9 on K1's first kernel; K10 and K11 on both forms of K2 / K3 (the
-   wgmma form their plans pick, every variant also bitwise on a repeat
-   and with its device ms per group (K10: on both forms), `full` bitwise
-   equal to K2 / K3's windowed entry under that plan; and the first
-   kernel through an explicit plan, `full` bitwise equal to it).
+   bitwise against the kernel its flags are built on on the same inputs,
+   on both forms of K1 / K2 / K3 (the wgmma form their plans pick, every
+   variant also bitwise on a repeat and with its device ms per group
+   (K10: on both forms), `full` bitwise equal to K1 under that plan / K2 /
+   K3's windowed entry, K9's notrans to K1b's windowed entry on the map;
+   and the first kernel through an explicit plan, `full` bitwise equal to
+   it); K9's shared memory on K1's plan against the tool's model.
    Then the slice's main path: both kernel-measurement tools at B=8
    (`measure_swin_rates attn leff ablate`, `measure_bwd check groups
-   plainref leffabl merged ablate`, K10's and K11's variants timed on both
-   forms, their tables printed) and K1b forward + backward through
+   plainref leffabl merged ablate`, K9's, K10's and K11's variants timed
+   on both forms, their tables printed) and K1b forward + backward through
    autograd at the five shapes.
 10. variants: K7 (K1's function with its head stage rewritten: loop,
    loop_ln, stack3d, stack3d_ln, lanepack, ln+qkv1, ln+nr2) and K8 (K2's
@@ -110,15 +112,15 @@ non-zero:
    then mfu_forward / mfu_train (`flops_accounting.mfu_fields`) from the
    slice's forward and the train phase's step times.
 
-Each kernel wrapper counts its launches (K1, K2, K3, K7, K8, K10 and
-K11 per form); the counts are set to 0 just before the registration, the CLI
+Each kernel wrapper counts its launches (K1, K2, K3, K7, K8, K9, K10
+and K11 per form); the counts are set to 0 just before the registration, the CLI
 stream, the serving, the training (the B=8 steps, then the f32 B=2 step,
 whose plans send K1, K2 and K3 to their first kernels), the measurement
 and the variant runs and read just after. The line before the last is a JSON object
 {"kernels": [...]} (launches on those runs; error, times and bound from
 phases 3-6, 9 and 10; K7 and K9-K11 also per variant; K1, K2, K3, K7, K8,
-K10 and K11 with their first kernels as entries of their own), preceded by the
-nvidia-smi name/power-limit line; the last line is
+K9, K10 and K11 with their first kernels as entries of their own), preceded
+by the nvidia-smi name/power-limit line; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -815,12 +817,15 @@ def phase_registration(card: str) -> tuple[dict, dict]:
     failures = []
 
     def compare(name, line, fn):
-        got, ref = fn(False), fn(True)
+        got, again, ref = fn(False), fn(False), fn(True)
         torch.cuda.synchronize()
         err, rel = rel_err(got, ref)
+        repeat = torch.equal(got, again)
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
-        line += f": max_abs_err={err:.3e} rel={rel:.3e}"
-        if not (rel <= TOL["float32"]) or not torch.isfinite(got).all():
+        line += (f": max_abs_err={err:.3e} rel={rel:.3e} "
+                 f"bitwise_repeat={repeat}")
+        if not (rel <= TOL["float32"]) or not torch.isfinite(got).all() \
+                or not repeat:
             failures.append(line)
         return line
 
@@ -868,6 +873,16 @@ def phase_registration(card: str) -> tuple[dict, dict]:
                          (n * h * w * (14 + 6 * 3),
                           2 * frames.numel() * 4 + mats.numel() * 4))
         log(line)
+    # K5's general kernel (any C; the C = 3 kernel serves the align) at one
+    # channel
+    fr5 = frames[..., :1].contiguous()
+    for mode in ("nearest", "constant"):
+        def k5c1(plain, mode=mode):
+            return wk.warp_burst_bilinear(fr5, mats, mode=mode, cval=0.5,
+                                          plain=plain)
+        log(compare("K5", f"K5 warp_burst_bilinear {n}x{h}x{w}x1 {mode}",
+                    k5c1))
+    del fr5
     # K6 at the three pyramid sizes, on positions of the same homographies
     for lvl in range(REG_LEVELS):
         s = REG_SIZE >> lvl
@@ -1203,7 +1218,7 @@ def ablation_work(kernel, variant, h, c, heads):
     if kernel in ("K10", "K10-base"):
         tc, f32, nbytes = leff_work(h, c, batch=MEASURE_B)
         return tc, 0 if variant == "nodw" else f32, nbytes
-    if kernel == "K9":
+    if kernel in ("K9", "K9-base"):
         tc, f32, nbytes = attention_work(h, c, heads, False, batch=MEASURE_B)
         if variant == "nocore":
             return tc - 4 * t * n * c, 2 * t * c, nbytes
@@ -1229,16 +1244,17 @@ def phase_measure(card: str) -> tuple[dict, dict]:
     plain version and against K1 on the partitioned map (bitwise), and its
     backward (K3's windowed entry) against the plain backward on every
     gradient plus a bitwise repeat, at the five SwinGroup shapes, B=2, f32
-    and bf16, masked and not. K9, K10 and K11, every variant, against their
-    plain versions at the tools' B=8 inputs, bf16, and each `full` variant
-    bitwise against the kernel its flags are built on on the same inputs
-    (K9: K1's first kernel; K10 / K11: K2 / K3 on each of their forms).
+    and bf16, masked and not. K9, K10 and K11, every variant, on both of
+    K1's / K2's / K3's forms, against their plain versions at the tools' B=8
+    inputs, bf16, with a bitwise repeat, and each `full` variant bitwise
+    against the kernel its flags are built on on the same inputs (K1 / K2 /
+    K3 on each form; K9's notrans on the wgmma form against K1b too).
     Then the main path: both tools' modes at B=8 and K1b forward + backward
     through autograd at the five shapes, with the counts set to 0 just
     before and read just after. Returns (per-kernel results, launches)."""
     import torch
 
-    from fbanet_tpu_torch.ops import attention
+    from fbanet_tpu_torch.ops import _build, attention
     from fbanet_tpu_torch.ops.attention import (
         fused_window_attention,
         fused_window_attention_2d,
@@ -1349,14 +1365,16 @@ def phase_measure(card: str) -> tuple[dict, dict]:
     k1b.update(k1b_bound.fields(), library_ms=None)
 
     # K9, K10, K11 against their plain versions at the tools' B=8 inputs;
-    # each `full` bitwise against the kernel its flags are built on. K10
-    # and K11 on both of K2's / K3's forms: the one K2's / K3's plan picks
-    # (the wgmma form at every group; each variant bitwise on a repeat, its
-    # device ms per group) and the first kernel through an explicit
-    # _K2_BASE_PLAN / _K3_BASE_PLAN (K10's device ms too)
+    # each `full` bitwise against the kernel its flags are built on, on
+    # both of K1's / K2's / K3's forms: the one K1's / K2's / K3's plan
+    # picks (the wgmma form at every group; each variant bitwise on a
+    # repeat, its device ms per group) and the first kernel through an
+    # explicit _K1_BASE_PLAN / _K2_BASE_PLAN / _K3_BASE_PLAN (K10's device
+    # ms too)
     abl = {k: dict(max_abs_err=0.0, plain_ms=0.0, variants={})
-           for k in ("K9", "K10", "K10-base", "K11", "K11-base")}
+           for k in ("K9", "K9-base", "K10", "K10-base", "K11", "K11-base")}
     bounds = {}
+    k9_forms = (("K9", None), ("K9-base", attention._K1_BASE_PLAN))
     k10_forms = (("K10", None), ("K10-base", leff._K2_BASE_PLAN))
     k11_forms = (("K11", None), ("K11-base", attention._K3_BASE_PLAN))
 
@@ -1369,31 +1387,61 @@ def phase_measure(card: str) -> tuple[dict, dict]:
             *ablation_work(kernel, vname, res, c, heads))
         return entry
 
+    lib = _build.library()
     for name, c, res, heads in mr.GROUPS:
         args = mr._attn_args(c, res, heads, batch=MEASURE_B)
+        plan = mr.ablation_plan(args[0], heads)
+        # K9's shared memory on K1's plan as the kernel reports it, against
+        # the tool's model
+        for variant in range(4):
+            got_s = lib.fbanet_attention_ablation_wgmma_smem(
+                WS * WS, c, heads, variant, plan[0], plan[2])
+            model = mr._ablation_smem(WS * WS, c, heads, variant, plan[0],
+                                      plan[2])
+            if got_s != model or got_s == 0:
+                failures.append(f"K9 {name} variant {variant} plan {plan}: "
+                                f"kernel smem {got_s} != model {model}")
         for vname, kw in mr.ATTN_ABLATIONS:
-            fn = mr.abl_attention(c, res, heads, **kw)
-            got, ref = fn(*args), fn(*args, plain=True)
-            torch.cuda.synchronize()
-            err, rel = rel_err(got, ref)
-            finite = bool(torch.isfinite(got).all())
-            ablation_entry("K9", vname, err, res, c, heads)
-            line = (f"K9 {vname} {name} c{c}@{res} B={MEASURE_B} "
-                    f"bf16: max_abs_err={err:.3e} rel={rel:.3e}")
-            if vname == "full":
-                pms = time_ms(lambda fn=fn: fn(*args, plain=True),
-                              iters=3, repeats=3)
-                abl["K9"]["plain_ms"] += pms
-                line += f" plain_ms={pms:.4f}"
-                prod = attention._attention_launch(  # K1's first kernel
-                    *args, None, heads, WS, False, attention._K1_BASE_PLAN)
-                same = torch.equal(got, prod)
-                line += f" bitwise_equal_to_base={same}"
-                if not same:
+            ref = mr.abl_attention(c, res, heads, **kw)(*args, plain=True)
+            if vname == "full":  # the plain version, beside both forms
+                pms = time_ms(lambda kw=kw: mr.abl_attention(
+                    c, res, heads, **kw)(*args, plain=True), iters=3,
+                    repeats=3)
+                log(f"K9 plain {name} c{c}@{res} B={MEASURE_B}: "
+                    f"plain_ms={pms:.4f}")
+            for kernel, kplan in k9_forms:
+                fn = mr.abl_attention(c, res, heads, plan=kplan, **kw)
+                got, again = fn(*args), fn(*args)
+                torch.cuda.synchronize()
+                err, rel = rel_err(got, ref)
+                finite = bool(torch.isfinite(got).all())
+                repeat = torch.equal(got, again)
+                entry = ablation_entry(kernel, vname, err, res, c, heads)
+                line = (f"{kernel} {vname} {name} c{c}@{res} B={MEASURE_B} "
+                        f"bf16 plan {kplan or plan}: max_abs_err={err:.3e} "
+                        f"rel={rel:.3e} bitwise_repeat={repeat}")
+                if kplan is None:  # the wgmma form's device ms
+                    dms = device_ms(lambda fn=fn: fn(*args), traces=3)
+                    entry.setdefault("b8", {})[name] = dict(device_ms=dms)
+                    line += f" device_ms={dms:.4f}"
+                if vname == "full":  # K1 (mask-free, no residual) on the form
+                    abl[kernel]["plain_ms"] += pms
+                    same = torch.equal(got, attention._attention_launch(
+                        *args, None, heads, WS, False, kplan or plan))
+                    line += f" bitwise_equal_to_K1={same}"
+                    if not same:
+                        failures.append(line)
+                if vname == "notrans" and kplan is None:  # K1b on the map
+                    same = torch.equal(got.view(-1, WS * WS, c),
+                                       attention._launch_windows(
+                        args[0].view(-1, WS * WS, c), *args[1:], None,
+                        heads, 1, plan))
+                    line += f" bitwise_equal_to_K1b={same}"
+                    if not same:
+                        failures.append(line)
+                log(line)
+                if not (rel <= TOL["bfloat16"]) or not finite or not repeat:
                     failures.append(line)
-            log(line)
-            if not (rel <= TOL["bfloat16"]) or not finite:
-                failures.append(line)
         args = mr._leff_args(c, res, batch=MEASURE_B)
         plan = mr.leff_plan(args[0], args[3].shape[0])
         for vname, kw in mr.LEFF_ABLATIONS:
@@ -1508,6 +1556,8 @@ def phase_measure(card: str) -> tuple[dict, dict]:
 
     res = {"K1b": k1b}
     for kernel, key, table in (("K9", "abl-attn", mr.ATTN_ABLATIONS),
+                               ("K9-base", "abl-attn-base",
+                                mr.ATTN_ABLATIONS),
                                ("K10", "abl-leff", mr.LEFF_ABLATIONS),
                                ("K10-base", "abl-leff-base",
                                 mr.LEFF_ABLATIONS),
@@ -1795,7 +1845,8 @@ def _counters():
             "K5": warp_kernels.warp_burst_bilinear,
             "K6": warp_kernels.warp_burst_coords,
             "K1b": attention.fused_window_attention,
-            "K9": measure_swin_rates.ablation_attention,
+            "K9": measure_swin_rates.ablation_attention.wgmma,
+            "K9-base": measure_swin_rates.ablation_attention.base,
             "K10": measure_swin_rates.ablation_leff.wgmma,
             "K10-base": measure_swin_rates.ablation_leff.base,
             "K11": measure_bwd.ablation_backward.wgmma,
@@ -2049,8 +2100,11 @@ def main() -> None:
         ("K1b", "K1b fused window attention on [G, N, C] windows (K1's "
          "wgmma form, windowed entry)", "attention_wgmma.cu",
          "fbanet_tpu/ops/attention_pallas.py:234"),
-        ("K9", "K9 attention ablation (measure_swin_rates)", "attention.cu",
+        ("K9", "K9 attention ablation (measure_swin_rates; K1's wgmma "
+         "form)", "attention_ablation_wgmma.cu",
          "scripts/measure_swin_rates.py:136"),
+        ("K9-base", "K9 attention ablation (measure_swin_rates; K1's first "
+         "kernel)", "attention.cu", "scripts/measure_swin_rates.py:136"),
         ("K10", "K10 LeFF ablation (measure_swin_rates; K2's wgmma form)",
          "leff_ablation.cu", "scripts/measure_swin_rates.py:253"),
         ("K10-base", "K10 LeFF ablation (measure_swin_rates; K2's first "

@@ -32,8 +32,10 @@
 // writes rows g * N .. g * N + N - 1, its mask is mask[g % windows per
 // image], and there is no residual.
 //
-// K9 (fbanet_window_attention_ablation) is K1's bf16 kernel with one stage
-// removed at compile time, the counterpart of the ablation copy
+// K9's first-kernel form (fbanet_window_attention_ablation, for the shapes
+// K1's plan keeps here; on K1's wgmma form it is attention_ablation_wgmma*.cu)
+// is K1's bf16 kernel with one stage removed at compile time, the
+// counterpart of the ablation copy
 // scripts/measure_swin_rates.py::_abl_kernel: mask-free, no residual;
 // nosoftmax (p = logits / n, rounded), nocore (o = q + k + v in the compute
 // type, no per-head stage), notrans (window g is n consecutive tokens of the

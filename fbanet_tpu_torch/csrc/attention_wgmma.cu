@@ -5,12 +5,11 @@
 // fbanet_tpu/ops/attention_pallas.py::_attention2d_kernel and
 // _attention_kernel; the function, its outputs and its rounding points are
 // those of the first kernel (attention.cu, kept for f32, for the shapes
-// ops/attention.py::_attention_plan does not send here and as the base of
-// K9's flags): LN in f32 rounded to bf16; q = (y Wq^T + bq) dh^-1/2
-// in f32, then rounded, k and v likewise without the scale; f32 logits +
-// bias + mask; p = exp(l - max) rounded to bf16 for the AV product;
-// o = (p v) (1 / sum) in f32, then rounded; proj + bproj + residual in f32,
-// rounded once.
+// ops/attention.py::_attention_plan does not send here): LN in f32
+// rounded to bf16; q = (y Wq^T + bq) dh^-1/2 in f32, then rounded, k and
+// v likewise without the scale; f32 logits + bias + mask; p = exp(l - max)
+// rounded to bf16 for the AV product; o = (p v) (1 / sum) in f32, then
+// rounded; proj + bproj + residual in f32, rounded once.
 //
 // What bounds it on the H100: arithmetic (8 T C^2 + 4 T 64 C flops against
 // 4 T C bytes of activations). The first kernel runs every product as WMMA
@@ -44,7 +43,8 @@
 // Four block barriers per window (after LN, q | k | v, the heads, proj).
 //
 // The form's layout, kernel and launch are in attention_wgmma.cuh, shared
-// with K7's cores on this form (attention_variants_wgmma*.cu).
+// with K7's cores and K9's stages on this form (attention_variants_wgmma*.cu,
+// attention_ablation_wgmma*.cu).
 #include "attention_wgmma.cuh"
 
 namespace fbanet {

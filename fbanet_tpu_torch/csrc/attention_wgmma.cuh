@@ -1,6 +1,7 @@
-// K1's wgmma form, shared by attention_wgmma.cu (K1's and K1b's entries)
-// and attention_variants_wgmma*.cu (K7's cores on this form): the layout,
-// the kernel and its launch. What K1 computes, its rounding points and what
+// K1's wgmma form, shared by attention_wgmma.cu (K1's and K1b's entries),
+// attention_variants_wgmma*.cu (K7's cores on this form) and
+// attention_ablation_wgmma*.cu (K9's stages on it): the layout, the kernel
+// and its launch. What K1 computes, its rounding points and what
 // bounds it are at the top of attention_wgmma.cu.
 //
 // K7 is this kernel with the per-head core chosen at compile time (CORE),
@@ -25,6 +26,12 @@
 //    space is not kept (K7 is mask-free), so the layout is 5 tensors of
 //    64 x C plus the weights. The next pair's biases load after p v (a
 //    64-float logits accumulator, 2 dh more for o).
+// K9 (attention_ablation_wgmma*.cu) takes one stage out of K1 in the same
+// slot, the counterpart of scripts/measure_swin_rates.py::_abl_kernel:
+//  - kWgNoSoftmax: K1's loop with p = round(l (1 / 64)) in place of the
+//    softmax, l the logits accumulated onto the bias; o = p v, not scaled;
+//  - kWgNoCore: no logits and no p v: o = round(round(q + k) + v) element by
+//    element from the head tiles (q keeps its dh^-1/2), by the whole block.
 // The variants take no mask and no residual.
 #pragma once
 
@@ -42,9 +49,17 @@ constexpr int kBoxRows = 32;  // weight rows (output columns) of one TMA box, 64
 constexpr int kBoxBytes = 64 * kBoxRows * 2;
 constexpr int kSlots = 4;     // TMA ring slots per warpgroup when streaming
 
-// The per-head core (K7's `core`, the ids of ops' _CORE_IDS); kWgLoopLn is
-// K1's own.
-enum WgCore { kWgLoop = 0, kWgLoopLn = 1, kWgStack = 2, kWgStackLn = 3, kWgLanepack = 4 };
+// The per-head core (K7's `core`, the ids of ops' _CORE_IDS; then K9's
+// stages); kWgLoopLn is K1's own.
+enum WgCore {
+  kWgLoop = 0,
+  kWgLoopLn = 1,
+  kWgStack = 2,
+  kWgStackLn = 3,
+  kWgLanepack = 4,
+  kWgNoSoftmax = 5,
+  kWgNoCore = 6
+};
 
 struct AfArgs {
   const bf16* x;
@@ -119,8 +134,8 @@ __device__ __forceinline__ void head_softmax(float* s, uint32_t* pf, float* rinv
       pf[i] = pack_bf2(s[2 * i] * rinv[i % 2], s[2 * i + 1] * rinv[i % 2]);
 }
 
-// K7's per-head cores other than K1's (see the top of this file) for one
-// window: q, k, v in their head tiles (lanepack: k and v as [k_a, Z, k_b]
+// K7's per-head cores other than K1's and K9's nosoftmax (see the top of
+// this file) for one window: q, k, v in their head tiles (lanepack: k and v as [k_a, Z, k_b]
 // per pair), o rounded into y's atoms (`atom_at`), the bias [heads][64][64]
 // f32. Warpgroup wg takes heads (pairs, for lanepack) wg, wg + NWG, ...
 template <int DH, int NWG, int CORE, typename AtomAt>
@@ -221,12 +236,12 @@ __device__ __forceinline__ void variant_heads(const uint8_t* sQ, const uint8_t* 
         }
     }
   } else {
-    // kWgLoop one head per stage; kWgStack(Ln) two where the warpgroup
-    // holds two more (head size 16). A stage of CNT heads runs whole, with
-    // no per-head branch between its wgmma fence and wait (one would make
-    // ptxas serialize the wgmmas, C7520)
+    // kWgLoop and kWgNoSoftmax one head per stage; kWgStack(Ln) two where
+    // the warpgroup holds two more (head size 16). A stage of CNT heads runs
+    // whole, with no per-head branch between its wgmma fence and wait (one
+    // would make ptxas serialize the wgmmas, C7520)
     constexpr bool LATE = CORE == kWgStackLn;
-    constexpr int S = (CORE == kWgLoop || DH != 16) ? 1 : 2;
+    constexpr int S = (CORE == kWgLoop || CORE == kWgNoSoftmax || DH != 16) ? 1 : 2;
     const int per = heads > wg ? (heads - wg + NWG - 1) / NWG : 0;  // this warpgroup's heads
     float s[S][32];
 #pragma unroll
@@ -249,7 +264,15 @@ __device__ __forceinline__ void variant_heads(const uint8_t* sQ, const uint8_t* 
       uint32_t pf[CNT][16];
       float rinv[CNT][2];
 #pragma unroll
-      for (int u = 0; u < CNT; ++u) head_softmax<LATE>(s[u], pf[u], rinv[u]);
+      for (int u = 0; u < CNT; ++u) {
+        if constexpr (CORE == kWgNoSoftmax) {  // p = round(l / 64); 1/64 is exact
+#pragma unroll
+          for (int i = 0; i < 16; ++i)
+            pf[u][i] = pack_bf2(s[u][2 * i] * (1.f / kWinTok), s[u][2 * i + 1] * (1.f / kWinTok));
+        } else {
+          head_softmax<LATE>(s[u], pf[u], rinv[u]);
+        }
+      }
 #pragma unroll
       for (int u = 0; u < S; ++u)  // s is free
         if (i + CNT + u < per) load_bias(s[u], h0 + (CNT + u) * NWG);
@@ -592,7 +615,24 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
             *reinterpret_cast<uint32_t*>(atom_at(arow + 8 * h2, h * DH + 8 * j + acol)) =
                 pack_bf2(o[4 * j + 2 * h2] * rinv[h2], o[4 * j + 2 * h2 + 1] * rinv[h2]);
       }
-    } else {  // K7's other cores
+    } else if constexpr (CORE == kWgNoCore) {
+      // --- K9's nocore: o = round(round(q + k) + v), 8 channels a thread
+      // at a time, rounded into o's atoms ---
+      for (int e = threadIdx.x; e < kWinTok * C / 8; e += NT) {
+        const int row = e / (C / 8), c = 8 * (e % (C / 8));
+        float q8[8], k8[8], v8[8];
+        unpack_bf8(*reinterpret_cast<const uint4*>(tile_at(sQ, row, c)), q8);
+        unpack_bf8(*reinterpret_cast<const uint4*>(tile_at(sK, row, c)), k8);
+        unpack_bf8(*reinterpret_cast<const uint4*>(tile_at(sV, row, c)), v8);
+        uint32_t o4[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 qk = unpack_bf2(pack_bf2(q8[2 * i] + k8[2 * i], q8[2 * i + 1] + k8[2 * i + 1]));
+          o4[i] = pack_bf2(qk.x + v8[2 * i], qk.y + v8[2 * i + 1]);
+        }
+        *reinterpret_cast<uint4*>(atom_at(row, c)) = make_uint4(o4[0], o4[1], o4[2], o4[3]);
+      }
+    } else {  // K7's other cores, K9's nosoftmax
       variant_heads<DH, NWG, CORE>(sQ, sK, sV, a.bias, heads, wg, arow, acol, atom_at);
     }
     fence_proxy_async();

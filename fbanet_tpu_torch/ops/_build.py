@@ -87,6 +87,13 @@ SIGNATURES = {
     "fbanet_attention_variant_wgmma": [_P] * 10 + [_I] * 10 + [_P],
     "fbanet_attention_variant_wgmma_smem": [_I] * 6,
     "fbanet_attention_variant_wgmma_stage": [_I] * 6,
+    # K9 on K1's wgmma form: x, out, ln_s, ln_b, [Wq; Wkv], bq, bkv, wproj,
+    # bproj, bias, then B, H, W, C, heads, ws, variant, and K1's plan:
+    # warpgroups, windows per block, staged; stream. Its shared memory, 0
+    # for a shape it does not take: (tokens per window, C, heads, variant,
+    # warpgroups, staged)
+    "fbanet_attention_ablation_wgmma": [_P] * 10 + [_I] * 10 + [_P],
+    "fbanet_attention_ablation_wgmma_smem": [_I] * 6,
     # K8: K2's pointers (W2^T for w2 on the wgmma form), then B, H, W, C,
     # Ch, variant, and the plan: tile rows (0: the first kernel), tile
     # columns, hidden chunk; stream

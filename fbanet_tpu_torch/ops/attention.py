@@ -312,8 +312,8 @@ def _kernel_forward(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
 # 128 or 256 and head size 16 or 64, with two or four warpgroups and the
 # weights staged once per block (where all 4 C^2 fit) or streamed per
 # window; warpgroups 0 is the first kernel (csrc/attention.cu: f32, every
-# other shape, the base of K9's flags), one window per block. K7's cores
-# follow the plan onto either form.
+# other shape), one window per block. K7's cores and K9's stages follow the
+# plan onto either form.
 _K1_BASE_PLAN = (0, 1, 0)
 # (warpgroups, staged) of the wgmma form, in the order the plan tries them
 _K1_FORMS = ((2, 1), (4, 1), (4, 0))

@@ -87,25 +87,38 @@ def warp_burst_bilinear(frames: torch.Tensor, matrices: torch.Tensor, *,
                         mode: str = "nearest", cval: float = 0.0,
                         plain: bool = False) -> torch.Tensor:
     """K5: warp `frames` [F, H, W, C] by inverse-map `matrices` [F, 3, 3]
-    with the TPU kernel's bilinear sample."""
-    _check("warp_burst_bilinear", frames, matrices,
-           (*frames.shape[:1], 3, 3), mode)
-    f, h, w, c = frames.shape
-    fr, mats = frames.float(), matrices.float()
-    if plain or frames.device.type == "cpu":
-        co = homography_coords(mats, h, w)
-        out = sample_plain(fr, co[..., 0], co[..., 1], mode == "constant",
-                           cval)
+    with the TPU kernel's bilinear sample.
+
+    The CUDA path has K6's lean form: checks read only shape, dtype and
+    device, contiguous f32 inputs are passed as they are, and an f32 output
+    is returned as it is (one allocation, one foreign call)."""
+    shape = frames.shape
+    if (mode not in _MODES or len(shape) != 4 or shape[1] < 2
+            or shape[2] < 2 or not frames.is_floating_point()
+            or matrices.shape != (*shape[:1], 3, 3)):
+        _check("warp_burst_bilinear", frames, matrices, (*shape[:1], 3, 3),
+               mode)
+    if plain or frames.is_cpu:
+        f, h, w, c = shape
+        co = homography_coords(matrices.float(), h, w)
+        out = sample_plain(frames.float(), co[..., 0], co[..., 1],
+                           mode == "constant", cval)
         return out.to(frames.dtype)
-    _launch_ready("warp_burst_bilinear", frames, matrices)
-    fr, mats = fr.contiguous(), mats.contiguous()
+    if not frames.is_cuda or matrices.get_device() != frames.get_device():
+        _launch_ready("warp_burst_bilinear", frames, matrices)
+    f32 = frames.dtype == torch.float32
+    fr = frames if f32 and frames.is_contiguous() else \
+        frames.float().contiguous()
+    mats = matrices if matrices.dtype == torch.float32 \
+        and matrices.is_contiguous() else matrices.float().contiguous()
     out = torch.empty_like(fr)
     err = _build.library().fbanet_warp_homography(
-        fr.data_ptr(), mats.data_ptr(), out.data_ptr(), f, h, w, c,
-        int(mode == "constant"), float(cval), _build.stream(fr))
-    _build.check(err, "warp_burst_bilinear")
+        fr.data_ptr(), mats.data_ptr(), out.data_ptr(), *shape,
+        mode == "constant", cval, _build.stream(fr))
+    if err:
+        _build.check(err, "warp_burst_bilinear")
     warp_burst_bilinear.launches += 1
-    return out.to(frames.dtype)
+    return out if f32 else out.to(frames.dtype)
 
 
 warp_burst_bilinear.launches = 0

@@ -13,8 +13,8 @@ parameters, as the script:
   residual);
 - leff: K2 (`ops.leff.fused_leff`, no residual);
 - ablate: K9 full / nosoftmax / nocore / notrans and K10 full / nogelu /
-  nodw (K10 on both of K2's forms), each line with its delta from `full`
-  (the time the removed stage costs, and its share of the kernel).
+  nodw (each on both of K1's / K2's forms), each line with its delta from
+  `full` (the time the removed stage costs, and its share of the kernel).
 
 Every line is the script's: name, ms per call, GFLOP of the unablated
 function, TFLOP/s. `time_fn` times with CUDA events: three warm-up calls,
@@ -32,18 +32,26 @@ depthwise kernel to a torch depthwise Conv2d weight.
 
 The ablation kernels (wrong math by design; they bound where the time goes):
 
-- K9, `ablation_attention` (csrc/attention.cu, fbanet_window_attention_
-  ablation): K1's first kernel in bf16, mask-free, no residual, with one stage
-  changed at compile time, as the script's `_abl_kernel`
+- K9, `ablation_attention`: K1 in bf16, mask-free, no residual, with one
+  stage changed at compile time, as the script's `_abl_kernel`
   (measure_swin_rates.py:136-199): nosoftmax (p = logits / n, rounded),
   nocore (o = q + k + v in bf16, no per-head stage), notrans (window g is
   tokens g * 64 .. g * 64 + 63 of each image's row-major map, which is what
   the script's `x4.reshape(gb, n, c)` of a block of whole rows reads). Its
-  plain version is `abl_attention` / `_abl_attention_plain`. The script's
-  `full` normalises before the AV product (`jax.nn.softmax`, probabilities
-  rounded to bf16), and so does the plain version; the kernel's `full` is
-  the instantiation of K1's first kernel, which divides after it
-  (attention_pallas.py:217-223). The two differ by bf16 rounding only, within the bf16 limit.
+  variants are stages of the form K1's own plan picks for the map
+  (`ablation_plan`: K1's wgmma form at the five groups,
+  csrc/attention_ablation_wgmma.cu, the CORE slot of attention_wgmma.cuh:
+  `full` is K1's own kernel, nosoftmax and nocore new cores, notrans K1b's
+  windowed entry over the map's memory; its first kernel, csrc/
+  attention.cu, fbanet_window_attention_ablation, at the shapes the plan
+  keeps there) or of the form of an explicit `plan`; `ablate` times them
+  under K1's plan (`abl-attn/` lines) and on K1's first kernel
+  (`_K1_BASE_PLAN`, `abl-attn-base/` lines). Its plain version is
+  `abl_attention` / `_abl_attention_plain`. The script's `full` normalises
+  before the AV product (`jax.nn.softmax`, probabilities rounded to bf16),
+  and so does the plain version; the kernels' `full` is K1's, which
+  divides after it (attention_pallas.py:217-223). The two differ by bf16
+  rounding only, within the bf16 limit.
 - K10, `ablation_leff` (csrc/leff_ablation.cu, fbanet_leff_ablation): K2
   in bf16, no residual, as `_leff_abl_kernel` (measure_swin_rates.py:
   253-293): nogelu (both GELUs become x * 0.7), nodw (no depthwise 3x3:
@@ -57,13 +65,13 @@ The ablation kernels (wrong math by design; they bound where the time goes):
   `abl_leff`.
 
 Each kernel's variants are flags of a production kernel, so `full` is
-bitwise K1's first kernel (K9) or K2 on the form it runs on (K10), and
-each variant is that kernel minus one stage: K9's stage shares describe
-K1's first kernel (the plan keeps it for f32 and the shapes K1's wgmma
-form does not take), K10's both of K2's forms.
+bitwise K1 (K9) or K2 (K10) on the form it runs on, and each variant is
+that kernel minus one stage: K9's and K10's stage shares describe both of
+K1's and K2's forms.
 On the card each wrapper launches its kernel or raises; on the CPU (or with
 `plain=True`) it runs the plain version. `.launches` counts kernel launches,
-`ablation_leff.wgmma` / `.base` K10's per form.
+`ablation_attention.wgmma` / `.base` and `ablation_leff.wgmma` / `.base`
+K9's and K10's per form.
 """
 
 from __future__ import annotations
@@ -81,7 +89,12 @@ import torch.nn.functional as F
 
 from fbanet_tpu_torch.ops import _build
 from fbanet_tpu_torch.ops.attention import (
+    _K1_BASE_PLAN,
+    _attention_plan,
+    _attention_smem,
+    _forward_operands,
     _kernel_args,
+    _kernel_attention_smem,
     _rounded,
     fused_window_attention_2d,
     window_partition,
@@ -226,14 +239,55 @@ def _abl_attention_plain(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
 
 _ATTN_VARIANTS = {(True, True, True): 0, (False, True, True): 1,
                   (True, False, True): 2, (True, True, False): 3}
+# K9 on K1's wgmma form: the (head size, warpgroups, staged) triples it is
+# built for, those `_attention_plan` picks at the five groups (K7's,
+# csrc/attention_ablation_wgmma.cu)
+_K9_TRIPLES = ((64, 2, 1), (64, 4, 1), (16, 4, 0), (16, 4, 1))
+
+
+def _ablation_smem(n: int, c: int, heads: int, variant: int, nwg: int,
+                   staged: int) -> int:
+    """Dynamic shared memory of K9's `variant` on K1's wgmma form, or 0 for
+    a shape it does not take: a model of the kernel's
+    `fbanet_attention_ablation_wgmma_smem` (K1's own layout, at the triples
+    it is built for) for planning without the card; chip_smoke.py holds
+    the two equal."""
+    if (variant not in _ATTN_VARIANTS.values() or heads < 1 or c % heads
+            or (c // heads, nwg, staged) not in _K9_TRIPLES):
+        return 0
+    return _attention_smem(n, c, heads, nwg, staged)
+
+
+def _kernel_ablation_smem(n, c, heads, variant, nwg, staged) -> int:
+    """The kernel's own `fbanet_attention_ablation_wgmma_smem` (builds the
+    library on first use)."""
+    return _build.library().fbanet_attention_ablation_wgmma_smem(
+        n, c, heads, variant, nwg, staged)
+
+
+def ablation_plan(x4, heads: int, smem=_kernel_attention_smem,
+                  asmem=_kernel_ablation_smem):
+    """K9's form for a bf16 map x4 [B, H, W, C], the same for every
+    variant: K1's own plan for it (`_attention_plan`, with the kernel's
+    shared memory or `smem`, its model) where K9 builds that form (`asmem`:
+    the kernel's `fbanet_attention_ablation_wgmma_smem` or
+    `_ablation_smem`), else K1's first kernel, `_K1_BASE_PLAN`."""
+    b, h, w, c = x4.shape
+    plan = _attention_plan(b, h, w, c, heads, WS, True, smem=smem)
+    if plan[0] and asmem(N, c, heads, 0, plan[0], plan[2]) == 0:
+        return _K1_BASE_PLAN
+    return plan
 
 
 def ablation_attention(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
                        bias, *, heads: int, softmax: bool = True,
                        perhead: bool = True, trans: bool = True,
-                       plain: bool = False) -> torch.Tensor:
-    """K9 on a bf16 CUDA map [B, H, W, C] (at most one stage off), or its
-    plain version for CPU tensors or with `plain=True`."""
+                       plain: bool = False, plan=None) -> torch.Tensor:
+    """K9 on a bf16 CUDA map [B, H, W, C] (at most one stage off) under
+    `plan` (default `ablation_plan`: K1's own plan, the wgmma form at the
+    five groups; `_K1_BASE_PLAN` for the first kernel), or its plain
+    version for CPU tensors or with `plain=True`. `full` is K1's own
+    kernel on the plan's form, mask-free, no residual."""
     key = (softmax, perhead, trans)
     if key not in _ATTN_VARIANTS:
         raise ValueError(f"ablation_attention takes one stage off at a time, "
@@ -250,38 +304,62 @@ def ablation_attention(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
             f"ablation_attention kernel does not take x {tuple(x4.shape)} "
             f"{x4.dtype} {x4.device}, heads={heads}: a contiguous bfloat16 "
             f"CUDA map with H, W multiples of {WS} and C of heads")
+    variant = _ATTN_VARIANTS[key]
+    if plan is None:
+        plan = ablation_plan(x4, heads)
     lib = _build.library()
-    if lib.fbanet_window_attention_smem(N, c, heads, 1) == 0:
-        raise ValueError(f"ablation_attention kernel does not take C={c}, "
-                         f"heads={heads}: C and the head size must be "
-                         f"multiples of 16")
-    args = _kernel_args(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
-                        bias, None)
+    nwg, wpb, staged = plan
     out = torch.empty_like(x4)
-    err = lib.fbanet_window_attention_ablation(
-        x4.data_ptr(), out.data_ptr(),
-        *[None if a is None else a.data_ptr() for a in args],
-        b, h, w, c, heads, WS, _ATTN_VARIANTS[key],
-        torch.cuda.current_stream(x4.device).cuda_stream)
-    _build.check(err, "ablation_attention")
+    if nwg:
+        if lib.fbanet_attention_ablation_wgmma_smem(N, c, heads, variant, nwg,
+                                                    staged) == 0:
+            raise ValueError(
+                f"ablation_attention's wgmma form does not take x "
+                f"{tuple(x4.shape)}, heads={heads}, plan {plan}: triples "
+                f"(head size, warpgroups, staged) {_K9_TRIPLES}")
+        ptrs, _kept = _forward_operands(x4, ln_scale, ln_bias, wq, bq, wkv,
+                                        bkv, wproj, bproj, bias, None, plan)
+        err = lib.fbanet_attention_ablation_wgmma(
+            x4.data_ptr(), out.data_ptr(), *ptrs[:-1], b, h, w, c, heads,
+            WS, variant, nwg, wpb, staged, _build.stream(x4))
+        form = ablation_attention.wgmma
+    else:
+        if lib.fbanet_window_attention_smem(N, c, heads, 1) == 0:
+            raise ValueError(f"ablation_attention kernel does not take C={c}, "
+                             f"heads={heads}: C and the head size must be "
+                             f"multiples of 16")
+        args = _kernel_args(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
+                            bproj, bias, None)
+        err = lib.fbanet_window_attention_ablation(
+            x4.data_ptr(), out.data_ptr(),
+            *[None if a is None else a.data_ptr() for a in args],
+            b, h, w, c, heads, WS, variant, _build.stream(x4))
+        form = ablation_attention.base
+    _build.check(err, f"ablation_attention (x {tuple(x4.shape)}, plan "
+                      f"{plan})")
+    form.launches += 1
     ablation_attention.launches += 1
     return out
 
 
 ablation_attention.launches = 0
+# launch counts per form, kept as the wrappers keep theirs
+ablation_attention.wgmma = SimpleNamespace(launches=0)
+ablation_attention.base = SimpleNamespace(launches=0)
 
 
 def abl_attention(c: int, res: int, heads: int, *, softmax: bool = True,
-                  perhead: bool = True, trans: bool = True):
+                  perhead: bool = True, trans: bool = True, plan=None):
     """The script's factory: call(x4, lns, lnb, wq, bq, wkv, bkv, wproj,
     bproj, bias) runs K9 (or its plain version on the CPU) on a
-    [batch, res, res, c] map, mask-free."""
+    [batch, res, res, c] map, mask-free, under K1's plan or `plan`."""
     def call(x4, *params, plain: bool = False):
         if tuple(x4.shape[1:]) != (res, res, c):
             raise ValueError(f"abl_attention({c}, {res}, {heads}) got x "
                              f"{tuple(x4.shape)}")
         return ablation_attention(x4, *params, heads=heads, softmax=softmax,
-                                  perhead=perhead, trans=trans, plain=plain)
+                                  perhead=perhead, trans=trans, plain=plain,
+                                  plan=plan)
     return call
 
 
@@ -444,11 +522,15 @@ def main(argv=None) -> dict:
                 leff_gflops(c, res))
 
     if "ablate" in what:
-        # K9 on K1's first kernel; K10 on the form K2's plan picks, then on
-        # K2's first kernel (`abl-leff-base/`)
-        runs = [("abl-attn", ATTN_ABLATIONS, attn_gflops,
-                 lambda c, res, heads, kw: abl_attention(c, res, heads, **kw),
-                 lambda c, res, heads: attn_args(c, res, heads))]
+        # K9 and K10 on the forms K1's and K2's plans pick, then on their
+        # first kernels (`abl-attn-base/`, `abl-leff-base/`)
+        runs = []
+        for prefix, plan in (("abl-attn", None),
+                             ("abl-attn-base", _K1_BASE_PLAN)):
+            runs.append((prefix, ATTN_ABLATIONS, attn_gflops,
+                         lambda c, res, heads, kw, plan=plan: abl_attention(
+                             c, res, heads, plan=plan, **kw),
+                         lambda c, res, heads: attn_args(c, res, heads)))
         for prefix, plan in (("abl-leff", None),
                              ("abl-leff-base", _K2_BASE_PLAN)):
             runs.append((prefix, LEFF_ABLATIONS, leff_gflops,

@@ -194,7 +194,8 @@ def test_rates_tool_runs_on_the_cpu(tiny_tools, capsys):
     assert out.startswith("backend=cpu B=1 dtype=bfloat16")
     assert sorted(ms) == sorted(
         ["attn/enc0_c32@16h2", "leff/enc0_c32@16"]
-        + [f"abl-attn/enc0 {v}" for v, _ in measure_swin_rates.ATTN_ABLATIONS]
+        + [f"{prefix}/enc0 {v}" for prefix in ("abl-attn", "abl-attn-base")
+           for v, _ in measure_swin_rates.ATTN_ABLATIONS]
         + [f"{prefix}/enc0 {v}" for prefix in ("abl-leff", "abl-leff-base")
            for v, _ in measure_swin_rates.LEFF_ABLATIONS])
     assert all(np.isfinite(v) and v > 0 for v in ms.values())

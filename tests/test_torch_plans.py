@@ -3,8 +3,8 @@ which form and blocks each shape gets, the shared memory each plan needs
 (from the Python models of the kernels' own `*_smem` functions, which
 chip_smoke.py holds equal to the kernels'), the window-to-block assignment
 of K1's and K3's forms, the order of K3's per-block bias partial's sums,
-the forms K11 and K8 take (K3's and K2's own plans), and what the new
-wrappers refuse.
+the forms K11, K8, K10, K7 and K9 take (K3's, K2's and K1's own plans), and
+what the new wrappers refuse.
 
 The kernels run only on the card, where chip_smoke.py and
 tools/measure_attention.py / tools/measure_leff.py /
@@ -513,3 +513,76 @@ def test_k10_and_k7_refuse_off_the_card():
         with pytest.raises(ValueError, match=r"\(1, 16, 16, 64\)"):
             measure_swin_variants.attention_variant(
                 x, *ap, heads=1, core="stack3d", plan=plan)
+
+
+def _k9_plan(x, heads):
+    return measure_swin_rates.ablation_plan(
+        x, heads, smem=attention._attention_smem,
+        asmem=measure_swin_rates._ablation_smem)
+
+
+@pytest.mark.parametrize("batch", [2, 8])
+@pytest.mark.parametrize("h,c,heads", GROUPS, ids=IDS)
+def test_k9_takes_k1s_form(h, c, heads, batch):
+    """K9 runs on the form K1's own plan gives the map (the wgmma form, with
+    its windows per block, at every group), every variant in K1's own
+    shared memory, at a triple its wgmma form is built for."""
+    mr = measure_swin_rates
+    x = torch.empty(batch, h, h, c, device="meta", dtype=torch.bfloat16)
+    k1 = attention._attention_plan(batch, h, h, c, heads)
+    assert k1[0] > 0
+    assert _k9_plan(x, heads) == k1
+    for variant in mr._ATTN_VARIANTS.values():
+        smem = mr._ablation_smem(64, c, heads, variant, k1[0], k1[2])
+        assert 0 < smem <= SMEM_LIMIT
+        assert smem == attention._attention_smem(64, c, heads, k1[0], k1[2])
+    assert (c // heads, k1[0], k1[2]) in mr._K9_TRIPLES
+
+
+def test_k9_keeps_the_first_kernel_where_k1_does():
+    """Head size 32 and C = 96 stay on K1's first kernel (K1's plan keeps
+    them there), and so does a triple K9's wgmma form is not built for
+    (head size 16 with two warpgroups), where K1 itself takes the form."""
+    for c, heads in ((64, 2), (96, 6), (96, 3)):
+        x = torch.empty(8, 80, 80, c, device="meta", dtype=torch.bfloat16)
+        assert _k9_plan(x, heads) == attention._K1_BASE_PLAN
+    x = torch.empty(8, 80, 80, 64, device="meta", dtype=torch.bfloat16)
+    assert attention._attention_plan(8, 80, 80, 64, 4)[0] == 2
+    assert _k9_plan(x, 4) == attention._K1_BASE_PLAN
+
+
+def test_k9_smem_refuses_what_the_kernel_does_not_take():
+    """The model of `fbanet_attention_ablation_wgmma_smem`: K1's layout at
+    the four built triples and variants 0-3, else 0."""
+    mr = measure_swin_rates
+    assert mr._ablation_smem(64, 64, 1, 2, 2, 1) == \
+        attention._attention_smem(64, 64, 1, 2, 1) > 0
+    for args in ((49, 64, 1, 0, 2, 1),   # 7 x 7 windows
+                 (64, 64, 1, 4, 2, 1),   # no variant 4
+                 (64, 64, 1, -1, 2, 1),
+                 (64, 64, 4, 1, 2, 1),   # (16, 2, 1) is not built
+                 (64, 64, 1, 1, 2, 0),   # (64, 2, 0) is not built
+                 (64, 96, 3, 1, 4, 1),   # head size 32
+                 (64, 64, 3, 1, 4, 1),   # C % heads
+                 (64, 64, 0, 1, 4, 1),   # no heads
+                 (64, 512, 8, 1, 4, 0)):  # C > 256
+        assert mr._ablation_smem(*args) == 0, args
+
+
+def test_k9_refuses_off_the_card():
+    """K9's wrapper takes CUDA tensors only, on either form and with the
+    default plan: any other device gets an error naming the shape, never
+    the plain version, and nothing is counted."""
+    mr = measure_swin_rates
+    c = 64
+    x = torch.empty(1, 16, 16, c, device="meta", dtype=torch.bfloat16)
+    ap = [torch.empty(s, device="meta") for s in (
+        (c,), (c,), (c, c), (c,), (2 * c, c), (2 * c,), (c, c), (c,),
+        (1, 64, 64))]
+    before = (mr.ablation_attention.wgmma.launches,
+              mr.ablation_attention.base.launches)
+    for plan in ((2, 1, 1), attention._K1_BASE_PLAN, None):
+        with pytest.raises(ValueError, match=r"\(1, 16, 16, 64\)"):
+            mr.ablation_attention(x, *ap, heads=1, softmax=False, plan=plan)
+    assert (mr.ablation_attention.wgmma.launches,
+            mr.ablation_attention.base.launches) == before

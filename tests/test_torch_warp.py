@@ -120,9 +120,14 @@ def test_warp_burst_homography_matches_jax(rows):
         np.asarray(jwarp.warp_burst_homography(frames, mats)), atol=1e-5)
 
 
-@pytest.mark.parametrize("mode", ["nearest", "constant"])
-def test_plain_kernels_match_pallas(mode):
-    frames, mats, coords = _frames(), _matrices(), _coords()
+@pytest.mark.parametrize("mode,channels", [
+    ("nearest", 3), ("constant", 3), ("nearest", 1), ("constant", 1)],
+    ids=["nearest", "constant", "nearest-c1", "constant-c1"])
+def test_plain_kernels_match_pallas(mode, channels):
+    """K5's and K6's plain versions at C = 3 (the card's staged kernels)
+    and C = 1 (their general kernels) against the Pallas kernels."""
+    frames, mats, coords = _frames()[..., :channels], _matrices(), _coords()
+    frames = np.ascontiguousarray(frames)
     with pltpu.force_tpu_interpret_mode():
         ref5 = warp_burst_bilinear_pallas(jnp.asarray(frames),
                                           jnp.asarray(mats), mode=mode,
