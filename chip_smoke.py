@@ -74,7 +74,19 @@ non-zero:
    kernels); times the B=8 step against the plain versions and prints a
    torch.profiler table of one step, with K1's, K2's, K3's and K4's device
    ms.
-9. measure: K1b (window attention on [G, N, C] windows) against its plain
+9. trainer: the entry points that read a dataset, at the same width, from
+   a synthetic RealBSR tree written to disk through data/png.py (16 train
+   and 8 test bursts of 14 frames at 192 px): the decoder the dataset uses
+   and why the native pool is or is not there; loader bursts/s cold and
+   cached; `train.main` for 2 epochs of 2 B=8 steps with a per-epoch eval,
+   then stopped after one step and `--resume`d, under deterministic
+   algorithms: 20 launches of each of K1-K4 per step and of K1 and K2 per
+   eval forward, none of K1's first kernel, the resumed run's parameters
+   and per-epoch PSNRs bit-equal to the uninterrupted run's; ms per step
+   from disk and the data_wait share; `evaluate.main` on `model_best`
+   within 1e-3 dB of the best epoch (eval bursts/s); `tiled.main` (psize
+   80, overlap 40) on a GT-free 160 px burst: a finite [640, 640, 3] image.
+10. measure: K1b (window attention on [G, N, C] windows) against its plain
    version at the five shapes (B=2, f32 and bf16, masked and not) and
    bitwise against K1 on the partitioned map, under its plan and under the
    first kernel (against K1's); its backward (K3's windowed
@@ -93,7 +105,7 @@ non-zero:
    plainref leffabl merged ablate`, K9's, K10's and K11's variants timed
    on both forms, their tables printed) and K1b forward + backward through
    autograd at the five shapes.
-10. variants: K7 (K1's function with its head stage rewritten: loop,
+11. variants: K7 (K1's function with its head stage rewritten: loop,
    loop_ln, stack3d, stack3d_ln, lanepack, ln+qkv1, ln+nr2) and K8 (K2's
    with packed-bf16 depthwise and/or GELUs), every variant on both forms
    of K1 / K2 (the wgmma form their plans pick, with its device ms per
@@ -115,8 +127,8 @@ non-zero:
 Each kernel wrapper counts its launches (K1, K2, K3, K7, K8, K9, K10
 and K11 per form); the counts are set to 0 just before the registration, the CLI
 stream, the serving, the training (the B=8 steps, then the f32 B=2 step,
-whose plans send K1, K2 and K3 to their first kernels), the measurement
-and the variant runs and read just after. The line before the last is a JSON object
+whose plans send K1, K2 and K3 to their first kernels), each run of the
+trainer phase, the measurement and the variant runs and read just after. The line before the last is a JSON object
 {"kernels": [...]} (launches on those runs; error, times and bound from
 phases 3-6, 9 and 10; K7 and K9-K11 also per variant; K1, K2, K3, K7, K8,
 K9, K10 and K11 with their first kernels as entries of their own), preceded
@@ -128,6 +140,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1110,7 +1123,8 @@ def phase_slice(card: str) -> tuple[dict, float]:
     for cnt in (k1, k1_base, _leff_launch.wgmma):
         cnt.launches = 0
     t0 = time.perf_counter()
-    served = [eval_step(model, lr, hr) for lr, hr in requests]
+    served = [eval_step(model, lr, hr, online_align="ecc")
+              for lr, hr in requests]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"K1": k1.launches, "K1-base": k1_base.launches,
@@ -1137,7 +1151,7 @@ def phase_slice(card: str) -> tuple[dict, float]:
 
     # the same first batch through the plain versions on the card
     lr, hr = requests[0]
-    pred_plain = eval_step(model, lr, hr, plain=True)[0]
+    pred_plain = eval_step(model, lr, hr, online_align="ecc", plain=True)[0]
     agree = float(psnr(served[0][0], pred_plain).min())
     with torch.no_grad():
         aligned = online_register(lr)
@@ -2014,12 +2028,228 @@ def phase_train(card: str) -> tuple[dict, float]:
         f"{k4:.3f} ms")
     return launches, ms
 
+# the trainer phase: a RealBSR tree on disk, at the published width
+TRAINER_BURSTS = {"train": 16, "test": 8}
+TRAINER_LR = 192  # LR px of the tree (HR 768); the model crops 160
+TRAINER_EVAL_DB = 1e-3  # evaluate.main vs the best epoch's PSNR
+
+
+def _trainer_argv(root, save, *extra):
+    return ["--dataroot", str(root), "--embed_dim", "64", "--train_ps", "160",
+            "--burst_size", "14", "--batch_size", "8", "--nepoch", "2",
+            "--dtype", "bfloat16", "--save_dir", str(save),
+            "--train_workers", "16", "--eval_workers", "8",
+            "--device", "cuda", *extra]
+
+
+def phase_trainer(card: str) -> dict:
+    """The entry points that read a dataset, at FBANet-64 (14 frames, 160 px
+    crops, B=8, bf16, drop_path 0.1), from a synthetic RealBSR tree written
+    to disk through `data/png.py`: 16 train and 8 test bursts of 14 frames
+    at 192 px (HR 768), `aligned` layout.
+
+    Prints the decoder the dataset uses and why the native pool is or is
+    not there, cold-decode and cached bursts/s through the loader. Run A:
+    `train.main` for 2 epochs of 2 steps, each followed by an eval of the 8
+    test bursts. Run B: the same command stopped after 1 step (the config's
+    `stop_after_steps`, which no CLI flag sets), then `--resume`. Both under
+    `torch.use_deterministic_algorithms` and `cudnn.deterministic`. Checks
+    finite losses, 20 launches of each of K1-K4 per train step and of K1
+    and K2 per eval forward (their wgmma forms; none of K1's first kernel),
+    run B's parameters and per-epoch PSNRs bit-equal to run A's,
+    `evaluate.main` on A's `model_best` within TRAINER_EVAL_DB of the best
+    epoch's PSNR, and `tiled.main` (psize 80, overlap 40) on a GT-free
+    160 px burst: a finite [640, 640, 3] image. Prints ms per train step
+    from disk (median of run A's steps after the first), the data_wait
+    share, eval bursts/s. Returns the launch counts of the phase."""
+    import argparse
+    import shutil
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from fbanet_tpu_torch import evaluate as E
+    from fbanet_tpu_torch import tiled as TL
+    from fbanet_tpu_torch import train as T
+    from fbanet_tpu_torch.config import add_cli_args, from_cli
+    from fbanet_tpu_torch.data import native_io, png
+    from fbanet_tpu_torch.data.loader import BurstLoader
+    from fbanet_tpu_torch.data.realbsr import RealBSRDataset
+    from fbanet_tpu_torch.data.synthetic import write_synthetic_realbsr
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="trainer_", dir=ROOT / "build"))
+    root, tiles_root = tmp / "realbsr", tmp / "tiled"
+    t0 = time.perf_counter()
+    for seed, (split, n) in enumerate(TRAINER_BURSTS.items()):
+        write_synthetic_realbsr(root, num_bursts=n, num_frames=14,
+                                lr_size=TRAINER_LR, splits=(split,),
+                                seed=seed, level=1)
+    write_synthetic_realbsr(tiles_root, num_bursts=1, num_frames=14,
+                            lr_size=160, splits=("test",), write_hr=False,
+                            seed=2, level=1)
+    log(f"trainer: wrote {sum(TRAINER_BURSTS.values())} bursts of 14 x "
+        f"{TRAINER_LR}^2 (HR {4 * TRAINER_LR}^2) and one GT-free 160^2 "
+        f"burst in {time.perf_counter() - t0:.2f} s")
+
+    # the decode rates, through the loader's 16 workers, no device
+    ds_kw = dict(split="train", burst_size=14, crop_size=160,
+                 wire_dtype="storage")
+    cold = RealBSRDataset(root, cache_decoded=False, **ds_kw)
+    t0 = time.perf_counter()
+    n = sum(len(b["burst_name"]) for b in BurstLoader(
+        cold, batch_size=8, num_workers=16).epoch(0))
+    cold_rate = n / (time.perf_counter() - t0)
+    cached = RealBSRDataset(root, cache_decoded=True, **ds_kw)
+    cached.warm_cache()
+    t0 = time.perf_counter()
+    n = sum(len(b["burst_name"]) for b in BurstLoader(
+        cached, batch_size=8, num_workers=16).epoch(1))
+    cached_rate = n / (time.perf_counter() - t0)
+    log(f"trainer: decoder {cold.decoder!r}; native pool unavailable "
+        f"because: {native_io.unavailable_reason()}")
+    log(f"trainer: loader on {card}'s host: cold decode {cold_rate:.2f} "
+        f"bursts/s, cached {cached_rate:.2f} bursts/s (B=8, 16 workers, "
+        f"14 x 160^2 crops + 640^2 HR, storage wire)")
+
+    layers = 20
+    counters = _counters()
+    cudnn = torch.backends.cudnn
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.utils.deterministic.fill_uninitialized_memory,
+             cudnn.deterministic, cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    cudnn.deterministic, cudnn.benchmark = True, False
+
+    def run(fn, *args, **kw):
+        for c in counters.values():
+            c.launches = 0
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        return out, {k: c.launches for k, c in counters.items()}
+
+    def check_launches(what, got, steps, forwards):
+        want = {"K1": layers * (steps + forwards),
+                "K2": layers * (steps + forwards), "K3": layers * steps,
+                "K4": layers * steps, "K1-base": 0}
+        bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+        if bad:
+            raise AssertionError(f"trainer {what}: launches (got, expected) "
+                                 f"{bad} for {steps} train steps and "
+                                 f"{forwards} eval forwards")
+
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            res_a, la = run(T.main, _trainer_argv(root, tmp / "a"))
+            secs_a = time.perf_counter() - t0
+            hist_a = res_a["history"]
+            steps_a = sum(h["steps"] for h in hist_a)
+            check_launches("run A", la, steps_a, len(hist_a))
+            cfg_b = from_cli(add_cli_args(argparse.ArgumentParser())
+                             .parse_args(_trainer_argv(root, tmp / "b")))
+            res_s, ls = run(T.train, cfg_b.replace(
+                train=cfg_b.train.replace(stop_after_steps=1)), device="cuda")
+            check_launches("run B, stop", ls, 1, 0)
+            res_b, lb = run(T.main, _trainer_argv(root, tmp / "b",
+                                                   "--resume"))
+            check_launches("run B, resume", lb, 3, 2)
+        reasons = sorted({str(w.message).splitlines()[0][:160]
+                          for w in caught
+                          if "deterministic" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.utils.deterministic.fill_uninitialized_memory = saved[2]
+        cudnn.deterministic, cudnn.benchmark = saved[3], saved[4]
+
+    losses = [h["loss"] for h in hist_a + res_s["history"] + res_b["history"]]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"trainer: non-finite epoch loss {losses}")
+    psnr_a = [h["psnr"] for h in hist_a]
+    psnr_b = [h["psnr"] for h in res_b["history"]]
+    diffs = {k: float((v.float() - res_b["params"][k].float()).abs().max())
+             for k, v in res_a["params"].items()}
+    unequal = [k for k, v in res_a["params"].items()
+               if not torch.equal(v, res_b["params"][k])]
+    log(f"trainer run A ({secs_a:.1f} s): epoch PSNR {psnr_a}, loss "
+        f"{[h['loss'] for h in hist_a]}, decoder {res_a['decoder']!r}; "
+        f"run B (stop at 1 step, resume): PSNR {psnr_b}; parameters "
+        f"bit-equal to A: {len(diffs) - len(unequal)} of {len(diffs)} "
+        f"(max |diff| {max(diffs.values()):.3e}); non-deterministic-op "
+        f"warnings: {reasons or 'none'}")
+    if unequal or psnr_a != psnr_b:
+        raise AssertionError(f"trainer: resume differs from the "
+                             f"uninterrupted run: PSNR {psnr_a} vs {psnr_b}, "
+                             f"{len(unequal)} tensors differ (first "
+                             f"{unequal[:3]}); warnings {reasons}")
+
+    step_s = [t for h in hist_a for t in h["step_s"]]
+    waits = [w for h in hist_a for w in h["data_wait_s"][:len(h["step_s"])]]
+    step_ms = statistics.median(step_s[1:]) * 1e3
+    wait_share = sum(waits[1:]) / (sum(waits[1:]) + sum(step_s[1:]))
+    log(f"trainer on {card}: {step_ms:.2f} ms per train step from disk "
+        f"(median of run A's {len(step_s) - 1} steps after the first; "
+        f"steps {[round(t * 1e3, 2) for t in step_s]} ms), data_wait share "
+        f"{100 * wait_share:.2f} % (waits "
+        f"{[round(w * 1e3, 3) for w in waits]} ms)")
+
+    best = Path(res_a["model_dir"]) / "model_best"
+    ev, le = run(E.main, [*_trainer_argv(root, tmp / "a"), "--weights",
+                          str(best)])
+    check_launches("evaluate", le, 0, 1)
+    gap = abs(ev["psnr"] - res_a["best_psnr"])
+    log(f"trainer evaluate.main on model_best: PSNR {ev['psnr']:.4f} dB vs "
+        f"the best epoch's {res_a['best_psnr']:.4f} (|diff| {gap:.2e}, limit "
+        f"{TRAINER_EVAL_DB}); {ev['num_images']} bursts in "
+        f"{ev['seconds']:.3f} s = {ev['num_images'] / ev['seconds']:.2f} "
+        f"eval bursts/s on {card} (loader decode included)")
+    if not gap <= TRAINER_EVAL_DB:
+        raise AssertionError(f"trainer: evaluate PSNR {ev['psnr']} vs best "
+                             f"epoch {res_a['best_psnr']}")
+
+    outs = []
+    real = TL.tiled_forward
+
+    def spy(*args, **kw):
+        outs.append(real(*args, **kw))
+        return outs[-1]
+
+    TL.tiled_forward = spy
+    try:
+        written, lt = run(TL.main, [
+            "--dataroot", str(tiles_root), "--weights", str(best),
+            "--psize", "80", "--overlap", "40", "--embed_dim", "64",
+            "--burst_size", "14", "--dtype", "bfloat16",
+            "--result_dir", str(tmp / "tiled_out"), "--device", "cuda"])
+    finally:
+        TL.tiled_forward = real
+    check_launches("tiled", lt, 0, 1)
+    sr = outs[0]
+    head = png.read_header(written[0])
+    log(f"trainer tiled.main: {written[0].name} {head[:2]} px, output "
+        f"{sr.shape}, finite {bool(np.isfinite(sr).all())}, range "
+        f"[{sr.min():.4f}, {sr.max():.4f}]")
+    if sr.shape != (640, 640, 3) or not np.isfinite(sr).all() or \
+            head[:2] != (640, 640):
+        raise AssertionError(f"trainer: tiled output {sr.shape}, header "
+                             f"{head}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {k: la[k] + ls[k] + lb[k] + le[k] + lt[k] for k in la}
+
 
 def main() -> None:
     if not (ROOT / "fbanet_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py: fbanet_tpu_torch/ not found next to "
                          "this script; run it from a checkout of the repo")
     sys.path.insert(0, str(ROOT))
+    # cuBLAS's deterministic workspace, for the trainer phase's
+    # use_deterministic_algorithms; read when torch first calls cuBLAS
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -2057,16 +2287,18 @@ def main() -> None:
     kres.update(reg)
     served, fwd_ms = timed("slice", phase_slice, card)
     trained, train_ms = timed("train", phase_train, card)
+    from_disk = timed("trainer", phase_trainer, card)
     mres, measured = timed("measure", phase_measure, card)
     kres.update(mres)
     vres, varied = timed("variants", phase_variants, card, fwd_ms, train_ms)
     kres.update(vres)
     # launches on the main paths: registration (K5, K6), serving (K1, K2),
-    # training (K1-K4, R1, R2), measurement (K1b, K9-K11 and, through the
-    # tools, K1-K4, R1, R2) and the variants (K7, K8 and, through the tools,
-    # K1-K4, R1, R2)
+    # training (K1-K4, R1, R2), the entry points from disk (K1-K4, R1, R2),
+    # measurement (K1b, K9-K11 and, through the tools, K1-K4, R1, R2) and
+    # the variants (K7, K8 and, through the tools, K1-K4, R1, R2)
     launches = {k: registered.get(k, 0) + served.get(k, 0) + trained.get(k, 0)
-                + measured.get(k, 0) + varied.get(k, 0) for k in kres}
+                + from_disk.get(k, 0) + measured.get(k, 0) + varied.get(k, 0)
+                for k in kres}
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: "

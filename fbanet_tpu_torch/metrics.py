@@ -30,6 +30,14 @@ def psnr(pred: torch.Tensor, target: torch.Tensor, *,
     return 20.0 * math.log10(max_value) - 10.0 * torch.log10(mse)
 
 
+def batch_psnr(pred: torch.Tensor, target: torch.Tensor, *,
+               boundary_ignore: int | None = 40,
+               average: bool = True) -> torch.Tensor:
+    """Mean (or sum) of the per-image PSNRs of the batch (metrics.py:44-53)."""
+    per_image = psnr(pred, target, boundary_ignore=boundary_ignore)
+    return per_image.mean() if average else per_image.sum()
+
+
 def _gaussian_kernel1d(size: int = 11, sigma: float = 1.5) -> np.ndarray:
     coords = np.arange(size, dtype=np.float32) - (size - 1) / 2.0
     g = np.exp(-(coords ** 2) / (2.0 * sigma ** 2)).astype(np.float32)
@@ -69,6 +77,45 @@ def ssim(pred: torch.Tensor, target: torch.Tensor, *,
         (mu_p * mu_p + mu_t * mu_t + c1) * (var_p + var_t + c2))
     out = ssim_map.mean(dim=(1, 2, 3))
     return out.reshape(lead) if lead else out[0]
+
+
+def batch_ssim(pred: torch.Tensor, target: torch.Tensor, *,
+               boundary_ignore: int | None = 40) -> torch.Tensor:
+    """Mean per-image SSIM of the batch (metrics.py:104-106)."""
+    return ssim(pred, target, boundary_ignore=boundary_ignore).mean()
+
+
+def pixelwise_error(pred: torch.Tensor, target: torch.Tensor, *,
+                    metric: str = "l1", boundary_ignore: int | None = None,
+                    valid: torch.Tensor | None = None) -> torch.Tensor:
+    """Masked pixel-wise error: l1 / l2 / l2_sqrt / charbonnier (eps 1e-3),
+    optional boundary crop and `valid` weighting (metrics.py:109-155). With
+    a mask the result is sum(err * valid) / (sum(valid) * err.numel() /
+    valid.numel() + 1e-12), so a per-pixel mask broadcast over C channels
+    weighs each pixel once; `l2_sqrt` reduces the channels first."""
+    pred = _boundary_crop(pred, boundary_ignore)
+    target = _boundary_crop(target, boundary_ignore)
+    if valid is not None and boundary_ignore:
+        b = boundary_ignore
+        valid = valid[..., b:-b, b:-b, :]
+    diff = pred.float() - target.float()
+    if metric == "l1":
+        err = diff.abs()
+    elif metric == "l2":
+        err = diff * diff
+    elif metric == "l2_sqrt":
+        err = torch.sqrt((diff * diff).sum(dim=-1))
+    elif metric == "charbonnier":
+        err = torch.sqrt(diff * diff + 1e-3 ** 2)
+    else:
+        raise ValueError(f"unknown metric {metric!r}")
+    if valid is None:
+        return err.mean()
+    valid = valid.float()
+    if metric == "l2_sqrt" and valid.dim() == err.dim() + 1:
+        valid = valid[..., 0]
+    elem_ratio = err.numel() / valid.numel()
+    return (err * valid).sum() / (valid.sum() * elem_ratio + 1e-12)
 
 
 def finite_average(values, total_count: int | None = None) -> float:

@@ -1,4 +1,8 @@
-"""The training step of the port (counterpart of fbanet_tpu/train.py:54-238).
+"""Training (counterpart of fbanet_tpu/train.py): the step, the per-epoch
+evaluation, the epoch loop and the command line.
+
+    python -m fbanet_tpu_torch.train --dataroot DIR [reference flags]
+        [--device cuda|cpu]
 
 - `lr_for_epoch`: the reference's warmup -> cosine / StepLR / resumed-cosine
   schedules as executed, exactly as in the JAX package.
@@ -12,21 +16,47 @@
   optional online registration and mixup, stochastic depth drawn from an
   explicit generator, gradient accumulation as the mean of microbatch
   gradients, clipping and the optimizer update.
+- `make_eval_step` / `evaluate_psnr`: per-image boundary-cropped PSNR of
+  the clamped prediction, averaged as the reference does (finite sum over
+  the image count).
+- `train`: the epoch loop. RealBSR tree -> `BurstLoader` (pinned,
+  non-blocking copies to the card) -> the step, with a one-step-deep loss
+  pipeline (step N's loss is read after step N+1 is queued), per-epoch
+  evaluation, the best / latest / periodic checkpoints, and resume, both
+  at an epoch boundary (cosine annealed from the stored learning rate) and
+  mid-epoch (`save_every_steps`, `stop_after_steps`: the same samples and
+  the same stochastic depth as the uninterrupted run). Each step draws its
+  stochastic depth from a generator seeded by (seed, epoch, step).
 
-The epoch loop `train()`, the RealBSR loader and the checkpoint triad are
-not ported yet.
+The port runs one device; data parallelism waits for its DDP port.
 """
 
 from __future__ import annotations
 
+import argparse
+import datetime
+import itertools
 import math
+import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from fbanet_tpu_torch.config import TrainConfig
+from fbanet_tpu_torch.config import (
+    Config,
+    TrainConfig,
+    add_cli_args,
+    from_cli,
+)
+from fbanet_tpu_torch.data import native_io
+from fbanet_tpu_torch.data.loader import BurstLoader
+from fbanet_tpu_torch.data.realbsr import RealBSRDataset
 from fbanet_tpu_torch.losses import fbanet_training_loss
-from fbanet_tpu_torch.metrics import to_unit_f32
+from fbanet_tpu_torch.metrics import finite_average, psnr, to_unit_f32
+from fbanet_tpu_torch.models import create_model
+from fbanet_tpu_torch.utils.checkpoint import CheckpointTriad, load_checkpoint
+from fbanet_tpu_torch.utils.profiling import StepTimer
 
 
 def lr_for_epoch(epoch: int, cfg: TrainConfig, *, start_epoch: int = 1,
@@ -163,3 +193,243 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
 
     step.loss_fn = loss_fn
     return step
+
+
+def resolve_device(device: torch.device | str, who: str) -> torch.device:
+    """`device` as a torch.device; raises for a CUDA device where there is
+    none (the entry points run on the card unless told otherwise)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: no CUDA device; pass device='cpu' "
+                           f"(--device cpu) to run on the CPU")
+    return dev
+
+
+def step_generator(seed: int, epoch: int, step: int,
+                   device: torch.device | str) -> torch.Generator:
+    """The generator of one train step, keyed by (seed, epoch, step), so a
+    resumed epoch redraws the stochastic depth of the uninterrupted run."""
+    key = np.random.SeedSequence([seed, epoch, step]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(key))
+
+
+def make_eval_step(model: torch.nn.Module, boundary_ignore: int = 40,
+                   online_align: str = "none"):
+    """(lr_burst, hr) -> per-image boundary-cropped PSNR [B] of the clamped
+    prediction (train.py:241-259)."""
+    if online_align != "none":
+        from fbanet_tpu_torch.ops.registration import online_register
+
+    @torch.no_grad()
+    def step(lr_burst, hr):
+        lr_burst, hr = to_unit_f32(lr_burst), to_unit_f32(hr)
+        if online_align != "none":
+            lr_burst = online_register(lr_burst, online_align)
+        pred = torch.clamp(model(lr_burst), 0.0, 1.0)
+        return psnr(pred, hr, boundary_ignore=boundary_ignore)
+
+    return step
+
+
+def evaluate_psnr(eval_step, loader, epoch: int) -> float:
+    """Sum of the finite per-image PSNRs over the dataset size
+    (train.py:262-283). Results stay on the device until the end: the host
+    prepares batch N+1 while the card evaluates batch N. Padded entries
+    (`batch["valid"]`) are dropped."""
+    vals_all, count = [], 0
+    for batch in loader.epoch(epoch):
+        vals = eval_step(batch["LR"], batch["HR"])
+        valid = batch.get("valid", vals.shape[0])
+        vals_all.append(vals[:valid])
+        count += valid
+    vals = torch.cat(vals_all).cpu().numpy() if vals_all else []
+    return finite_average(vals, count)
+
+
+def train(cfg: Config, device: torch.device | str = "cuda") -> dict:
+    """Train `cfg` on `device` (train.py:286-503). Returns {'params' (the
+    model's state_dict), 'best_psnr', 'best_epoch', 'history' (per epoch:
+    loss, PSNR, learning rate, steps, each step's host seconds under
+    'step_s' and each wait for a batch under 'data_wait_s'), 'model_dir',
+    'decoder'}."""
+    device = resolve_device(device, "train")
+    tcfg = cfg.train
+
+    log_dir = Path(tcfg.save_dir) / "log" / f"{tcfg.arch}{tcfg.env}"
+    model_dir = log_dir / "models"
+    model_dir.mkdir(parents=True, exist_ok=True)
+    logname = log_dir / (datetime.datetime.now().isoformat() + ".txt")
+
+    def log(msg: str) -> None:
+        print(msg, flush=True)
+        with open(logname, "a") as f:
+            f.write(msg + "\n")
+
+    model = create_model(cfg.model, device=device, seed=tcfg.seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"FBANet created, parameters: {n_params}")
+    optimizer = make_optimizer(model.parameters(), tcfg)
+
+    start_epoch, best_psnr, resumed = 1, 0.0, False
+    resume_step, resume_loss, resumed_lr = 0, 0.0, None
+    triad = CheckpointTriad(model_dir, period=tcfg.checkpoint_every)
+    if tcfg.resume:
+        src = Path(tcfg.pretrain_weights) if tcfg.pretrain_weights else None
+        if src is None or not src.with_suffix(".pt").exists():
+            src = triad.latest()
+        if src is not None:
+            state = load_checkpoint(src)
+            model.load_state_dict(state["params"], strict=True)
+            optimizer.load_state_dict(state["opt_state"])
+            best_psnr = state.get("best_psnr", 0.0)
+            resume_step = int(state.get("step_in_epoch", 0))
+            if resume_step > 0:
+                start_epoch = state["epoch"]
+                resume_loss = float(state.get("epoch_loss", 0.0))
+                log(f"==> Resuming from {src} mid-epoch {start_epoch} "
+                    f"at step {resume_step}")
+            else:
+                start_epoch = state["epoch"] + 1
+                log(f"==> Resuming from {src} at epoch {start_epoch}")
+            # an epoch-boundary resume anneals a cosine from the stored
+            # learning rate; a mid-epoch one keeps the original schedule
+            resumed = resume_step == 0
+            if resumed:
+                resumed_lr = optimizer.param_groups[0]["lr"]
+
+    ds_kw = dict(layout=cfg.data.layout, burst_size=cfg.data.burst_size,
+                 crop_size=cfg.data.crop_size, scale=cfg.data.scale,
+                 channels=cfg.data.channels, seed=cfg.data.seed,
+                 cache_decoded=cfg.data.cache_decoded,
+                 cache_limit_bytes=int(cfg.data.cache_gb * (1 << 30)),
+                 wire_dtype=cfg.data.wire_dtype)
+    train_ds = RealBSRDataset(cfg.data.dataroot, split="train",
+                              shard_id=cfg.data.shard_id,
+                              num_shards=cfg.data.num_shards, **ds_kw)
+    val_ds = RealBSRDataset(cfg.data.dataroot, split="val", **ds_kw)
+    train_loader = BurstLoader(train_ds, batch_size=tcfg.batch_size,
+                               num_workers=cfg.data.num_workers,
+                               prefetch_depth=cfg.data.prefetch_depth,
+                               device=device, seed=tcfg.seed)
+    val_loader = BurstLoader(val_ds, batch_size=tcfg.batch_size,
+                             num_workers=cfg.data.eval_workers,
+                             drop_last=False, device=device, pad_last=True,
+                             seed=tcfg.seed)
+    log(f"Sizeof training set: {len(train_ds)}, sizeof validation set: "
+        f"{len(val_ds)}; device {device}")
+    why = native_io.unavailable_reason()
+    log(f"decoder: {train_ds.decoder}"
+        + (f" (native pool unavailable: {why})" if why else ""))
+
+    if cfg.data.warm_start and cfg.data.cache_decoded:
+        t0 = time.time()
+        n_warm = train_ds.warm_cache() + val_ds.warm_cache()
+        log(f"warm_start: pre-decoded {n_warm} bursts into the frame cache "
+            f"in {time.time() - t0:.1f}s")
+
+    train_step = make_train_step(model, optimizer, tcfg,
+                                 online_align=cfg.data.online_align)
+    # the boundary crop must leave pixels on the eval images
+    bi = cfg.eval.boundary_ignore
+    if cfg.data.crop_size and cfg.data.crop_size * cfg.data.scale <= 2 * bi:
+        bi = 0
+    eval_step = make_eval_step(model, boundary_ignore=bi,
+                               online_align=cfg.data.online_align)
+
+    best_epoch, history = 0, []
+    ga = max(1, tcfg.grad_accum)
+
+    def result() -> dict:
+        return {"params": model.state_dict(),
+                "best_psnr": best_psnr, "best_epoch": best_epoch,
+                "history": history, "model_dir": str(model_dir),
+                "decoder": train_ds.decoder}
+
+    for epoch in range(start_epoch, tcfg.nepoch + 1):
+        t0 = time.time()
+        lr = lr_for_epoch(epoch, tcfg, start_epoch=start_epoch,
+                          resumed=resumed, resumed_base=resumed_lr)
+        start_step = resume_step if epoch == start_epoch else 0
+        epoch_loss = resume_loss if epoch == start_epoch else 0.0
+        steps = start_step
+        timer = StepTimer(skip_first=1 if epoch == start_epoch else 0)
+        stopped_early = False
+        # `steps` counts optimizer steps; with grad_accum each takes ga
+        # loader batches, so the loader resumes at the microbatch position
+        batches = iter(train_loader.epoch(epoch, start_step=start_step * ga))
+        # one-step-deep loss pipeline: step N's loss is read after step
+        # N+1 is queued, so the host's wait overlaps the card's work;
+        # epoch_loss is flushed before every checkpoint
+        pending_loss = None
+        while True:
+            with timer.data_wait():
+                if ga == 1:
+                    batch = next(batches, None)
+                else:  # a trailing partial group is dropped
+                    group = list(itertools.islice(batches, ga))
+                    batch = (None if len(group) < ga else
+                             {"LR": tuple(b["LR"] for b in group),
+                              "HR": tuple(b["HR"] for b in group)})
+            if batch is None:
+                break
+            gen = step_generator(tcfg.seed, epoch, steps, device)
+            with timer.step():
+                loss = train_step(batch["LR"], batch["HR"], gen, lr)
+                if pending_loss is not None:
+                    epoch_loss += float(pending_loss)
+            pending_loss = loss
+            steps += 1
+            if tcfg.save_every_steps and steps % tcfg.save_every_steps == 0:
+                epoch_loss += float(pending_loss)
+                pending_loss = None
+                triad.on_step(epoch, steps, epoch_loss,
+                              params=model.state_dict(),
+                              opt_state=optimizer.state_dict(),
+                              best_psnr=best_psnr)
+            if tcfg.stop_after_steps and steps >= tcfg.stop_after_steps:
+                batches.close()  # stops the loader's producer thread
+                stopped_early = True
+                break
+        if pending_loss is not None:
+            epoch_loss += float(pending_loss)
+        timing = {"step_s": timer.times, "data_wait_s": timer.waits}
+        if stopped_early:
+            triad.on_step(epoch, steps, epoch_loss, params=model.state_dict(),
+                          opt_state=optimizer.state_dict(),
+                          best_psnr=best_psnr)
+            log(f"==> Stopped after {steps} steps of epoch {epoch} "
+                f"(interrupt checkpoint written)")
+            history.append({"epoch": epoch, "loss": epoch_loss, "psnr": None,
+                            "lr": lr, "steps": steps, "interrupted": True,
+                            **timing})
+            return result()
+
+        psnr_val = evaluate_psnr(eval_step, val_loader, epoch)
+        if psnr_val > best_psnr:
+            best_psnr, best_epoch = psnr_val, epoch
+            triad.on_best(params=model.state_dict(),
+                          opt_state=optimizer.state_dict(), epoch=epoch,
+                          best_psnr=best_psnr)
+        log(f"[Ep {epoch} PSNR: {psnr_val:.4f}] ---- "
+            f"[best_Ep {best_epoch} Best_PSNR {best_psnr:.4f}]")
+        log(f"Epoch: {epoch}\tTime: {time.time() - t0:.4f}\t"
+            f"Loss: {epoch_loss:.4f}\tLearningRate {lr:.6f}\t"
+            + (timer.report() if timer.times else "steps=0"))
+        triad.on_epoch_end(epoch, params=model.state_dict(),
+                           opt_state=optimizer.state_dict(),
+                           best_psnr=best_psnr)
+        history.append({"epoch": epoch, "loss": epoch_loss, "psnr": psnr_val,
+                        "lr": lr, "steps": steps, **timing})
+    return result()
+
+
+def main(argv: list[str] | None = None) -> dict:
+    parser = add_cli_args(argparse.ArgumentParser(
+        description="FBANet training (PyTorch port)"))
+    args = parser.parse_args(argv)
+    return train(from_cli(args), device=args.device)
+
+
+if __name__ == "__main__":
+    main()

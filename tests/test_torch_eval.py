@@ -1,8 +1,8 @@
 """The port's evaluation step and metrics against the JAX package.
 
-`eval_step` = online ECC registration -> forward -> clamp to [0, 1] ->
-per-image PSNR and SSIM with the 40-px boundary crop, the jitted step of
-fbanet_tpu/evaluate.py:62-70. Tiny model, random parameters, f32.
+`eval_step(..., online_align="ecc")` = online ECC registration -> forward
+-> clamp to [0, 1] -> per-image PSNR and SSIM with the 40-px boundary
+crop, the jitted step of fbanet_tpu/evaluate.py:62-70. Tiny model, random parameters, f32.
 """
 
 import jax
@@ -43,7 +43,7 @@ def test_eval_step_matches_jax():
                 jmetrics.ssim(pred, hr, boundary_ignore=40))
 
     pred_j, psnr_j, ssim_j = step(params, lr8, hr)
-    pred, p, s, hr_unit = eval_step(tmodel, t(lr8), t(hr))
+    pred, p, s, hr_unit = eval_step(tmodel, t(lr8), t(hr), online_align="ecc")
     assert pred.shape == (2, 128, 128, 3) and hr_unit.dtype == torch.float32
     assert 0.0 <= float(pred.min()) and float(pred.max()) <= 1.0
     assert max_err(pred, pred_j) <= 2e-3  # ECC stop points may differ (eps)

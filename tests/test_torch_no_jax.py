@@ -9,7 +9,10 @@
    of `fbanet_tpu` runs a tiny CPU forward, registration (translation and
    homography ECC, optical flow), evaluation step and training step of the
    port, the windowed attention with the tools' ablation functions, the
-   variant tool's K7 and K8 plain versions and the MFU fields.
+   variant tool's K7 and K8 plain versions and the MFU fields, and the
+   entry points that read a dataset: the synthetic tree writer,
+   `train.main` for one epoch and `evaluate.main` on its checkpoint, with
+   `--device cpu`.
 """
 
 import ast
@@ -117,6 +120,23 @@ assert mv.variant_attention(32, 16, 2, "lanepack")(
 assert mv.variant_leff(32, 16, gelu_bf16=True)(
     *_leff_args(32, 16, batch=1, device="cpu")).shape == (1, 16, 16, 32)
 assert mfu_fields(1, 2, 16, 8, 0.1, None, 1)["mfu_forward"] >= 0
+import tempfile
+from pathlib import Path
+from fbanet_tpu_torch import evaluate as E
+from fbanet_tpu_torch import train as T
+from fbanet_tpu_torch.data.synthetic import write_synthetic_realbsr
+with tempfile.TemporaryDirectory() as tmp:
+    write_synthetic_realbsr(Path(tmp, "ds"), num_bursts=2, num_frames=2,
+                            lr_size=16, level=1)
+    common = ["--dataroot", str(Path(tmp, "ds")), "--train_ps", "16",
+              "--embed_dim", "8", "--win_size", "4", "--burst_size", "2",
+              "--dtype", "float32", "--device", "cpu"]
+    res = T.main([*common, "--batch_size", "2", "--nepoch", "1",
+                  "--save_dir", str(Path(tmp, "log")), "--train_workers", "1",
+                  "--eval_workers", "1"])
+    ckpt = Path(res["model_dir"], "model_best")
+    ev = E.main([*common, "--weights", str(ckpt)])
+    assert abs(ev["psnr"] - res["best_psnr"]) < 1e-4, (ev, res["best_psnr"])
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED
                 or m.startswith("fbanet_tpu."))
 print("LOADED", loaded)
