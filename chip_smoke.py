@@ -2,6 +2,8 @@
 """Drive the PyTorch port (fbanet_tpu_torch) once on one NVIDIA GPU.
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py ranks      # phase_ranks alone: on W > 1 cards,
+                                     # W ranks over NCCL, one a card
 
 Phases, each printed as it runs; any failure raises and the exit code is
 non-zero:
@@ -86,7 +88,24 @@ non-zero:
    from disk and the data_wait share; `evaluate.main` on `model_best`
    within 1e-3 dB of the best epoch (eval bursts/s); `tiled.main` (psize
    80, overlap 40) on a GT-free 160 px burst: a finite [640, 640, 3] image.
-10. measure: K1b (window attention on [G, N, C] windows) against its plain
+10. ddp: data parallelism (parallel/mesh.py, DDP in train.make_train_step)
+   on the trainer phase's tree. A NCCL process group of world 1 in this
+   process: 3 steps of FBANet-64 at B=8 (bf16, drop_path 0.1) under
+   DistributedDataParallel bit-equal to the same 3 steps without it, under
+   deterministic algorithms, 20 launches of each of K1-K4 per step and none
+   of K1's first kernel; then 8 more steps of each, alternating, under the
+   default settings: the median ms of the DDP and the plain step, and the
+   gradient bytes all-reduced per step. `python -m
+   torch.distributed.run --nproc_per_node 1 -m fbanet_tpu_torch.train` for
+   one epoch, then `... -m fbanet_tpu_torch.evaluate` on its `model_best`:
+   no `module.` prefix, a strict load into a plain `create_model`, whose
+   eval PSNR here is the torchrun evaluation's within 1e-3 dB. Two ranks
+   on this one card over gloo (NCCL refuses two ranks on one GPU):
+   `-m fbanet_tpu_torch.parallel.dryrun DIR steps`, one f32 step on a global
+   batch of 8 against the one-process step on the same rows, every
+   gradient within the train phase's f32 limit, both ranks' parameters
+   bit-equal.
+11. measure: K1b (window attention on [G, N, C] windows) against its plain
    version at the five shapes (B=2, f32 and bf16, masked and not) and
    bitwise against K1 on the partitioned map, under its plan and under the
    first kernel (against K1's); its backward (K3's windowed
@@ -105,7 +124,7 @@ non-zero:
    plainref leffabl merged ablate`, K9's, K10's and K11's variants timed
    on both forms, their tables printed) and K1b forward + backward through
    autograd at the five shapes.
-11. variants: K7 (K1's function with its head stage rewritten: loop,
+12. variants: K7 (K1's function with its head stage rewritten: loop,
    loop_ln, stack3d, stack3d_ln, lanepack, ln+qkv1, ln+nr2) and K8 (K2's
    with packed-bf16 depthwise and/or GELUs), every variant on both forms
    of K1 / K2 (the wgmma form their plans pick, with its device ms per
@@ -128,7 +147,7 @@ Each kernel wrapper counts its launches (K1, K2, K3, K7, K8, K9, K10
 and K11 per form); the counts are set to 0 just before the registration, the CLI
 stream, the serving, the training (the B=8 steps, then the f32 B=2 step,
 whose plans send K1, K2 and K3 to their first kernels), each run of the
-trainer phase, the measurement and the variant runs and read just after. The line before the last is a JSON object
+trainer phase, each DDP step of the ddp phase, the measurement and the variant runs and read just after. The line before the last is a JSON object
 {"kernels": [...]} (launches on those runs; error, times and bound from
 phases 3-6, 9 and 10; K7 and K9-K11 also per variant; K1, K2, K3, K7, K8,
 K9, K10 and K11 with their first kernels as entries of their own), preceded
@@ -138,6 +157,7 @@ by the nvidia-smi name/power-limit line; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -2034,6 +2054,29 @@ TRAINER_LR = 192  # LR px of the tree (HR 768); the model crops 160
 TRAINER_EVAL_DB = 1e-3  # evaluate.main vs the best epoch's PSNR
 
 
+@contextlib.contextmanager
+def deterministic():
+    """`torch.use_deterministic_algorithms` (warn only),
+    `cudnn.deterministic`, no cuDNN autotuning; the settings before are put
+    back after. cuBLAS's workspace for it is fixed at the top of main()."""
+    import torch
+
+    cudnn = torch.backends.cudnn
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.utils.deterministic.fill_uninitialized_memory,
+             cudnn.deterministic, cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.utils.deterministic.fill_uninitialized_memory = saved[2]
+        cudnn.deterministic, cudnn.benchmark = saved[3], saved[4]
+
+
 def _trainer_argv(root, save, *extra):
     return ["--dataroot", str(root), "--embed_dim", "64", "--train_ps", "160",
             "--burst_size", "14", "--batch_size", "8", "--nepoch", "2",
@@ -2042,7 +2085,7 @@ def _trainer_argv(root, save, *extra):
             "--device", "cuda", *extra]
 
 
-def phase_trainer(card: str) -> dict:
+def phase_trainer(card: str) -> tuple[dict, Path]:
     """The entry points that read a dataset, at FBANet-64 (14 frames, 160 px
     crops, B=8, bf16, drop_path 0.1), from a synthetic RealBSR tree written
     to disk through `data/png.py`: 16 train and 8 test bursts of 14 frames
@@ -2061,7 +2104,8 @@ def phase_trainer(card: str) -> dict:
     epoch's PSNR, and `tiled.main` (psize 80, overlap 40) on a GT-free
     160 px burst: a finite [640, 640, 3] image. Prints ms per train step
     from disk (median of run A's steps after the first), the data_wait
-    share, eval bursts/s. Returns the launch counts of the phase."""
+    share, eval bursts/s. Returns the launch counts of the phase and the
+    tree's directory (the ddp phase trains from it, then removes it)."""
     import argparse
     import shutil
     import tempfile
@@ -2116,14 +2160,6 @@ def phase_trainer(card: str) -> dict:
 
     layers = 20
     counters = _counters()
-    cudnn = torch.backends.cudnn
-    saved = (torch.are_deterministic_algorithms_enabled(),
-             torch.is_deterministic_algorithms_warn_only_enabled(),
-             torch.utils.deterministic.fill_uninitialized_memory,
-             cudnn.deterministic, cudnn.benchmark)
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    torch.utils.deterministic.fill_uninitialized_memory = False
-    cudnn.deterministic, cudnn.benchmark = True, False
 
     def run(fn, *args, **kw):
         for c in counters.values():
@@ -2142,30 +2178,24 @@ def phase_trainer(card: str) -> dict:
                                  f"{bad} for {steps} train steps and "
                                  f"{forwards} eval forwards")
 
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            t0 = time.perf_counter()
-            res_a, la = run(T.main, _trainer_argv(root, tmp / "a"))
-            secs_a = time.perf_counter() - t0
-            hist_a = res_a["history"]
-            steps_a = sum(h["steps"] for h in hist_a)
-            check_launches("run A", la, steps_a, len(hist_a))
-            cfg_b = from_cli(add_cli_args(argparse.ArgumentParser())
-                             .parse_args(_trainer_argv(root, tmp / "b")))
-            res_s, ls = run(T.train, cfg_b.replace(
-                train=cfg_b.train.replace(stop_after_steps=1)), device="cuda")
-            check_launches("run B, stop", ls, 1, 0)
-            res_b, lb = run(T.main, _trainer_argv(root, tmp / "b",
-                                                   "--resume"))
-            check_launches("run B, resume", lb, 3, 2)
-        reasons = sorted({str(w.message).splitlines()[0][:160]
-                          for w in caught
-                          if "deterministic" in str(w.message)})
-    finally:
-        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
-        torch.utils.deterministic.fill_uninitialized_memory = saved[2]
-        cudnn.deterministic, cudnn.benchmark = saved[3], saved[4]
+    with deterministic(), warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        res_a, la = run(T.main, _trainer_argv(root, tmp / "a"))
+        secs_a = time.perf_counter() - t0
+        hist_a = res_a["history"]
+        steps_a = sum(h["steps"] for h in hist_a)
+        check_launches("run A", la, steps_a, len(hist_a))
+        cfg_b = from_cli(add_cli_args(argparse.ArgumentParser())
+                         .parse_args(_trainer_argv(root, tmp / "b")))
+        res_s, ls = run(T.train, cfg_b.replace(
+            train=cfg_b.train.replace(stop_after_steps=1)), device="cuda")
+        check_launches("run B, stop", ls, 1, 0)
+        res_b, lb = run(T.main, _trainer_argv(root, tmp / "b",
+                                               "--resume"))
+        check_launches("run B, resume", lb, 3, 2)
+    reasons = sorted({str(w.message).splitlines()[0][:160] for w in caught
+                      if "deterministic" in str(w.message)})
 
     losses = [h["loss"] for h in hist_a + res_s["history"] + res_b["history"]]
     if not all(map(math.isfinite, losses)):
@@ -2238,8 +2268,306 @@ def phase_trainer(card: str) -> dict:
             head[:2] != (640, 640):
         raise AssertionError(f"trainer: tiled output {sr.shape}, header "
                              f"{head}")
-    shutil.rmtree(tmp, ignore_errors=True)
-    return {k: la[k] + ls[k] + lb[k] + le[k] + lt[k] for k in la}
+    shutil.rmtree(tmp / "a", ignore_errors=True)
+    shutil.rmtree(tmp / "b", ignore_errors=True)
+    return {k: la[k] + ls[k] + lb[k] + le[k] + lt[k] for k in la}, tmp
+
+
+# the ddp phase: steps of the NCCL world-1 comparison, and the two-rank
+# gloo run's limit (the train phase's f32 gradient limit, TRAIN_GRAD_TOL)
+DDP_STEPS = 3  # checked bit for bit against the plain steps
+DDP_TIMED = 8  # then timed, each side
+DDP_EVAL_DB = 1e-3  # torchrun evaluate vs the plain model's eval PSNR
+
+
+def _torchrun(nproc: int, *args: str, timeout: int = 600):
+    """`python -m torch.distributed.run --standalone` with `nproc` ranks on
+    this host; raises with its output when it fails. Returns (stdout,
+    seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(nproc), *args], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(ROOT)}, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:  # torchrun stops its ranks on SIGTERM
+        if proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+    if proc.returncode != 0:
+        raise RuntimeError(f"torchrun {' '.join(args[:2])} exited "
+                           f"{proc.returncode}:\n{out[-3000:]}\n"
+                           f"{err[-6000:]}")
+    return out, time.perf_counter() - t0
+
+
+def phase_ddp(card: str, tree_dir: Path) -> dict:
+    """Data parallelism on the card (parallel/mesh.py, DDP in
+    `train.make_train_step`):
+
+    1. A NCCL process group of world 1 in this process (torchrun's
+       environment set by hand) and FBANet-64 at B=8 (14 frames, 160 px,
+       bf16, drop_path 0.1) under DistributedDataParallel: DDP_STEPS AdamW
+       steps, each beside the same step of a second copy without DDP (the
+       same state, inputs and generators), under `deterministic()`. The
+       parameters after the steps must be bit-equal; each DDP step launches
+       20 of each of K1-K4 and none of K1's first kernel. Then DDP_TIMED
+       more steps of each, alternating, under the default settings: prints
+       the median ms of the DDP step and of the plain step, and the
+       gradient bytes all-reduced per step.
+    2. `torchrun --nproc_per_node 1 -m fbanet_tpu_torch.train` for one
+       epoch on the trainer phase's tree, then `torchrun ... -m
+       fbanet_tpu_torch.evaluate` on its `model_best`: the checkpoint has
+       no `module.` prefix, loads with strict=True into a plain
+       `create_model`, and `evaluate.evaluate` of that model here gives the
+       torchrun evaluation's PSNR within DDP_EVAL_DB. Whether the ranks
+       rebuilt the kernels (the library's mtime) is printed.
+    3. `phase_ranks`: one f32 step over two ranks on this card over gloo
+       (NCCL refuses two ranks on one GPU) against one process.
+
+    Returns the launch counts of 1's DDP steps (the phase's main path)."""
+    import argparse
+    import shutil
+
+    import torch
+
+    from fbanet_tpu_torch import evaluate as E
+    from fbanet_tpu_torch.config import TrainConfig, add_cli_args, from_cli
+    from fbanet_tpu_torch.models import ModelConfig, create_model
+    from fbanet_tpu_torch.ops import _build
+    from fbanet_tpu_torch.parallel import mesh
+    from fbanet_tpu_torch.train import (
+        make_optimizer,
+        make_train_step,
+        step_generator,
+    )
+    from fbanet_tpu_torch.utils.checkpoint import load_checkpoint
+    from fbanet_tpu_torch.utils.weights import random_state_dict
+
+    # 1. NCCL, world 1, DDP against no DDP
+    cfg = ModelConfig(num_frames=14, img_size=160, embed_dim=64,
+                      window_size=8, dtype="bfloat16", drop_path_rate=0.1)
+    tcfg = TrainConfig(batch_size=8, lr_initial=1e-4, optimizer="adamw")
+    state = random_state_dict(create_model(cfg, device="cpu", seed=0),
+                              seed=2)
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "LOCAL_WORLD_SIZE": "1", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(mesh.free_port())}
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        world, dev = mesh.init("cuda")
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    counters = _counters()
+    try:
+        log(f"ddp: process group {world.backend}, world {world.size}, rank "
+            f"{world.rank} on {dev}")
+        if (world.backend, world.size) != ("nccl", 1):
+            raise AssertionError(f"ddp: expected a NCCL world of 1, got "
+                                 f"{world}")
+        models, steps = [], []
+        for wrapped in (False, True):
+            m = create_model(cfg, device=dev, seed=0)
+            m.load_state_dict(state, strict=True)
+            models.append(m)
+            steps.append(make_train_step(
+                m, make_optimizer(m.parameters(), tcfg), tcfg,
+                world=world if wrapped else None))
+        if steps[0].ddp is not None or steps[1].ddp is None:
+            raise AssertionError("ddp: the step did not wrap the model in "
+                                 "DistributedDataParallel")
+        n_params = sum(p.numel() for p in models[1].parameters()
+                       if p.requires_grad)
+        reduced = sum(p.numel() * p.element_size()
+                      for p in models[1].parameters() if p.requires_grad)
+        lr_np, hr_np = make_realistic_bursts(8, 14, 160, seed=30, hr_scale=4)
+        lr8, hr8 = (torch.from_numpy(lr_np).to(dev),
+                    torch.from_numpy(hr_np).to(dev))
+        ddp_launches = {k: 0 for k in counters}
+
+        def one_step(wrapped, i):
+            for c in counters.values():
+                c.launches = 0
+            gen = step_generator(tcfg.seed, 1, i, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(steps[wrapped](lr8, hr8, gen, tcfg.lr_initial))
+            torch.cuda.synchronize()
+            if not math.isfinite(loss):
+                raise AssertionError(f"ddp: loss {loss}")
+            return (time.perf_counter() - t0) * 1e3
+
+        with deterministic():
+            for i in range(DDP_STEPS):
+                for wrapped in (False, True):
+                    one_step(wrapped, i)
+                    if wrapped:
+                        got = {k: c.launches for k, c in counters.items()}
+                        want = {"K1": 20, "K2": 20, "K3": 20, "K4": 20,
+                                "K1-base": 0}
+                        bad = {k: (got[k], v) for k, v in want.items()
+                               if got[k] != v}
+                        if bad:
+                            raise AssertionError(f"ddp step {i}: launches "
+                                                 f"(got, expected) {bad}")
+                        for k, v in got.items():
+                            ddp_launches[k] += v
+        plain_p = dict(models[0].named_parameters())
+        unequal = [n for n, p in models[1].named_parameters()
+                   if not torch.equal(p, plain_p[n])]
+        # the timing: more steps, alternating, under the default settings
+        times = {False: [], True: []}
+        for i in range(DDP_STEPS, DDP_STEPS + DDP_TIMED):
+            for wrapped in ((False, True) if i % 2 else (True, False)):
+                times[wrapped].append(one_step(wrapped, i))
+        ddp_ms, plain_ms = (statistics.median(times[True]),
+                            statistics.median(times[False]))
+        log(f"ddp on {card}: NCCL world 1, {DDP_STEPS} steps of FBANet-64 at "
+            f"B=8 under DDP vs without (deterministic algorithms): "
+            f"parameters bit-equal {len(plain_p) - len(unequal)} of "
+            f"{len(plain_p)}; then {DDP_TIMED} more of each, alternating, "
+            f"default settings: step ms DDP "
+            f"{[round(t, 2) for t in times[True]]} (median {ddp_ms:.2f}), "
+            f"plain {[round(t, 2) for t in times[False]]} (median "
+            f"{plain_ms:.2f}); DDP overhead {ddp_ms - plain_ms:+.2f} ms "
+            f"({100 * (ddp_ms / plain_ms - 1):+.2f} %); all-reduced per "
+            f"step: {n_params} f32 parameters, {reduced} bytes "
+            f"({reduced / 1e6:.1f} MB); launches of the {DDP_STEPS} "
+            f"checked DDP steps "
+            f"{ {k: v for k, v in ddp_launches.items() if v} }")
+        if unequal:
+            raise AssertionError(f"ddp: {len(unequal)} parameters differ "
+                                 f"from the plain steps (first "
+                                 f"{unequal[:3]})")
+        del models, steps
+    finally:
+        world.close()
+    torch.cuda.empty_cache()
+
+    # 2. torchrun at world 1: train.main one epoch, then evaluate.main
+    lib = _build.build()
+    mtime = lib.stat().st_mtime
+    root = tree_dir / "realbsr"
+    argv = _trainer_argv(root, tree_dir / "ddp")
+    argv[argv.index("--nepoch") + 1] = "1"
+    out, secs = _torchrun(1, "-m", "fbanet_tpu_torch.train", *argv)
+    epoch_lines = [ln for ln in out.splitlines() if ln.startswith(("[Ep",
+                                                                   "Epoch"))]
+    best = tree_dir / "ddp" / "log" / "BaseModel_" / "models" / "model_best"
+    ckpt = load_checkpoint(best)
+    prefixed = [k for k in ckpt["params"] if k.startswith("module.")]
+    if prefixed:
+        raise AssertionError(f"ddp: checkpoint names with DDP's prefix: "
+                             f"{prefixed[:3]}")
+    plain = create_model(cfg, device="cuda", seed=0)
+    plain.load_state_dict(ckpt["params"], strict=True)
+    del plain
+    ev_out, ev_secs = _torchrun(1, "-m", "fbanet_tpu_torch.evaluate", *argv,
+                                "--weights", str(best))
+    ev_line = [ln for ln in ev_out.splitlines() if ln.startswith("PSNR:")]
+    if len(ev_line) != 1:
+        raise AssertionError(f"ddp: torchrun evaluate printed {ev_line}")
+    tr_psnr = float(ev_line[0].split()[1])
+    ecfg = from_cli(add_cli_args(argparse.ArgumentParser())
+                    .parse_args([*argv, "--weights", str(best)]))
+    here = E.evaluate(ecfg, device="cuda")
+    gap = abs(tr_psnr - here["psnr"])
+    log(f"ddp torchrun world 1 on {card}: train.main 1 epoch in {secs:.1f} s "
+        f"(process included) -> {epoch_lines}; checkpoint best PSNR "
+        f"{ckpt['best_psnr']:.4f}, {len(ckpt['params'])} tensors, no "
+        f"`module.` prefix, loads strict into create_model; torchrun "
+        f"evaluate.main {ev_secs:.1f} s: {ev_line[0]}; the plain model here "
+        f"{here['psnr']:.4f} dB (|diff| {gap:.2e}, limit {DDP_EVAL_DB}); "
+        f"kernels rebuilt by the ranks: {lib.stat().st_mtime != mtime}")
+    if not gap <= DDP_EVAL_DB or not abs(ckpt["best_psnr"] - here["psnr"]) \
+            <= DDP_EVAL_DB:
+        raise AssertionError(f"ddp: torchrun eval {tr_psnr}, checkpoint "
+                             f"{ckpt['best_psnr']}, plain model "
+                             f"{here['psnr']}")
+
+    # 3. several ranks, one f32 step, against one process
+    phase_ranks(card, tree_dir / "ranks")
+    shutil.rmtree(tree_dir, ignore_errors=True)
+    return ddp_launches
+
+
+def phase_ranks(card: str, work: Path) -> None:
+    """One f32 step of FBANet-64 (14 frames, 160 px, drop_path 0) on a
+    global batch of 8 over several ranks, `python -m torch.distributed.run
+    -m fbanet_tpu_torch.parallel.dryrun DIR steps`, against the
+    one-process step on the same 8 rows here: the loss within 1e-5
+    relative, every parameter gradient within TRAIN_GRAD_TOL of its
+    tensor's max |grad| (f32 sums in another order, the train phase's
+    gradient check), every rank's parameters bit-equal. With one card, two
+    ranks on it over gloo (NCCL refuses two ranks on one GPU); with W > 1
+    cards (`python3 chip_smoke.py ranks` on a four-card machine), W ranks
+    over NCCL, one a card."""
+    import torch
+
+    from fbanet_tpu_torch.config import TrainConfig
+    from fbanet_tpu_torch.models import ModelConfig, create_model
+    from fbanet_tpu_torch.train import make_optimizer, make_train_step
+    from fbanet_tpu_torch.utils.weights import random_state_dict
+
+    cards = torch.cuda.device_count()
+    nproc, backend, device = ((cards, "nccl", "cuda") if cards > 1
+                              else (2, "gloo", "cuda:0"))
+    cfg32 = ModelConfig(num_frames=14, img_size=160, embed_dim=64,
+                        window_size=8, dtype="float32", drop_path_rate=0.0)
+    state = random_state_dict(create_model(cfg32, device="cpu", seed=0),
+                              seed=2)
+    lr_np, hr_np = make_realistic_bursts(8, 14, 160, seed=30, hr_scale=4)
+    work.mkdir(parents=True)
+    mc = {f: getattr(cfg32, f) for f in ("num_frames", "img_size",
+                                         "embed_dim", "window_size",
+                                         "dtype", "drop_path_rate")}
+    case = {"name": "f32", "train": {"lr_initial": 1e-4},
+            "lr": [torch.from_numpy(lr_np)], "hr": [torch.from_numpy(hr_np)],
+            "seed": 11}
+    torch.save({"device": device, "backend": backend,
+                "steps": {"model": mc, "state": state, "cases": [case]}},
+               work / "inputs.pt")
+    _, secs = _torchrun(nproc, "-m", "fbanet_tpu_torch.parallel.dryrun",
+                        str(work), "steps")
+    ranks = [torch.load(work / f"steps.rank{r}.pt", weights_only=False)["f32"]
+             for r in range(nproc)]
+    m32 = create_model(cfg32, device="cuda", seed=0)
+    m32.load_state_dict(state, strict=True)
+    tc = TrainConfig(lr_initial=1e-4)
+    one = make_train_step(m32, make_optimizer(m32.parameters(), tc), tc)
+    loss1 = float(one(torch.from_numpy(lr_np).cuda(),
+                      torch.from_numpy(hr_np).cuda(),
+                      torch.Generator("cuda").manual_seed(11),
+                      tc.lr_initial))
+    worst, worst_name = 0.0, ""
+    for n, p in m32.named_parameters():
+        ref = p.grad.float().cpu()
+        err = float((ranks[0]["grads"][n] - ref).abs().max()) / (
+            float(ref.abs().max()) or 1.0)
+        if not err <= worst:
+            worst, worst_name = err, n
+    same = all(torch.equal(v, r["params"][k]) for r in ranks[1:]
+               for k, v in ranks[0]["params"].items())
+    loss_rel = abs(ranks[0]["loss"] - loss1) / abs(loss1)
+    log(f"ddp {nproc} ranks over {backend} on {cards} x {card} ({secs:.1f} "
+        f"s, processes included): f32 step at global B=8 vs one process: "
+        f"loss {ranks[0]['loss']:.6f} vs {loss1:.6f} (rel {loss_rel:.2e}), "
+        f"gradients max err relative to each tensor's max {worst:.3e} "
+        f"({worst_name}; limit {TRAIN_GRAD_TOL}); ranks' parameters "
+        f"bit-equal: {same}")
+    if not (loss_rel <= 1e-5 and worst <= TRAIN_GRAD_TOL and same):
+        raise AssertionError(f"ddp {nproc} ranks: loss rel {loss_rel}, grad "
+                             f"{worst_name} {worst}, ranks equal {same}")
 
 
 def main() -> None:
@@ -2280,6 +2608,19 @@ def main() -> None:
         log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
         return out
 
+    if sys.argv[1:] == ["ranks"]:  # the multi-rank step alone (W cards)
+        import shutil
+        import tempfile
+
+        (ROOT / "build").mkdir(exist_ok=True)
+        work = Path(tempfile.mkdtemp(prefix="ranks_", dir=ROOT / "build"))
+        timed("ranks", phase_ranks, card, work / "ranks")
+        shutil.rmtree(work, ignore_errors=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return
     kres = timed("kernels", phase_kernels, MAIN_SHAPES)
     kres.update(timed("backward", phase_backward, MAIN_SHAPES))
     kres.update(timed("reduce", phase_reduce))
@@ -2287,18 +2628,20 @@ def main() -> None:
     kres.update(reg)
     served, fwd_ms = timed("slice", phase_slice, card)
     trained, train_ms = timed("train", phase_train, card)
-    from_disk = timed("trainer", phase_trainer, card)
+    from_disk, tree_dir = timed("trainer", phase_trainer, card)
+    data_parallel = timed("ddp", phase_ddp, card, tree_dir)
     mres, measured = timed("measure", phase_measure, card)
     kres.update(mres)
     vres, varied = timed("variants", phase_variants, card, fwd_ms, train_ms)
     kres.update(vres)
     # launches on the main paths: registration (K5, K6), serving (K1, K2),
     # training (K1-K4, R1, R2), the entry points from disk (K1-K4, R1, R2),
+    # the DDP steps (K1-K4, R1, R2),
     # measurement (K1b, K9-K11 and, through the tools, K1-K4, R1, R2) and
     # the variants (K7, K8 and, through the tools, K1-K4, R1, R2)
     launches = {k: registered.get(k, 0) + served.get(k, 0) + trained.get(k, 0)
-                + from_disk.get(k, 0) + measured.get(k, 0) + varied.get(k, 0)
-                for k in kres}
+                + from_disk.get(k, 0) + data_parallel.get(k, 0)
+                + measured.get(k, 0) + varied.get(k, 0) for k in kres}
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: "

@@ -10,6 +10,15 @@ overlaps the card's work on batch N. The consumer makes its current stream
 wait on that event, and `record_stream`s the tensors on it, so the caching
 allocator does not hand their memory out again while the consumer's work
 may still read it.
+
+With `rank` / `world` (data parallelism, `parallel/mesh.py`) the loader
+assembles only its rank's rows of each global batch of `batch_size`: rows
+[rank b, (rank + 1) b), b = batch_size / world, of the batch the
+single-process loader would make, each sample at its absolute position in
+the epoch and so with its own augmentation rng. `len()` and `start_step`
+count global batches. `pad_last` pads the final global batch to
+`batch_size` first, so every rank gets b rows and its own `valid` count,
+which may be 0.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import numpy as np
 import torch
 
 from fbanet_tpu_torch.data.realbsr import RealBSRDataset
+from fbanet_tpu_torch.parallel.mesh import row_block
 
 
 class BurstLoader:
@@ -32,7 +42,9 @@ class BurstLoader:
     `pad_last` pads the final partial batch to the full batch size by
     repeating its last sample and reports the real count as
     `batch["valid"]` (`burst_name` stays unpadded). `device=None` yields
-    numpy arrays; a torch device yields tensors there.
+    numpy arrays; a torch device yields tensors there. `rank` / `world`:
+    this rank's rows of each global batch; `world` must divide
+    `batch_size`.
     """
 
     def __init__(
@@ -46,12 +58,18 @@ class BurstLoader:
         device: torch.device | str | None = None,
         pad_last: bool = False,
         seed: int = 0,
+        rank: int = 0,
+        world: int = 1,
     ) -> None:
+        self.rows = row_block(batch_size, rank, world)
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
         self.prefetch_depth = max(1, prefetch_depth)
         self.drop_last = (dataset.split == "train") if drop_last is None else drop_last
+        if world > 1 and not (self.drop_last or pad_last):
+            raise ValueError("a loader over ranks pads (pad_last) or drops "
+                             "(drop_last) the final partial batch")
         self.device = None if device is None else torch.device(device)
         self.pad_last = pad_last
         self.seed = seed
@@ -93,6 +111,7 @@ class BurstLoader:
             indices = indices[: (len(indices) // self.batch_size) * self.batch_size]
         if len(indices) == 0:
             return
+        n_real = len(indices)
 
         out_q: queue.Queue = queue.Queue(maxsize=self.prefetch_depth)
         stop = threading.Event()
@@ -111,11 +130,16 @@ class BurstLoader:
                             return
                         chunk = [(start + o, i) for o, i in
                                  enumerate(indices[start:start + self.batch_size])]
-                        samples = list(pool.map(load_one, chunk))
-                        valid = len(samples)
-                        if self.pad_last and valid < self.batch_size:
-                            samples = samples + [samples[-1]] * (
-                                self.batch_size - valid)
+                        if self.pad_last:
+                            chunk += chunk[-1:] * (self.batch_size - len(chunk))
+                        # this rank's rows; a padded row repeats the last
+                        # sample, which is loaded once
+                        chunk = chunk[self.rows]
+                        valid = max(0, min(len(chunk), n_real - start
+                                           - self.rows.start))
+                        samples = list(pool.map(load_one,
+                                                chunk[:max(1, valid)]))
+                        samples += samples[-1:] * (len(chunk) - len(samples))
                         batch = {
                             "LR": np.stack([s["LR"] for s in samples]),
                             "burst_name": [s["burst_name"]

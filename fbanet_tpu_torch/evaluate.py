@@ -3,12 +3,19 @@
 
     python -m fbanet_tpu_torch.evaluate --dataroot DIR --weights CKPT
         [reference flags] [--save_images --result_dir DIR] [--device cpu]
+    torchrun --nproc_per_node W -m fbanet_tpu_torch.evaluate ...
 
 The validation split at the training patch size, batched forward, clamp
 to [0, 1], per-image PSNR and SSIM with a 40-pixel boundary crop, each
 averaged as finite sum over the image count (`metrics.finite_average`, the
 convention `train.evaluate_psnr` uses too). `--weights` reads the port's
 `.pt` checkpoints and the JAX package's `.msgpack` ones.
+
+Over ranks (torchrun, `parallel/mesh.py`) each rank evaluates its rows of
+every batch of `EvalConfig.batch_size`, the last batch padded to it (the
+JAX package's sharded eval); the per-image PSNR and SSIM are gathered in
+the single-process order before the averages, and `--save_images` has each
+rank write its own real rows' images, so each image is written once.
 """
 
 from __future__ import annotations
@@ -25,7 +32,8 @@ from fbanet_tpu_torch.data.loader import BurstLoader
 from fbanet_tpu_torch.data.realbsr import RealBSRDataset
 from fbanet_tpu_torch.metrics import finite_average, psnr, ssim, to_unit_f32
 from fbanet_tpu_torch.models import create_model
-from fbanet_tpu_torch.train import resolve_device
+from fbanet_tpu_torch.parallel import mesh
+from fbanet_tpu_torch.train import gather_valid, resolve_device
 from fbanet_tpu_torch.utils.checkpoint import load_params
 
 LPIPS_PENDING = ("LPIPS is not ported yet (models/lpips.py, ROADMAP Queue 1 "
@@ -72,17 +80,29 @@ def evaluate(cfg: Config, *, save_images: bool = False,
              result_dir: str = "./results", lpips_weights: str | None = None,
              device: torch.device | str = "cuda") -> dict:
     """Evaluate `cfg.eval.weights` (or `cfg.train.pretrain_weights`) on the
-    validation split, on `device`. Returns {'psnr', 'ssim', 'num_images',
-    'seconds' (the batches' wall time)}."""
+    validation split, on `device`, over the ranks of torchrun's environment
+    where there is one. Returns {'psnr', 'ssim', 'num_images', 'seconds'
+    (the batches' wall time)}, the same on every rank."""
     device = resolve_device(device, "evaluate")
     if lpips_weights:
         raise NotImplementedError(LPIPS_PENDING)
     if save_images and cfg.data.channels == 4:
         raise NotImplementedError(RAW_PENDING)
+    world, device = mesh.init(device)
+    try:
+        return _evaluate(cfg, save_images, result_dir, device, world)
+    finally:
+        world.close()
+
+
+def _evaluate(cfg: Config, save_images: bool, result_dir: str,
+              device: torch.device, world: mesh.World) -> dict:
+    mesh.row_block(cfg.eval.batch_size, world.rank, world.size)
     model = create_model(cfg.model, device=device, seed=0)
     weights = cfg.eval.weights or cfg.train.pretrain_weights
     if weights:
-        model.load_state_dict(load_params(weights), strict=True)
+        model.load_state_dict(load_params(weights, map_location=device),
+                              strict=True)
 
     bi = cfg.eval.boundary_ignore
     # the crop must leave pixels (and SSIM's 11 px window) on small images
@@ -96,32 +116,44 @@ def evaluate(cfg: Config, *, save_images: bool = False,
                         cache_decoded=cfg.data.cache_decoded,
                         wire_dtype=cfg.data.wire_dtype,
                         augment=False)
+    # the host's decode threads, shared by its ranks
     loader = BurstLoader(ds, batch_size=cfg.eval.batch_size,
-                         num_workers=cfg.data.eval_workers, drop_last=False,
-                         device=device)
+                         num_workers=cfg.data.eval_workers // world.local_size,
+                         drop_last=False, device=device,
+                         pad_last=world.size > 1, rank=world.rank,
+                         world=world.size)
 
     out_dir = Path(result_dir)
     if save_images:
         out_dir.mkdir(parents=True, exist_ok=True)
 
-    psnrs, ssims = [], []
+    psnrs, ssims, valid = [], [], []
     t0 = time.perf_counter()
     for batch in loader.epoch(0):
         pred, p, s, _ = eval_step(model, batch["LR"], batch["HR"],
                                   online_align=cfg.data.online_align,
                                   boundary_ignore=bi)
-        psnrs.extend(p.cpu().tolist())
-        ssims.extend(s.reshape(-1).cpu().tolist())
+        if world.size > 1:  # gathered over the ranks at the end
+            psnrs.append(p)
+            ssims.append(s.reshape(-1))
+            valid.append(batch["valid"])
+        else:
+            psnrs.extend(p.cpu().tolist())
+            ssims.extend(s.reshape(-1).cpu().tolist())
         if save_images:
             arr = torch.clamp(pred * 255.0 + 0.5, 0, 255).to(torch.uint8)
             for img, name in zip(arr.cpu().numpy(), batch["burst_name"]):
                 save_rgb(out_dir / f"{name}.png", img)
+    if world.size > 1 and valid:
+        psnrs = gather_valid(world, torch.stack(psnrs), valid)
+        ssims = gather_valid(world, torch.stack(ssims), valid)
     seconds = time.perf_counter() - t0
 
     results = {"psnr": finite_average(psnrs), "ssim": finite_average(ssims),
                "num_images": len(psnrs), "seconds": seconds}
-    print(f"PSNR: {results['psnr']:.4f}  SSIM: {results['ssim']:.4f}"
-          f"  ({results['num_images']} images)")
+    if world.is_main:
+        print(f"PSNR: {results['psnr']:.4f}  SSIM: {results['ssim']:.4f}"
+              f"  ({results['num_images']} images)")
     return results
 
 

@@ -17,6 +17,7 @@ turns a non-zero return into an exception.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -167,13 +168,25 @@ def build() -> Path:
     """Compile the kernels if this source hash has no library yet; return
     the library's path. Each source compiles in its own nvcc process, all
     started together, then one nvcc links the objects. Raises with nvcc's
-    output when a step fails."""
+    output when a step fails. Processes that start together (the ranks of a
+    torchrun launch) build once: the first takes the directory's lock and
+    builds, the others wait on it and load that library."""
     sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
     out_dir = BUILD_ROOT / _source_hash(sources)
     lib = out_dir / "libfbanet_kernels.so"
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
+    # an flock is released when its holder exits, so a killed build leaves
+    # no stale lock behind
+    with open(out_dir / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not lib.exists():
+            _compile(sources, out_dir, lib)
+    return lib
+
+
+def _compile(sources: list[Path], out_dir: Path, lib: Path) -> None:
     pid = os.getpid()
     compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     jobs = []
@@ -212,7 +225,6 @@ def build() -> Path:
     if failed:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
     tmp.replace(lib)  # atomic: a concurrent loader never sees half a file
-    return lib
 
 
 @functools.cache

@@ -2,14 +2,17 @@
 
     python -m fbanet_tpu_torch.tiled --dataroot DIR --weights CKPT
         [--psize 80 --overlap 40 --result_dir DIR] [--device cpu]
+    torchrun --nproc_per_node W -m fbanet_tpu_torch.tiled ...
 
 The reference's `test_in_any_resolution.py` semantics: reflect-pad each
 burst to a multiple of `psize` (LR space), cut tiles of psize + 2 * overlap
 with a reflected halo, super-resolve them, keep each tile's centre and
 stitch at psize * scale. All tiles of an image go through the model as one
 batch (or batches of `tile_batch`); with psize 80 and overlap 40 a tile is
-160 px, the training patch size. One device; splitting the tiles over
-devices waits for the port's DDP.
+160 px, the training patch size. Over ranks (torchrun, `parallel/mesh.py`;
+JAX's `tiled_forward(..., mesh=...)`) each batch of tiles is padded to a
+multiple of the world size and split into row blocks, the HR tiles are
+gathered, and rank 0 alone merges and writes.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from fbanet_tpu_torch.data.realbsr import RealBSRDataset
 from fbanet_tpu_torch.evaluate import RAW_PENDING, save_rgb
 from fbanet_tpu_torch.metrics import to_unit_f32
 from fbanet_tpu_torch.models import create_model
+from fbanet_tpu_torch.parallel import mesh
 from fbanet_tpu_torch.train import resolve_device
 from fbanet_tpu_torch.utils.checkpoint import load_params
 
@@ -71,12 +75,17 @@ def merge_tiles(tiles: np.ndarray, out_h: int, out_w: int, psize: int,
 
 def tiled_forward(apply_fn, burst: np.ndarray, *, psize: int = 80,
                   overlap: int = 40, scale: int = 4, tile_batch: int = 0,
-                  device: torch.device | str = "cuda") -> np.ndarray:
+                  device: torch.device | str = "cuda",
+                  world: mesh.World | None = None) -> np.ndarray | None:
     """Run `apply_fn` ([B, F, t, t, C] tensor on `device` -> [B, t*scale,
     t*scale, C]) over every tile of one burst `[F, H, W, C]` and stitch the
     x`scale` result (numpy). `tile_batch` > 0 caps the batch; the last batch
-    is then padded to it (and the padding dropped)."""
+    is then padded to it (and the padding dropped). With a `world` of W
+    ranks each batch is padded to a multiple of W, every rank runs its row
+    block and the HR tiles are gathered; rank 0 returns the stitched image,
+    the other ranks None."""
     device = resolve_device(device, "tiled_forward")
+    world = world or mesh.World()
     f, h, w, c = burst.shape
     tiles = divide_burst(burst, psize, overlap)
     nt = tiles.shape[0]
@@ -84,13 +93,19 @@ def tiled_forward(apply_fn, burst: np.ndarray, *, psize: int = 80,
     outs = []
     for start in range(0, nt, bsz):
         chunk = tiles[start:start + bsz]
-        pad = (bsz - chunk.shape[0]) if tile_batch > 0 else 0
+        target = mesh.pad_to_multiple(bsz if tile_batch > 0
+                                      else chunk.shape[0], world.size)
+        pad = target - chunk.shape[0]
         if pad:
             chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, 0)])
         with torch.no_grad():
-            out = apply_fn(torch.from_numpy(chunk).to(device))
-        out = out.float().cpu().numpy()
+            out = apply_fn(torch.from_numpy(chunk[world.rows(target)])
+                           .to(device))
+            out = world.gather(out.float())
+        out = out.cpu().numpy()
         outs.append(out[:out.shape[0] - pad])
+    if not world.is_main:
+        return None
     hr_tiles = np.concatenate(outs)
     return merge_tiles(hr_tiles, h * scale, w * scale, psize * scale,
                        overlap * scale)
@@ -98,8 +113,9 @@ def tiled_forward(apply_fn, burst: np.ndarray, *, psize: int = 80,
 
 def main(argv: list[str] | None = None) -> list[Path]:
     """CLI parity with the reference's `test_in_any_resolution.py`: every
-    burst of the test split (GT-free trees too), one PNG each. Returns the
-    files written."""
+    burst of the test split (GT-free trees too), one PNG each, over the
+    ranks of torchrun's environment where there is one. Returns the files
+    written (none on ranks other than 0)."""
     parser = add_cli_args(argparse.ArgumentParser(
         description="tiled inference (PyTorch port)"))
     parser.add_argument("--psize", type=int, default=80)
@@ -110,13 +126,22 @@ def main(argv: list[str] | None = None) -> list[Path]:
     device = resolve_device(args.device, "tiled")
     if cfg.data.channels == 4:
         raise NotImplementedError(RAW_PENDING)
+    world, device = mesh.init(device)
+    try:
+        return _tile_tree(args, cfg, device, world)
+    finally:
+        world.close()
 
+
+def _tile_tree(args, cfg, device: torch.device,
+               world: mesh.World) -> list[Path]:
     tile = args.psize + 2 * args.overlap
     model = create_model(cfg.model.replace(img_size=tile), device=device,
                          seed=0)
     weights = cfg.eval.weights or cfg.train.pretrain_weights
     if weights:
-        model.load_state_dict(load_params(weights), strict=True)
+        model.load_state_dict(load_params(weights, map_location=device),
+                              strict=True)
 
     def apply_fn(batch):
         return torch.clamp(model(to_unit_f32(batch)), 0.0, 1.0)
@@ -143,7 +168,9 @@ def main(argv: list[str] | None = None) -> list[Path]:
                 lr = online_register(full, online_align)[0].cpu().numpy()
         sr = tiled_forward(apply_fn, lr, psize=args.psize,
                            overlap=args.overlap, scale=cfg.data.scale,
-                           device=device)
+                           device=device, world=world)
+        if sr is None:  # rank 0 writes
+            continue
         arr = np.clip(sr * 255.0 + 0.5, 0, 255).astype(np.uint8)
         path = out_dir / f"{sample['burst_name']}.png"
         save_rgb(path, arr)

@@ -3,6 +3,7 @@ evaluation, the epoch loop and the command line.
 
     python -m fbanet_tpu_torch.train --dataroot DIR [reference flags]
         [--device cuda|cpu]
+    torchrun --nproc_per_node W -m fbanet_tpu_torch.train ...
 
 - `lr_for_epoch`: the reference's warmup -> cosine / StepLR / resumed-cosine
   schedules as executed, exactly as in the JAX package.
@@ -28,13 +29,28 @@ evaluation, the epoch loop and the command line.
   the same stochastic depth as the uninterrupted run). Each step draws its
   stochastic depth from a generator seeded by (seed, epoch, step).
 
-The port runs one device; data parallelism waits for its DDP port.
+Data parallelism (`parallel/mesh.py`, the JAX package's single-host mesh
+semantics): under torchrun each rank runs this loop on its own card
+(`cuda:LOCAL_RANK`, NCCL; gloo with `--device cpu`). `--batch_size` is the
+global batch; each rank loads its B / W rows of it; the model runs under
+DistributedDataParallel, whose mean of the ranks' gradients (each the
+gradient of its rows' mean loss) is the global batch's, and clipping reads
+it after the all-reduce. Mixup pairs across the global batch, with draws
+that are the same on every rank; stochastic depth adds the rank to its
+generator's key. Rank 0 alone prints, writes the log and the checkpoints
+(state_dicts without DDP's `module.` prefix, so they load at any world
+size); every rank resumes from the same file. The per-epoch PSNR is
+gathered over the ranks, so all pick the same best epoch. `num_workers`,
+`eval_workers` and `cache_gb` are per host, as in the JAX package's one
+process: each of the host's ranks takes its share (LOCAL_WORLD_SIZE).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import datetime
+import inspect
 import itertools
 import math
 import time
@@ -55,6 +71,8 @@ from fbanet_tpu_torch.data.realbsr import RealBSRDataset
 from fbanet_tpu_torch.losses import fbanet_training_loss
 from fbanet_tpu_torch.metrics import finite_average, psnr, to_unit_f32
 from fbanet_tpu_torch.models import create_model
+from fbanet_tpu_torch.parallel import mesh
+from fbanet_tpu_torch.parallel.mesh import World
 from fbanet_tpu_torch.utils.checkpoint import CheckpointTriad, load_checkpoint
 from fbanet_tpu_torch.utils.profiling import StepTimer
 
@@ -139,49 +157,102 @@ def _mixup_draws(b: int, alpha: float, generator: torch.Generator,
 
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     cfg: TrainConfig, online_align: str = "none",
-                    plain: bool = False):
-    """(lr_burst, hr, generator, lr) -> loss, one optimizer step
-    (train.py:179-238). With `cfg.grad_accum` > 1, `lr_burst` and `hr` are
-    tuples of that many microbatches and the step uses the mean of their
-    gradients (and returns the mean of their losses). `generator` draws the
-    stochastic-depth masks (and mixup's lambda and permutation). `plain=True`
-    runs the fused operators' plain versions (the kernel-vs-plain
-    comparison). The step's `loss_fn(lr_burst, hr, generator)` is the
-    differentiable loss of one microbatch."""
+                    plain: bool = False, world: World | None = None):
+    """(lr_burst, hr, generator, lr, mix_generator=None) -> loss, one
+    optimizer step (train.py:179-238). With `cfg.grad_accum` > 1, `lr_burst`
+    and `hr` are tuples of that many microbatches and the step uses the mean
+    of their gradients (and returns the mean of their losses). `generator`
+    draws the stochastic-depth masks (and mixup's lambda and permutation).
+    `plain=True` runs the fused operators' plain versions (the
+    kernel-vs-plain comparison). The step's `loss_fn(lr_burst, hr,
+    generator, mix_generator=None)` is the differentiable loss of one
+    microbatch.
+
+    With a `world` whose ranks a process group joins (`parallel/mesh.py`),
+    the model runs under DistributedDataParallel (`step.ddp`) on this
+    rank's rows: the ranks' gradients are averaged in the backward (every
+    microbatch but the last under `no_sync()`), before the clipping, and the
+    returned loss is the mean over the ranks. The FAF gate's
+    `temporal_attn0` and embedding biases never get a gradient (they cancel,
+    `models/blocks.py`), which DDP must be told. With `static_graph=True` it
+    learns them in the first step; `find_unused_parameters=True` searches
+    the autograd graph at every step and then reads the used-parameter map
+    back with a blocking copy: +15.9 ms a B=8 step on an H100 against
+    +1.3 ms for the static graph with bucket views
+    (`tools/measure_ddp.py`). The static graph cannot start under
+    `no_sync()` (its first step must reduce; the reducer fails an internal
+    assert), so `grad_accum` > 1 takes the search. Their gradient stays
+    None through the all-reduce and is zero-filled below, as on one
+    process. The gradients are views of DDP's buckets (no copy back after
+    the all-reduce). Over more than one rank, mixup gathers the global
+    batch, draws lambda and the permutation from `mix_generator` (which
+    must be the same on every rank) and keeps this rank's rows."""
     if online_align != "none":
         from fbanet_tpu_torch.ops.registration import online_register
 
     params = [p for p in model.parameters() if p.requires_grad]
     ga = max(1, int(cfg.grad_accum))
+    wide = world is not None and world.size > 1
+    ddp = None
+    if world is not None and world.distributed:
+        from torch.nn.parallel import DistributedDataParallel
 
-    def loss_fn(lr_burst, hr, generator):
+        dev = params[0].device
+        # the buffers (window masks, position indices) are constants of
+        # the shapes, the same on every rank: no broadcast per forward
+        # (`forward_sync_buffers` in newer torch, `broadcast_buffers` before)
+        sync = ("forward_sync_buffers" if "forward_sync_buffers" in
+                inspect.signature(DistributedDataParallel).parameters
+                else "broadcast_buffers")
+        ddp = DistributedDataParallel(
+            model, device_ids=[dev.index] if dev.type == "cuda" else None,
+            static_graph=ga == 1, find_unused_parameters=ga > 1,
+            gradient_as_bucket_view=True, **{sync: False})
+    forward = model if ddp is None else ddp
+
+    def loss_fn(lr_burst, hr, generator, mix_generator=None):
+        if cfg.mixup and wide:
+            if mix_generator is None:
+                raise ValueError("mixup over ranks needs a mix_generator "
+                                 "that is the same on every rank")
+            rows = world.rows(world.size * lr_burst.shape[0])
+            lr_burst, hr = world.gather(lr_burst), world.gather(hr)
         lr_burst, hr = to_unit_f32(lr_burst), to_unit_f32(hr)
         if cfg.mixup:
             lam, idx = _mixup_draws(lr_burst.shape[0], cfg.mixup_alpha,
-                                    generator, lr_burst.device)
+                                    generator if mix_generator is None
+                                    else mix_generator,
+                                    lr_burst.device)
             hr, lr_burst = mixup(hr, lr_burst, lam, idx)
+            if wide:
+                hr, lr_burst = hr[rows], lr_burst[rows]
         if online_align != "none":
             lr_burst = online_register(lr_burst, online_align)
-        pred = model(lr_burst, plain=plain, train=True, generator=generator)
+        pred = forward(lr_burst, plain=plain, train=True, generator=generator)
         return fbanet_training_loss(pred, hr,
                                     charbonnier_eps=cfg.charbonnier_eps,
                                     gw_weight=cfg.gw_loss_weight)
 
-    def step(lr_burst, hr, generator: torch.Generator, lr: float):
+    def step(lr_burst, hr, generator: torch.Generator, lr: float,
+             mix_generator: torch.Generator | None = None):
         optimizer.zero_grad(set_to_none=True)
         if ga == 1:
-            loss = loss_fn(lr_burst, hr, generator)
+            loss = loss_fn(lr_burst, hr, generator, mix_generator)
             loss.backward()
             loss = loss.detach()
         else:
             if len(lr_burst) != ga or len(hr) != ga:
                 raise ValueError(f"grad_accum={ga} needs {ga} microbatches")
             loss = 0.0
-            for lb, h in zip(lr_burst, hr):
-                micro = loss_fn(lb, h, generator)
-                (micro / ga).backward()
+            for i, (lb, h) in enumerate(zip(lr_burst, hr)):
+                sync = ddp is None or i == ga - 1
+                with contextlib.nullcontext() if sync else ddp.no_sync():
+                    micro = loss_fn(lb, h, generator, mix_generator)
+                    (micro / ga).backward()
                 loss = loss + micro.detach()
             loss = loss / ga
+        if wide:
+            loss = world.mean(loss)
         for p in params:  # unused parameters: a zero gradient, as jax.grad
             if p.grad is None:  # gives (so weight decay still applies)
                 p.grad = torch.zeros_like(p)
@@ -192,6 +263,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         return loss
 
     step.loss_fn = loss_fn
+    step.ddp = ddp
     return step
 
 
@@ -206,11 +278,14 @@ def resolve_device(device: torch.device | str, who: str) -> torch.device:
 
 
 def step_generator(seed: int, epoch: int, step: int,
-                   device: torch.device | str) -> torch.Generator:
+                   device: torch.device | str, rank: int = 0,
+                   world: int = 1) -> torch.Generator:
     """The generator of one train step, keyed by (seed, epoch, step), so a
-    resumed epoch redraws the stochastic depth of the uninterrupted run."""
-    key = np.random.SeedSequence([seed, epoch, step]).generate_state(
-        1, np.uint64)[0]
+    resumed epoch redraws the stochastic depth of the uninterrupted run.
+    Over more than one rank the rank joins the key, so each rank draws its
+    own rows' masks; at one rank the key is the single-process one."""
+    entropy = [seed, epoch, step] + ([rank] if world > 1 else [])
+    key = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(key))
 
 
@@ -232,11 +307,17 @@ def make_eval_step(model: torch.nn.Module, boundary_ignore: int = 40,
     return step
 
 
-def evaluate_psnr(eval_step, loader, epoch: int) -> float:
+def evaluate_psnr(eval_step, loader, epoch: int,
+                  world: World | None = None) -> float:
     """Sum of the finite per-image PSNRs over the dataset size
     (train.py:262-283). Results stay on the device until the end: the host
     prepares batch N+1 while the card evaluates batch N. Padded entries
-    (`batch["valid"]`) are dropped."""
+    (`batch["valid"]`) are dropped. Over ranks (each loader yields its rows
+    of the same global batches) the per-image PSNRs and valid counts are
+    gathered and put back in the single-process order, so every rank
+    returns the same value."""
+    if world is not None and world.size > 1:
+        return _evaluate_psnr_ranks(eval_step, loader, epoch, world)
     vals_all, count = [], 0
     for batch in loader.epoch(epoch):
         vals = eval_step(batch["LR"], batch["HR"])
@@ -247,14 +328,49 @@ def evaluate_psnr(eval_step, loader, epoch: int) -> float:
     return finite_average(vals, count)
 
 
+def gather_valid(world: World, vals: torch.Tensor,
+                 valid: list[int]) -> np.ndarray:
+    """The valid per-image values of every rank in the single-process
+    order: `vals` [batches, b, ...] holds this rank's rows of each global
+    batch, `valid` the count of real rows in each."""
+    counts = torch.tensor(valid, dtype=torch.int64, device=vals.device)
+    v = world.gather(vals[None]).cpu().numpy()
+    n = world.gather(counts[None]).cpu().numpy()
+    return np.concatenate([v[r, i, :n[r, i]] for i in range(len(valid))
+                           for r in range(world.size)])
+
+
+def _evaluate_psnr_ranks(eval_step, loader, epoch: int, world: World) -> float:
+    vals_all, valid = [], []
+    for batch in loader.epoch(epoch):
+        vals = eval_step(batch["LR"], batch["HR"])
+        vals_all.append(vals)
+        valid.append(batch.get("valid", vals.shape[0]))
+    if not vals_all:
+        return finite_average([], 0)
+    vals = gather_valid(world, torch.stack(vals_all), valid)
+    return finite_average(vals, len(vals))
+
+
 def train(cfg: Config, device: torch.device | str = "cuda") -> dict:
-    """Train `cfg` on `device` (train.py:286-503). Returns {'params' (the
-    model's state_dict), 'best_psnr', 'best_epoch', 'history' (per epoch:
-    loss, PSNR, learning rate, steps, each step's host seconds under
-    'step_s' and each wait for a batch under 'data_wait_s'), 'model_dir',
-    'decoder'}."""
-    device = resolve_device(device, "train")
+    """Train `cfg` on `device` (train.py:286-503), over the ranks of
+    torchrun's environment where there is one (`parallel/mesh.py`; the
+    module docstring). Returns {'params' (the model's state_dict),
+    'best_psnr', 'best_epoch', 'history' (per epoch: loss, PSNR, learning
+    rate, steps, each step's host seconds under 'step_s' and each wait for
+    a batch under 'data_wait_s'), 'model_dir', 'decoder'}, the same on every
+    rank."""
+    world, device = mesh.init(resolve_device(device, "train"))
+    try:
+        return _train(cfg, device, world)
+    finally:
+        world.close()
+
+
+def _train(cfg: Config, device: torch.device, world: World) -> dict:
     tcfg = cfg.train
+    # fail before any work when the ranks cannot split the batch
+    mesh.row_block(tcfg.batch_size, world.rank, world.size)
 
     log_dir = Path(tcfg.save_dir) / "log" / f"{tcfg.arch}{tcfg.env}"
     model_dir = log_dir / "models"
@@ -262,6 +378,8 @@ def train(cfg: Config, device: torch.device | str = "cuda") -> dict:
     logname = log_dir / (datetime.datetime.now().isoformat() + ".txt")
 
     def log(msg: str) -> None:
+        if not world.is_main:
+            return
         print(msg, flush=True)
         with open(logname, "a") as f:
             f.write(msg + "\n")
@@ -273,13 +391,14 @@ def train(cfg: Config, device: torch.device | str = "cuda") -> dict:
 
     start_epoch, best_psnr, resumed = 1, 0.0, False
     resume_step, resume_loss, resumed_lr = 0, 0.0, None
-    triad = CheckpointTriad(model_dir, period=tcfg.checkpoint_every)
+    triad = CheckpointTriad(model_dir, period=tcfg.checkpoint_every,
+                            world=world)
     if tcfg.resume:
         src = Path(tcfg.pretrain_weights) if tcfg.pretrain_weights else None
         if src is None or not src.with_suffix(".pt").exists():
             src = triad.latest()
         if src is not None:
-            state = load_checkpoint(src)
+            state = load_checkpoint(src, map_location=device)
             model.load_state_dict(state["params"], strict=True)
             optimizer.load_state_dict(state["opt_state"])
             best_psnr = state.get("best_psnr", 0.0)
@@ -298,26 +417,32 @@ def train(cfg: Config, device: torch.device | str = "cuda") -> dict:
             if resumed:
                 resumed_lr = optimizer.param_groups[0]["lr"]
 
+    # the host's loader threads and frame cache, shared by its ranks
+    per_host = world.local_size
     ds_kw = dict(layout=cfg.data.layout, burst_size=cfg.data.burst_size,
                  crop_size=cfg.data.crop_size, scale=cfg.data.scale,
                  channels=cfg.data.channels, seed=cfg.data.seed,
                  cache_decoded=cfg.data.cache_decoded,
-                 cache_limit_bytes=int(cfg.data.cache_gb * (1 << 30)),
+                 cache_limit_bytes=int(cfg.data.cache_gb * (1 << 30))
+                 // per_host,
                  wire_dtype=cfg.data.wire_dtype)
     train_ds = RealBSRDataset(cfg.data.dataroot, split="train",
                               shard_id=cfg.data.shard_id,
                               num_shards=cfg.data.num_shards, **ds_kw)
     val_ds = RealBSRDataset(cfg.data.dataroot, split="val", **ds_kw)
+    rank_kw = dict(device=device, seed=tcfg.seed, rank=world.rank,
+                   world=world.size)
     train_loader = BurstLoader(train_ds, batch_size=tcfg.batch_size,
-                               num_workers=cfg.data.num_workers,
+                               num_workers=cfg.data.num_workers // per_host,
                                prefetch_depth=cfg.data.prefetch_depth,
-                               device=device, seed=tcfg.seed)
+                               **rank_kw)
     val_loader = BurstLoader(val_ds, batch_size=tcfg.batch_size,
-                             num_workers=cfg.data.eval_workers,
-                             drop_last=False, device=device, pad_last=True,
-                             seed=tcfg.seed)
+                             num_workers=cfg.data.eval_workers // per_host,
+                             drop_last=False, pad_last=True, **rank_kw)
     log(f"Sizeof training set: {len(train_ds)}, sizeof validation set: "
-        f"{len(val_ds)}; device {device}")
+        f"{len(val_ds)}; device {device}"
+        + (f", {world.size} ranks ({world.backend}), global batch "
+           f"{tcfg.batch_size}" if world.distributed else ""))
     why = native_io.unavailable_reason()
     log(f"decoder: {train_ds.decoder}"
         + (f" (native pool unavailable: {why})" if why else ""))
@@ -329,7 +454,8 @@ def train(cfg: Config, device: torch.device | str = "cuda") -> dict:
             f"in {time.time() - t0:.1f}s")
 
     train_step = make_train_step(model, optimizer, tcfg,
-                                 online_align=cfg.data.online_align)
+                                 online_align=cfg.data.online_align,
+                                 world=world)
     # the boundary crop must leave pixels on the eval images
     bi = cfg.eval.boundary_ignore
     if cfg.data.crop_size and cfg.data.crop_size * cfg.data.scale <= 2 * bi:
@@ -373,9 +499,14 @@ def train(cfg: Config, device: torch.device | str = "cuda") -> dict:
                               "HR": tuple(b["HR"] for b in group)})
             if batch is None:
                 break
-            gen = step_generator(tcfg.seed, epoch, steps, device)
+            gen = step_generator(tcfg.seed, epoch, steps, device,
+                                 world.rank, world.size)
+            # mixup's draws: the same on every rank
+            mix_gen = (step_generator(tcfg.seed, epoch, steps, device)
+                       if world.size > 1 and tcfg.mixup else None)
             with timer.step():
-                loss = train_step(batch["LR"], batch["HR"], gen, lr)
+                loss = train_step(batch["LR"], batch["HR"], gen, lr,
+                                  mix_gen)
                 if pending_loss is not None:
                     epoch_loss += float(pending_loss)
             pending_loss = loss
@@ -405,7 +536,7 @@ def train(cfg: Config, device: torch.device | str = "cuda") -> dict:
                             **timing})
             return result()
 
-        psnr_val = evaluate_psnr(eval_step, val_loader, epoch)
+        psnr_val = evaluate_psnr(eval_step, val_loader, epoch, world)
         if psnr_val > best_psnr:
             best_psnr, best_epoch = psnr_val, epoch
             triad.on_best(params=model.state_dict(),

@@ -12,6 +12,11 @@ Names as in the JAX package: `model_best`, `model_latest`,
 `model_epoch_{n}`. `load_params` also reads the JAX package's
 `{path}.msgpack` (flax serialization) through
 `utils/weights.py::jax_params_to_state_dict`.
+
+Over ranks (`parallel/mesh.py`) the triad writes on rank 0 only and every
+rank waits at a barrier until the file is whole; the state_dicts are the
+bare model's (no DDP `module.` prefix), so a checkpoint loads at any world
+size. Loading takes `map_location`, the rank's device.
 """
 
 from __future__ import annotations
@@ -92,22 +97,32 @@ def load_params(path: str | Path, map_location="cpu") -> dict[str, Any]:
 
 
 class CheckpointTriad:
-    """best / latest / periodic checkpoints with the reference's names."""
+    """best / latest / periodic checkpoints with the reference's names,
+    written by `world`'s rank 0 only, each followed by a barrier of all
+    ranks (no world: one process, no barrier)."""
 
-    def __init__(self, model_dir: str | Path, period: int = 50) -> None:
+    def __init__(self, model_dir: str | Path, period: int = 50,
+                 world=None) -> None:
         self.model_dir = Path(model_dir)
         self.period = period
+        self.world = world
 
     def path(self, name: str) -> Path:
         return self.model_dir / name
 
+    def _save(self, name: str, **kw) -> None:
+        if self.world is None or self.world.is_main:
+            save_checkpoint(self.path(name), **kw)
+        if self.world is not None:
+            self.world.barrier()
+
     def on_best(self, **kw) -> None:
-        save_checkpoint(self.path("model_best"), **kw)
+        self._save("model_best", **kw)
 
     def on_epoch_end(self, epoch: int, **kw) -> None:
-        save_checkpoint(self.path("model_latest"), epoch=epoch, **kw)
+        self._save("model_latest", epoch=epoch, **kw)
         if self.period and epoch % self.period == 0:
-            save_checkpoint(self.path(f"model_epoch_{epoch}"), epoch=epoch, **kw)
+            self._save(f"model_epoch_{epoch}", epoch=epoch, **kw)
 
     def on_step(self, epoch: int, step_in_epoch: int, epoch_loss: float,
                 **kw) -> None:
@@ -116,8 +131,7 @@ class CheckpointTriad:
         extra = dict(kw.pop("extra", {}) or {})
         extra.update({"step_in_epoch": int(step_in_epoch),
                       "epoch_loss": float(epoch_loss)})
-        save_checkpoint(self.path("model_latest"), epoch=epoch, extra=extra,
-                        **kw)
+        self._save("model_latest", epoch=epoch, extra=extra, **kw)
 
     def latest(self) -> Path | None:
         p = self.path("model_latest")

@@ -1,7 +1,8 @@
 """The port runs where JAX is not installed (GPU hosts need not have it).
 
 1. Static: no module of fbanet_tpu_torch/ (its kernel-measurement tools in
-   `tools/` included; nor chip_smoke.py) imports jax, flax, optax,
+   `tools/`, the convergence proof and `parallel/` included; nor
+   chip_smoke.py) imports jax, flax, optax,
    jaxtyping, any module of the JAX package `fbanet_tpu` or its `scripts/`
    (the port keeps its own configuration, `fbanet_tpu_torch.config`, and its
    own copies of the tools).
@@ -46,7 +47,9 @@ def test_port_sources_import_no_jax():
     tools = {f.name for f in files if f.parent.name == "tools"}
     assert {"measure_swin_rates.py", "measure_bwd.py",
             "measure_swin_variants.py", "profile_components.py",
-            "flops_accounting.py"} <= tools, tools
+            "flops_accounting.py", "convergence_proof.py"} <= tools, tools
+    parallel = {f.name for f in files if f.parent.name == "parallel"}
+    assert {"mesh.py", "dryrun.py"} <= parallel, parallel
     bad = [f"{f.relative_to(ROOT)}: {m}" for f in files + [ROOT / "chip_smoke.py"]
            for m in _imports(f) if _forbidden(m)]
     assert not bad, bad
