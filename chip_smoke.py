@@ -4,6 +4,8 @@
     python3 chip_smoke.py            # from the root of a checkout
     python3 chip_smoke.py ranks      # phase_ranks alone: on W > 1 cards,
                                      # W ranks over NCCL, one a card
+    python3 chip_smoke.py configs F  # phase_configs alone, its results as
+                                     # JSON in F (the full run starts it so)
 
 Phases, each printed as it runs; any failure raises and the exit code is
 non-zero:
@@ -142,14 +144,32 @@ non-zero:
    over every component at the published sizes (their tables printed);
    then mfu_forward / mfu_train (`flops_accounting.mfu_fields`) from the
    slice's forward and the train phase's step times.
+13. configs (in a process of its own): every configuration the JAX model
+   builds. FBANet-32 (embed
+   32, the configuration's default): K1, K1b and K3 on their first kernels
+   at its five group shapes (head size 32 at enc0 / enc1, 8 at the
+   others) against their plain versions, B=2, f32 and bf16, masked and
+   not, each bitwise on a repeat; K1-K4 and K1b per group at B=8 (ms,
+   device ms, bound) and R1 / R2 at every shape of its B=8 step (R1's
+   32-wide outputs among them, beside torch.mm); then 3 batches of 4
+   served through `eval_step` against the plain path and 5 AdamW steps at
+   B=8 (20 launches of each of K1-K4 a step, K1 and K3 on their first
+   kernels), one profiled, and an f32 B=2 step's gradients against the
+   plain versions. FBANet-64 at window 10, B=8: 20 composed attentions
+   (JAX's shape rule) and 20 K2 a forward against the plain path, the
+   forward timed, 3 steps. Two B=2 steps of FBANet-64 under each of
+   use_qkv_bias=False, token_mlp="ffn" and conv + SE + qk_scale +
+   dropout, with the launches their routes give.
 
 Each kernel wrapper counts its launches (K1, K2, K3, K7, K8, K9, K10
 and K11 per form); the counts are set to 0 just before the registration, the CLI
 stream, the serving, the training (the B=8 steps, then the f32 B=2 step,
 whose plans send K1, K2 and K3 to their first kernels), each run of the
-trainer phase, each DDP step of the ddp phase, the measurement and the variant runs and read just after. The line before the last is a JSON object
+trainer phase, each DDP step of the ddp phase, the measurement and the
+variant runs, and each serving, forward and step of the configs phase, and
+read just after. The line before the last is a JSON object
 {"kernels": [...]} (launches on those runs; error, times and bound from
-phases 3-6, 9 and 10; K7 and K9-K11 also per variant; K1, K2, K3, K7, K8,
+phases 3-6, 9 and 10, errors also from 13; K7 and K9-K11 also per variant; K1, K2, K3, K7, K8,
 K9, K10 and K11 with their first kernels as entries of their own), preceded
 by the nvidia-smi name/power-limit line; the last line is
 {"ok": true, "device": {...}}.
@@ -2570,6 +2590,477 @@ def phase_ranks(card: str, work: Path) -> None:
                              f"{worst_name} {worst}, ranks equal {same}")
 
 
+# the configs phase: every configuration the JAX model builds. FBANet-32
+# (embed 32, the configuration's default) has head size 8 at the
+# bottleneck, dec0 and dec1 and 32 at enc0 and enc1, which K1's and K3's
+# first kernels take, and weight gradients 32 wide, which R1 takes as half
+# a 64-wide tile; window 10 (N = 100) and the options of JAX's composed
+# SwinLayer run composed PyTorch ops.
+CONFIG_SHAPES = [(160, 32, 1), (80, 64, 2), (40, 128, 16), (80, 128, 16),
+                 (160, 64, 8)]
+
+
+def configs_kernels() -> dict:
+    """K1, K1b and K3 (first kernels) at FBANet-32's five group shapes
+    against their plain versions (B=2, f32 and bf16, masked and not, each
+    with a bitwise repeat; K1b and K3's windowed entry in bf16, masked),
+    then K1-K4 per group at B=8 under their plans and R1 / R2 at every
+    shape of FBANet-32's B=8 train step (tools/measure_*.py with
+    `groups(32)`). Returns {kernel: {max_abs_err, b8 / shapes}}."""
+    import torch
+
+    from fbanet_tpu_torch.ops import attention
+    from fbanet_tpu_torch.tools import (
+        measure_attention,
+        measure_attention_bwd,
+        measure_leff,
+        measure_leff_bwd,
+        measure_reduce,
+    )
+
+    res = {k: dict(max_abs_err=0.0) for k in ("K1-base", "K1b", "K3-base")}
+    failures = []
+
+    def record(name, line, errs, abs_err, same, finite, dname, tol):
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], abs_err)
+        line += (f": max rel err {max(errs):.3e} max_abs_err {abs_err:.3e} "
+                 f"bitwise_repeat={same}")
+        log(line)
+        if not (max(errs) <= tol[dname]) or not same or not finite:
+            failures.append(line)
+
+    for i, (h, c, heads) in enumerate(CONFIG_SHAPES):
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            bf16 = dname == "bfloat16"
+            for masked in (False, True):
+                x, a = attention_case(h, c, heads, dtype, masked, 900 + i)
+                plan = attention._attention_plan(
+                    2, h, h, c, heads, WS, bf16,
+                    smem=attention._kernel_attention_smem)
+                bplan = attention._attention_bwd_plan(
+                    2, h, h, c, heads, WS, bf16,
+                    smem=attention._kernel_bwd_smem)
+                if plan != attention._K1_BASE_PLAN or \
+                        bplan != attention._K3_BASE_PLAN:
+                    failures.append(f"H={h} C={c} heads={heads}: plans "
+                                    f"{plan} {bplan}, not the first kernels")
+
+                def k1(plain=False, x=x, a=a, heads=heads):
+                    return attention.fused_window_attention_2d(
+                        x, **a, heads=heads, window_size=WS, residual=True,
+                        plain=plain)
+
+                got, again, ref = k1(), k1(), k1(plain=True)
+                torch.cuda.synchronize()
+                err, rel = rel_err(got, ref)
+                record("K1-base", f"configs K1 B=2 H={h} C={c} heads={heads} "
+                       f"{dname} masked={masked} plan {plan}", [rel], err,
+                       torch.equal(got, again),
+                       bool(torch.isfinite(got).all()), dname, TOL)
+                g = _normal_fn(950 + i)((2, h, h, c), 1.0).to(dtype)
+                p = {k: v for k, v in a.items() if k != "bproj"}
+
+                def k3(x=x, g=g, p=p, heads=heads):
+                    return attention.window_attention_bwd(
+                        x, g, **p, heads=heads, window_size=WS,
+                        residual=True)
+
+                got, again = k3(), k3()
+                ref = attention._plain_bwd_2d(x, g, *p.values(), heads, WS,
+                                              True)
+                torch.cuda.synchronize()
+                record("K3-base", f"configs K3 B=2 H={h} C={c} heads={heads} "
+                       f"{dname} masked={masked} plan {bplan}",
+                       _grad_errors(got, ref),
+                       max(float((u.float() - v.float()).abs().max())
+                           for u, v in zip(got, ref)),
+                       all(torch.equal(u, v) for u, v in zip(got, again)),
+                       all(bool(torch.isfinite(u).all()) for u in got),
+                       dname, BWD_TOL)
+                if not (bf16 and masked):
+                    continue
+                # K1b and K3's windowed entry: the same windows, partitioned
+                xw = attention.window_partition(x, WS).contiguous()
+                gw = attention.window_partition(g, WS).contiguous()
+                nw = (h // WS) ** 2
+                pw = {k: v for k, v in a.items()}
+
+                def k1b(plain=False, xw=xw, pw=pw, heads=heads, nw=nw):
+                    return attention.fused_window_attention(
+                        xw, **pw, heads=heads, windows_per_image=nw,
+                        plain=plain)
+
+                got, again, ref = k1b(), k1b(), k1b(plain=True)
+                torch.cuda.synchronize()
+                err, rel = rel_err(got, ref)
+                record("K1b", f"configs K1b G={xw.shape[0]} C={c} heads="
+                       f"{heads} {dname} masked", [rel], err,
+                       torch.equal(got, again),
+                       bool(torch.isfinite(got).all()), dname, TOL)
+
+                def k3w(xw=xw, gw=gw, p=p, heads=heads, nw=nw):
+                    return attention.window_attention_bwd_windows(
+                        xw, gw, **p, heads=heads, windows_per_image=nw)
+
+                got, again = k3w(), k3w()
+                ref = attention.window_attention_bwd_reference(
+                    xw, gw, *p.values(), heads=heads)
+                torch.cuda.synchronize()
+                record("K3-base", f"configs K3 windows G={xw.shape[0]} C={c} "
+                       f"heads={heads} {dname} masked",
+                       _grad_errors(got, ref),
+                       max(float((u.float() - v.float()).abs().max())
+                           for u, v in zip(got, ref)),
+                       all(torch.equal(u, v) for u, v in zip(got, again)),
+                       all(bool(torch.isfinite(u).all()) for u in got),
+                       dname, BWD_TOL)
+    if failures:
+        raise AssertionError("configs: kernel disagrees with its plain "
+                             "version or does not repeat:\n"
+                             + "\n".join(failures))
+    # every kernel of FBANet-32's step at B=8 per group, under its plan
+    groups32 = measure_reduce.groups(32)
+    for name, tool in (("K1-base", measure_attention),
+                       ("K2", measure_leff),
+                       ("K3-base", measure_attention_bwd),
+                       ("K4", measure_leff_bwd)):
+        b8 = tool.shapes(batch=8, groups=groups32)
+        res.setdefault(name, {})["b8"] = {r["group"]: {k: r[k] for k in (
+            "plan", "ms", "device_ms", "bound_ms", "share_of_bound",
+            "max_rel_err")} for r in b8["rows"]}
+        res[name]["b8_sums"] = b8["sums"]
+    # K1b (the windowed entry, first kernel) per group at B=8: the same
+    # windows as K1's map, partitioned
+    rows = {}
+    for i, (name, h, c, heads) in enumerate(groups32):
+        x, a = attention_case(h, c, heads, torch.bfloat16, True, 980 + i,
+                              batch=8)
+        xw = attention.window_partition(x, WS).contiguous()
+
+        def k1b(xw=xw, a=a, heads=heads, nw=(h // WS) ** 2):
+            return attention.fused_window_attention(
+                xw, **a, heads=heads, windows_per_image=nw)
+
+        bound = Bound()
+        bound.add(*attention_work(h, c, heads, True, batch=8))
+        rows[name] = dict(ms=time_ms(k1b),
+                          device_ms=measure_reduce.device_ms(k1b),
+                          bound_ms=bound.ms)
+        log(f"configs K1b {name} B=8 H={h} C={c} heads={heads}: "
+            f"{rows[name]}")
+        del x, xw
+    res["K1b"]["b8"] = rows
+    sums = measure_reduce.shapes(batch=8, groups=groups32)
+    for name in ("R1", "R2"):
+        res[name] = dict(max_abs_err=max(r["max_abs_err"] for r in sums[name]),
+                         shapes=len(sums[name]), sums=sums["sums"][name])
+        log(f"configs {name} over FBANet-32's {len(sums[name])} B=8 shapes: "
+            f"{res[name]}")
+    return res
+
+
+def _config_counters() -> dict:
+    """`_counters()` of K1-K4's forms, R1 and R2, with K2's calls on either
+    form ("K2-all") and the composed branch of K1's entry ("composed")."""
+    from fbanet_tpu_torch.ops import attention, leff
+
+    kernels = _counters()
+    return {**{k: kernels[k] for k in ("K1", "K1-base", "K2", "K2-base",
+                                       "K3", "K3-base", "K4", "R1", "R2")},
+            "K2-all": leff.fused_leff,
+            "composed": attention.fused_window_attention_2d.composed}
+
+
+def _config_model(cfg, seed: int):
+    """The port's model of `cfg` on the card with every parameter drawn
+    from `seed`, and the layer count of its two hourglasses."""
+    from fbanet_tpu_torch.models import create_model
+    from fbanet_tpu_torch.utils.weights import random_state_dict
+
+    model = create_model(cfg, device="cuda", seed=0)
+    model.load_state_dict(random_state_dict(model, seed=seed), strict=True)
+    return model, sum(cfg.depths[i] for i in (0, 1, 4, 5, 6)) * 2
+
+
+def _config_steps(model, lr, hr, steps: int) -> tuple[list, list, list]:
+    """`steps` AdamW steps of `train.make_train_step` at lr 1e-4: (losses,
+    host ms per step, the counters' launches per step). Raises on a
+    non-finite loss or a parameter that did not move."""
+    import torch
+
+    from fbanet_tpu_torch.config import TrainConfig
+    from fbanet_tpu_torch.train import make_optimizer, make_train_step
+
+    tcfg = TrainConfig(batch_size=lr.shape[0], lr_initial=1e-4,
+                       optimizer="adamw")
+    step = make_train_step(model, make_optimizer(model.parameters(), tcfg),
+                           tcfg)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    counters = _config_counters()
+    losses, times, per_step = [], [], []
+    for _ in range(steps):
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(lr, hr, gen, tcfg.lr_initial)))
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({k: c.launches for k, c in counters.items()})
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    still = [n for n, p in model.named_parameters()
+             if torch.equal(p.detach(), before[n])]
+    if still:
+        raise AssertionError(f"parameters that did not move: {still}")
+    return losses, times, per_step
+
+
+def _expect(what: str, got: dict, want: dict) -> None:
+    bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+    if bad:
+        raise AssertionError(f"{what}: launches (got, expected) {bad}; all "
+                             f"{got}")
+
+
+def configs_fbanet32(card: str) -> tuple[dict, dict]:
+    """FBANet-32 (embed 32, the configuration's default, with the published
+    heads), 14 frames, 160 px, bf16: 3 batches of 4 served through
+    `eval_step` (ECC, forward, clamp, PSNR/SSIM) against the plain path,
+    then 5 AdamW steps at B=8 with drop_path 0.1; 20 launches a forward of
+    K1's first kernel and of K2, 20 a step of each of K1-K4 (K1 and K3 on
+    their first kernels, head sizes 8 and 32), none of the wgmma forms of
+    K1 / K3 and no composed branch; one f32 B=2 step's gradients against
+    the plain versions. Returns (launches on these runs, times)."""
+    import torch
+
+    from fbanet_tpu_torch.evaluate import eval_step
+    from fbanet_tpu_torch.metrics import psnr
+    from fbanet_tpu_torch.models import ModelConfig
+    from fbanet_tpu_torch.ops.registration import online_register
+    from fbanet_tpu_torch.train import make_train_step
+
+    cfg = ModelConfig(num_frames=14, img_size=160, embed_dim=32,
+                      window_size=8, dtype="bfloat16", drop_path_rate=0.1)
+    model, layers = _config_model(cfg, seed=41)
+    counters = _config_counters()
+    requests = [tuple(torch.from_numpy(a).cuda() for a in
+                      make_realistic_bursts(4, 14, 160, seed=50 + i,
+                                            hr_scale=4)) for i in range(3)]
+    for c in counters.values():
+        c.launches = 0
+    served = [eval_step(model, lr, hr, online_align="ecc")
+              for lr, hr in requests]
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    log(f"configs FBANet-32: served 3 batches of 4, launches {launches}")
+    n = layers * len(served)
+    _expect("FBANet-32 serving", launches, {
+        "K1": 0, "K1-base": n, "K2-all": n, "composed": 0})
+    for pred, *_ in served:
+        if tuple(pred.shape) != (4, 640, 640, 3) or \
+                not torch.isfinite(pred).all():
+            raise AssertionError("FBANet-32: output not finite or of the "
+                                 f"wrong shape {tuple(pred.shape)}")
+    lr, hr = requests[0]
+    plain = eval_step(model, lr, hr, online_align="ecc", plain=True)[0]
+    agree = float(psnr(served[0][0], plain).min())
+    log(f"configs FBANet-32: kernel vs plain path PSNR {agree:.2f} dB (min "
+        f"over the batch, limit {SLICE_PSNR_MIN})")
+    if not agree >= SLICE_PSNR_MIN:
+        raise AssertionError(f"FBANet-32 kernel vs plain path {agree:.2f} dB")
+
+    lr8_np, hr8_np = make_realistic_bursts(8, 14, 160, seed=60, hr_scale=4)
+    lr8 = torch.from_numpy(lr8_np).cuda()
+    hr8 = torch.from_numpy(hr8_np).cuda()
+    aligned = online_register(lr8)
+
+    def forward(plain=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = model(aligned, plain=plain)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            raise AssertionError("FBANet-32: non-finite B=8 forward")
+        return (time.perf_counter() - t0) * 1e3
+
+    forward()
+    fwd_ms = statistics.median(forward() for _ in range(3))
+    plain_fwd_ms = statistics.median(forward(True) for _ in range(2))
+    losses, times, per_step = _config_steps(model, lr8, hr8, 5)
+    for i, got in enumerate(per_step):
+        _expect(f"FBANet-32 train step {i}", got, {
+            "K1": 0, "K1-base": layers, "K2-all": layers, "K3": 0,
+            "K3-base": layers, "K4": layers, "composed": 0})
+    step_ms = statistics.median(times[1:])
+    log(f"configs FBANet-32 B=8 on {card}: forward {fwd_ms:.2f} ms (plain "
+        f"versions {plain_fwd_ms:.2f}), train step {step_ms:.2f} ms "
+        f"({8e3 / step_ms:.3f} samples/s), losses {losses}, per step "
+        f"{per_step[-1]}")
+    runs = {k: sum(s[k] for s in per_step) + launches[k] for k in launches}
+
+    # one B=8 step profiled: device ms, the port's kernels by name
+    from torch.profiler import ProfilerActivity, profile
+
+    from fbanet_tpu_torch.config import TrainConfig
+    from fbanet_tpu_torch.train import make_optimizer
+
+    tcfg = TrainConfig(batch_size=8, lr_initial=1e-4, optimizer="adamw")
+    step = make_train_step(model, make_optimizer(model.parameters(), tcfg),
+                           tcfg)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    float(step(lr8, hr8, gen, 1e-4))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        float(step(lr8, hr8, gen, 1e-4))
+    total, ours = _device_ms(prof.key_averages())
+    log(f"configs FBANet-32 B=8 step profile: device {total:.3f} ms, port "
+        f"kernels (ms) { {k: round(v, 3) for k, v in ours.items()} }")
+
+    # f32, B=2: every parameter gradient, kernels against plain versions
+    m32, _ = _config_model(cfg.replace(dtype="float32"), seed=41)
+    grads = []
+    for c in counters.values():
+        c.launches = 0
+    for plain in (False, True):
+        m32.zero_grad(set_to_none=True)
+        loss_fn = make_train_step(m32, None, tcfg, plain=plain).loss_fn
+        loss_fn(lr8[:2], hr8[:2],
+                torch.Generator(device="cuda").manual_seed(11)).backward()
+        grads.append({k: p.grad.clone() for k, p in m32.named_parameters()
+                      if p.grad is not None})
+    f32_launches = {k: c.launches for k, c in counters.items()}
+    _expect("FBANet-32 f32 step", f32_launches, {
+        "K1-base": layers, "K2-base": layers, "K3-base": layers,
+        "K4": layers})
+    worst, worst_name = 0.0, ""
+    for k, ref in grads[1].items():
+        scale = float(ref.abs().max())
+        err = float((grads[0][k] - ref).abs().max()) / (scale or 1.0)
+        if not err <= worst:
+            worst, worst_name = err, k
+    log(f"configs FBANet-32 f32 B=2 gradients, kernels vs plain: "
+        f"{len(grads[1])} tensors, max err {worst:.3e} ({worst_name}; limit "
+        f"{TRAIN_GRAD_TOL}); launches {f32_launches}")
+    if not worst <= TRAIN_GRAD_TOL or grads[0].keys() != grads[1].keys():
+        raise AssertionError(f"FBANet-32 f32 gradient {worst_name}: "
+                             f"{worst:.3e}")
+    runs = {k: v + f32_launches[k] for k, v in runs.items()}
+    return runs, dict(fwd_ms=fwd_ms, plain_fwd_ms=plain_fwd_ms,
+                      step_ms=step_ms, step_device_ms=total,
+                      step_kernels_ms=ours)
+
+
+def configs_window10(card: str) -> dict:
+    """FBANet-64 at window 10 (N = 100, JAX's composed branch), 14 frames,
+    160 px, bf16, B=8: 20 composed attentions a forward, K1 0, K2 20; the
+    forward against the plain path (PSNR >= SLICE_PSNR_MIN); 3 finite AdamW
+    steps with drop_path 0.1. Returns the launches of those runs."""
+    import torch
+
+    from fbanet_tpu_torch.metrics import psnr
+    from fbanet_tpu_torch.models import ModelConfig
+
+    cfg = ModelConfig(num_frames=14, img_size=160, embed_dim=64,
+                      window_size=10, dtype="bfloat16", drop_path_rate=0.1)
+    model, layers = _config_model(cfg, seed=42)
+    lr_np, hr_np = make_realistic_bursts(8, 14, 160, seed=70, hr_scale=4)
+    lr, hr = torch.from_numpy(lr_np).cuda(), torch.from_numpy(hr_np).cuda()
+    counters = _config_counters()
+    for c in counters.values():
+        c.launches = 0
+    with torch.no_grad():
+        out = model(lr)
+    launches = {k: c.launches for k, c in counters.items()}
+    _expect("window 10 forward", launches, {
+        "composed": layers, "K1": 0, "K1-base": 0, "K2-all": layers})
+    with torch.no_grad():
+        ref = model(lr, plain=True)
+    agree = float(psnr(out.clamp(0, 1), ref.clamp(0, 1)).min())
+    log(f"configs window 10 B=8: launches {launches}; kernel vs plain path "
+        f"PSNR {agree:.2f} dB (limit {SLICE_PSNR_MIN})")
+    if not (agree >= SLICE_PSNR_MIN and torch.isfinite(out).all()):
+        raise AssertionError(f"window 10: {agree:.2f} dB")
+
+    def forward():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            model(lr)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    fwd_ms = statistics.median(forward() for _ in range(3))
+    losses, times, per_step = _config_steps(model, lr, hr, 3)
+    for i, got in enumerate(per_step):
+        _expect(f"window 10 train step {i}", got, {
+            "composed": layers, "K1": 0, "K1-base": 0, "K2-all": layers,
+            "K3": 0, "K3-base": 0, "K4": layers})
+    log(f"configs window 10 B=8 on {card}: forward {fwd_ms:.2f} ms, losses "
+        f"{losses}, step ms {times}, per step {per_step[-1]}")
+    return {k: launches[k] + sum(s[k] for s in per_step) for k in launches}
+
+
+def configs_options(card: str) -> dict:
+    """FBANet-64 (14 frames, 160 px, bf16), B=2, two AdamW steps under each
+    of: use_qkv_bias=False (fused route, zero biases into K1 / K3: 20 of
+    each of K1-K4 a step), token_mlp="ffn" (K1 / K3 20, K2 / K4 0: the
+    composed MlpFFN), and the conv projection with SE, qk_scale and both
+    dropouts (the composed route: no kernel in the layers). Returns the
+    launches of those steps."""
+    import torch
+
+    from fbanet_tpu_torch.models import ModelConfig
+    from fbanet_tpu_torch.models.layers import SwinLayer
+
+    base = ModelConfig(num_frames=14, img_size=160, embed_dim=64,
+                       window_size=8, dtype="bfloat16", drop_path_rate=0.1)
+    lr_np, hr_np = make_realistic_bursts(2, 14, 160, seed=80, hr_scale=4)
+    lr, hr = torch.from_numpy(lr_np).cuda(), torch.from_numpy(hr_np).cuda()
+    total = {}
+    for name, kw, route, want in (
+            ("use_qkv_bias=False", dict(use_qkv_bias=False), "fused",
+             {"K1": 1, "K2-all": 1, "K3": 1, "K4": 1}),
+            ("token_mlp=ffn", dict(token_mlp="ffn"), "fused",
+             {"K1": 1, "K2-all": 0, "K3": 1, "K4": 0}),
+            ("conv+SE+qk_scale+dropout", dict(
+                token_projection="conv", use_se_layer=True, qk_scale=0.2,
+                drop_rate=0.1, attn_drop_rate=0.1), "composed",
+             {"K1": 0, "K2-all": 0, "K3": 0, "K4": 0, "R1": 0,
+              "R2": 0})):
+        model, layers = _config_model(base.replace(**kw), seed=43)
+        routes = {m.route for m in model.modules()
+                  if isinstance(m, SwinLayer)}
+        if routes != {route}:
+            raise AssertionError(f"{name}: routes {routes}, not {route}")
+        losses, times, per_step = _config_steps(model, lr, hr, 2)
+        for got in per_step:
+            _expect(name, got, {k: v * layers for k, v in want.items()})
+        log(f"configs {name} ({route}) B=2 on {card}: losses {losses}, step "
+            f"ms {times}, per step {per_step[-1]}")
+        for s in per_step:
+            for k, v in s.items():
+                total[k] = total.get(k, 0) + v
+        del model
+    return total
+
+
+def phase_configs(card: str) -> tuple[dict, dict, dict]:
+    """Every configuration the JAX model builds, on the card: FBANet-32's
+    kernels (`configs_kernels`), its serving and training
+    (`configs_fbanet32`), window 10 (`configs_window10`) and the SwinLayer
+    options (`configs_options`). Returns (the kernels' checks and times,
+    the launches of the main-path runs by chip_smoke's kernel names, the
+    FBANet-32 times)."""
+    checks = configs_kernels()
+    runs, times = configs_fbanet32(card)
+    for more in (configs_window10(card), configs_options(card)):
+        runs = {k: runs[k] + more[k] for k in runs}
+    log(f"configs: launches on the phase's runs {runs}")
+    return checks, runs, times
+
+
 def main() -> None:
     if not (ROOT / "fbanet_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py: fbanet_tpu_torch/ not found next to "
@@ -2600,6 +3091,12 @@ def main() -> None:
     _build.library()
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc at first use, then "
         f"cached) -> {lib_path.relative_to(ROOT)}")
+    if sys.argv[1:2] == ["configs"]:  # the configs phase, in its own process
+        checks, launches, times = phase_configs(card)
+        Path(sys.argv[2]).write_text(json.dumps(
+            {"checks": checks, "launches": launches, "times": times},
+            default=str))
+        return
     log((lib_path.parent / "build.log").read_text())
 
     def timed(name, fn, *args):
@@ -2634,14 +3131,34 @@ def main() -> None:
     kres.update(mres)
     vres, varied = timed("variants", phase_variants, card, fwd_ms, train_ms)
     kres.update(vres)
+    # the configs phase runs in a process of its own: late in this one,
+    # after the ddp phase's process group and the measure phases' hundreds
+    # of traces, torch.profiler recorded no kernels in 7 traces of R1 and
+    # about half the device time of K1-K4 (PERF.md §6)
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    result = Path(tempfile.mkdtemp(prefix="configs_", dir=ROOT / "build"))
+    timed("configs", lambda: subprocess.run([
+        sys.executable, str(ROOT / "chip_smoke.py"), "configs",
+        str(result / "configs.json")], check=True))
+    got = json.loads((result / "configs.json").read_text())
+    checks, configured = got["checks"], got["launches"]
+    for name, got in checks.items():  # FBANet-32's checks and B=8 times
+        kres[name]["max_abs_err"] = max(kres[name]["max_abs_err"],
+                                        got.get("max_abs_err", 0.0))
+        kres[name]["fbanet32"] = {k: v for k, v in got.items()
+                                  if k != "max_abs_err"}
     # launches on the main paths: registration (K5, K6), serving (K1, K2),
     # training (K1-K4, R1, R2), the entry points from disk (K1-K4, R1, R2),
     # the DDP steps (K1-K4, R1, R2),
     # measurement (K1b, K9-K11 and, through the tools, K1-K4, R1, R2) and
-    # the variants (K7, K8 and, through the tools, K1-K4, R1, R2)
+    # the variants (K7, K8 and, through the tools, K1-K4, R1, R2) and the
+    # configs phase's runs (K1-K4 and their first kernels, R1, R2)
     launches = {k: registered.get(k, 0) + served.get(k, 0) + trained.get(k, 0)
                 + from_disk.get(k, 0) + data_parallel.get(k, 0)
-                + measured.get(k, 0) + varied.get(k, 0) for k in kres}
+                + measured.get(k, 0) + varied.get(k, 0)
+                + configured.get(k, 0) for k in kres}
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: "

@@ -6,9 +6,13 @@ here. The port imports nothing of the JAX package.
 Left out, because the port does not read them:
 
 - `ModelConfig.attention_impl` ("auto" / "xla" / "pallas"): the JAX
-  package's choice between its Pallas kernel and composed XLA ops. The port
-  has one path per device: the CUDA kernels on the card, their plain
-  versions on the CPU.
+  package's choice between its Pallas kernels and composed XLA ops. The
+  port routes by JAX's own predicates instead: a SwinLayer whose options
+  JAX fuses (`_use_fused_attention`) runs the fused operators, the CUDA
+  kernels on the card and their plain versions on the CPU, and a window
+  shape JAX's kernel does not take (`_supported`) runs the composed
+  branch; every other configuration runs composed PyTorch ops
+  (`models/layers.py`).
 - `ModelConfig.remat`: jax.checkpoint per SwinLayer. The port's fused
   operators already save only their inputs for the backward.
 - `TrainConfig.donate_state` (XLA buffer donation) and

@@ -20,7 +20,9 @@
 // most 64 projected columns, which keeps the working set of C = 256 in
 // shared memory (dynamic, above the 48 KB default). In bf16 every product
 // runs on the tensor cores (WMMA 16x16x16, f32 accumulation, operands in
-// shared memory, weights read from L2); in f32 the products are
+// shared memory, weights read from L2; a head of 8 channels, as FBANet-32's
+// bottleneck, dec0 and dec1 have, sits zero-padded to 16 columns in the q,
+// k, v tiles, head_pitch in attention_fwd.cuh); in f32 the products are
 // register-tiled FMAs on the CUDA cores (f32 has no tensor-core path of the
 // same precision). A wgmma/TMA pipeline with weights staged in shared
 // memory is later work.
@@ -155,7 +157,9 @@ __device__ __forceinline__ void uniform_rows(int n, const float* sS, int lds, bf
 }
 
 // kSoftmax / kCore false: K9's nosoftmax / nocore (K1 itself is <true, true>).
-template <bool kSoftmax, bool kCore>
+// kPad: heads whose size is not a multiple of 16, padded (head_pitch); the
+// other instantiations keep each head at its own width.
+template <bool kSoftmax, bool kCore, bool kPad = false>
 __global__ void __launch_bounds__(kThreads) window_attention_bf16_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const bf16* __restrict__ x = (const bf16*)a.x;
@@ -164,10 +168,11 @@ __global__ void __launch_bounds__(kThreads) window_attention_bf16_kernel(Args a)
   const bf16* wkv = (const bf16*)a.wkv;
   const bf16* wproj = (const bf16*)a.wproj;
   const int C = a.C, n = a.ws ? a.ws * a.ws : a.W;
-  const int dh = C / a.heads;
+  const int dh = C / a.heads, dp = kPad ? head_pitch(dh) : dh;
   const int gw = group_width(C, a.heads);
-  const int ldc = C + 8, ldg = gw + 8, ldp = n + 8, lds = n + 1;
-  const Bf16Layout L(n, C, gw);
+  const int gp = kPad ? group_pitch(C, a.heads) : gw;
+  const int ldc = C + 8, ldg = gp + 8, ldp = n + 8, lds = n + 1;
+  const Bf16Layout L(n, C, gp);
   bf16* sY = (bf16*)(smem_raw + L.y);
   bf16* sO = (bf16*)(smem_raw + L.o);
   bf16* sQ = (bf16*)(smem_raw + L.q);
@@ -180,7 +185,16 @@ __global__ void __launch_bounds__(kThreads) window_attention_bf16_kernel(Args a)
 
   const WinBlock wb = window_block(a.H, a.W, C, a.ws);
   auto tok = [&](int t) -> size_t { return wb.pix(t) * C; };
+  // column j of a head group's projection -> its column in the padded tiles
+  auto padded = [&](int j) { return kPad ? j + (j / dh) * (dp - dh) : j; };
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if constexpr (kPad)  // the padding columns stay zero: no epilogue writes them
+    for (int i = threadIdx.x; i < n * ldg; i += kThreads) {
+      const bf16 zero = __float2bfloat16(0.f);
+      sQ[i] = zero;
+      sK[i] = zero;
+      sV[i] = zero;
+    }
   for (int t = warp; t < n; t += kThreads / 32)
     layernorm_row<bf16>(x + tok(t), C, a.ln_s, a.ln_b, sY + t * ldc, lane);
   __syncthreads();
@@ -191,24 +205,23 @@ __global__ void __launch_bounds__(kThreads) window_attention_bf16_kernel(Args a)
   for (int g0 = 0; g0 < C; g0 += gw) {
     gemm_tc<col>(n, n, gw, C, sY, ldc, wq + (size_t)g0 * C, C, scratch,
                  [&](int m, int j, float v) {
-                   sQ[m * ldg + j] = __float2bfloat16((v + a.bq[g0 + j]) * scale);
+                   sQ[m * ldg + padded(j)] = __float2bfloat16((v + a.bq[g0 + j]) * scale);
                  });
     gemm_tc<col>(n, n, gw, C, sY, ldc, wkv + (size_t)g0 * C, C, scratch,
                  [&](int m, int j, float v) {
-                   sK[m * ldg + j] = __float2bfloat16(v + a.bkv[g0 + j]);
+                   sK[m * ldg + padded(j)] = __float2bfloat16(v + a.bkv[g0 + j]);
                  });
     gemm_tc<col>(n, n, gw, C, sY, ldc, wkv + (size_t)(C + g0) * C, C, scratch,
                  [&](int m, int j, float v) {
-                   sV[m * ldg + j] = __float2bfloat16(v + a.bkv[C + g0 + j]);
+                   sV[m * ldg + padded(j)] = __float2bfloat16(v + a.bkv[C + g0 + j]);
                  });
     __syncthreads();
     if constexpr (!kCore) {
       // K9 nocore: o = (q + k) + v, each sum rounded as bf16 arrays add
       for (int i = threadIdx.x; i < n * gw; i += kThreads) {
-        const int m = i / gw, j = i % gw;
-        const float qk = round_to<bf16>(__bfloat162float(sQ[m * ldg + j]) +
-                                        __bfloat162float(sK[m * ldg + j]));
-        sO[m * ldc + g0 + j] = __float2bfloat16(qk + __bfloat162float(sV[m * ldg + j]));
+        const int m = i / gw, j = i % gw, jp = m * ldg + padded(j);
+        const float qk = round_to<bf16>(__bfloat162float(sQ[jp]) + __bfloat162float(sK[jp]));
+        sO[m * ldc + g0 + j] = __float2bfloat16(qk + __bfloat162float(sV[jp]));
       }
       __syncthreads();
       continue;
@@ -216,8 +229,9 @@ __global__ void __launch_bounds__(kThreads) window_attention_bf16_kernel(Args a)
     for (int hh = 0; hh < gw / dh; ++hh) {
       const int h = g0 / dh + hh;
       const float* bh = a.bias + (size_t)h * n * n;
-      // logits: B(d, s) = K[s][d], a column-major view of the k tile
-      gemm_tc<col>(n, n, n, dh, sQ + hh * dh, ldg, sK + hh * dh, ldg, scratch,
+      // logits: B(d, s) = K[s][d], a column-major view of the k tile (over
+      // the padded head: the padding adds zeros)
+      gemm_tc<col>(n, n, n, dp, sQ + hh * dp, ldg, sK + hh * dp, ldg, scratch,
                    [&](int m, int s, float v) {
                      sS[m * lds + s] = v + bh[m * n + s] + (mw ? mw[m * n + s] : 0.f);
                    });
@@ -227,9 +241,10 @@ __global__ void __launch_bounds__(kThreads) window_attention_bf16_kernel(Args a)
       else
         uniform_rows(n, sS, lds, sP, ldp, sInv);
       __syncthreads();
-      gemm_tc<wmma::row_major>(n, n, dh, n, sP, ldp, sV + hh * dh, ldg, scratch,
+      gemm_tc<wmma::row_major>(n, n, dp, n, sP, ldp, sV + hh * dp, ldg, scratch,
                                [&](int m, int d, float v) {
-                                 sO[m * ldc + h * dh + d] = __float2bfloat16(v * sInv[m]);
+                                 if (!kPad || d < dh)  // not a padding column
+                                   sO[m * ldc + h * dh + d] = __float2bfloat16(v * sInv[m]);
                                });
       __syncthreads();
     }
@@ -244,15 +259,17 @@ __global__ void __launch_bounds__(kThreads) window_attention_bf16_kernel(Args a)
 }
 
 size_t smem_bytes(int n, int C, int heads, int bf16) {
-  return bf16 ? Bf16Layout(n, C, group_width(C, heads)).total
+  return bf16 ? Bf16Layout(n, C, group_pitch(C, heads)).total
               : attention_f32_smem(n, C, heads);
 }
 
 using Kernel = void (*)(Args);
 
-// K1's own instantiation for the compute type (K1b's too).
-Kernel production_kernel(int use_bf16) {
-  if (use_bf16) return window_attention_bf16_kernel<true, true>;
+// K1's own instantiation for the compute type and head size (K1b's too).
+Kernel production_kernel(int use_bf16, int dh) {
+  if (use_bf16)
+    return head_pitch(dh) == dh ? window_attention_bf16_kernel<true, true>
+                                : window_attention_bf16_kernel<true, true, true>;
   return window_attention_f32_kernel;
 }
 
@@ -287,10 +304,13 @@ Args make_args(const void* x, void* out, const void* ln_s, const void* ln_b, con
 extern "C" {
 
 // Dynamic shared memory of one block, or 0 for a shape the kernel does not
-// take (the bf16 kernel tiles by 16: tokens, C and head size).
+// take (the bf16 kernel tiles by 16: tokens, C and a head group's width;
+// head sizes in multiples of 8, padded to 16).
 int fbanet_window_attention_smem(int n, int C, int heads, int bf16) {
   if (C % heads) return 0;
-  if (bf16 && (n % 16 || C % 16 || (C / heads) % 16)) return 0;
+  if (bf16 && (n % 16 || C % 16 || (C / heads) % 8 ||
+               fbanet::group_width(C, heads) % 16))
+    return 0;
   return (int)fbanet::smem_bytes(n, C, heads, bf16);
 }
 
@@ -307,7 +327,7 @@ int fbanet_window_attention(const void* x, void* out, const void* ln_s,
   if (smem == 0) return (int)cudaErrorInvalidValue;
   const Args a = make_args(x, out, ln_s, ln_b, wq, bq, wkv, bkv, wproj, bproj, bias, mask,
                            H, W, C, heads, ws, residual);
-  return launch(production_kernel(bf16), a, (unsigned)B * nw, smem, stream);
+  return launch(production_kernel(bf16, C / heads), a, (unsigned)B * nw, smem, stream);
 }
 
 // K1b on pre-partitioned windows [G, n, C]: mask [nw, n, n] or null, window
@@ -323,7 +343,7 @@ int fbanet_window_attention_windows(const void* x, void* out, const void* ln_s,
   if (smem == 0 || nw < 1) return (int)cudaErrorInvalidValue;
   const Args a = make_args(x, out, ln_s, ln_b, wq, bq, wkv, bkv, wproj, bproj, bias, mask,
                            nw, n, C, heads, 0, 0);
-  return launch(production_kernel(bf16), a, (unsigned)G, smem, stream);
+  return launch(production_kernel(bf16, C / heads), a, (unsigned)G, smem, stream);
 }
 
 // K9 on a bf16 map [B, H, W, C], mask-free, no residual. variant: 0 full
@@ -339,7 +359,8 @@ int fbanet_window_attention_ablation(const void* x, void* out, const void* ln_s,
   (void)mask;
   const int n = ws * ws, nw = (H / ws) * (W / ws);
   const int smem = fbanet_window_attention_smem(n, C, heads, 1);
-  if (smem == 0 || variant < 0 || variant > 3) return (int)cudaErrorInvalidValue;
+  if (smem == 0 || variant < 0 || variant > 3 || head_pitch(C / heads) != C / heads)
+    return (int)cudaErrorInvalidValue;  // the variants keep heads unpadded
   const Args a = variant == 3
                      ? make_args(x, out, ln_s, ln_b, wq, bq, wkv, bkv, wproj, bproj, bias,
                                  nullptr, 1, n, C, heads, 0, 0)

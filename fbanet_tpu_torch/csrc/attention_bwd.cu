@@ -8,10 +8,12 @@
 namespace fbanet {
 namespace {
 
-template <int kSkip>
-BwdKernel kernel_for(int use_bf16) {
-  if (use_bf16) return window_attention_bwd_kernel<bf16, kSkip>;
-  return window_attention_bwd_kernel<float, kSkip>;
+// K3's instantiation for the compute type and head size dh.
+BwdKernel kernel_for(int use_bf16, int dh) {
+  if (use_bf16)
+    return head_pitch(dh) == dh ? window_attention_bwd_kernel<bf16, 0>
+                                : window_attention_bwd_kernel<bf16, 0, true>;
+  return window_attention_bwd_kernel<float, 0>;
 }
 
 }  // namespace
@@ -20,11 +22,12 @@ BwdKernel kernel_for(int use_bf16) {
 extern "C" {
 
 // Head-group width the kernel uses, or 0 for a shape it does not take (the
-// bf16 kernel tiles by 16: tokens, C and head size; no group may fit).
-// `skip`: the stages a K11 variant removes (0 for K3).
+// bf16 kernel tiles by 16: tokens, C and a head group; head sizes in
+// multiples of 8, padded to 16; no group may fit). `skip`: the stages a K11
+// variant removes (0 for K3).
 int fbanet_window_attention_bwd_group(int n, int C, int heads, int bf16, int skip) {
   if (C % heads) return 0;
-  if (bf16 && (n % 16 || C % 16 || (C / heads) % 16)) return 0;
+  if (bf16 && (n % 16 || C % 16 || (C / heads) % 8)) return 0;
   return fbanet::pick_group(n, C, heads, bf16 != 0, skip);
 }
 
@@ -44,8 +47,8 @@ int fbanet_window_attention_bwd(const void* x, const void* g, void* dx, void* ys
                           (const float*)bq, (const float*)bkv, (const float*)bias,
                           (const float*)mask, fbanet::WinGeom{H, W, C, ws, n, nw, 0},
                           heads, residual, gw};
-  return fbanet::launch_bwd(fbanet::kernel_for<0>(bf16), a, (unsigned)B * nw, bf16 != 0,
-                            false, stream);
+  return fbanet::launch_bwd(fbanet::kernel_for(bf16, C / heads), a, (unsigned)B * nw,
+                            bf16 != 0, false, stream);
 }
 
 // K3 on pre-partitioned windows [G, n, C] (K1b's backward): mask [nw, n, n]
@@ -64,8 +67,8 @@ int fbanet_window_attention_bwd_windows(const void* x, const void* g, void* dx, 
                           (const float*)bq, (const float*)bkv, (const float*)bias,
                           (const float*)mask, fbanet::WinGeom{0, 0, C, 0, n, nw, 1},
                           heads, 0, gw};
-  return fbanet::launch_bwd(fbanet::kernel_for<0>(bf16), a, (unsigned)G, bf16 != 0, false,
-                            stream);
+  return fbanet::launch_bwd(fbanet::kernel_for(bf16, C / heads), a, (unsigned)G,
+                            bf16 != 0, false, stream);
 }
 
 }  // extern "C"

@@ -33,7 +33,10 @@
 // per window against reading x and g once). The working set of C = 256 / 16
 // heads fits shared memory because heads run in groups (the host picks the
 // widest group that fits) and pass 2 reuses pass 1's space. bf16 products
-// run on the tensor cores (WMMA 16x16x16, f32 accumulation); f32 ones on the
+// run on the tensor cores (WMMA 16x16x16, f32 accumulation; a head of 8
+// channels, as FBANet-32's bottleneck, dec0 and dec1 have, sits zero-padded
+// to 16 columns in the q, k, v and do tiles, so dp = do v^T adds zeros and
+// dq, dk, dv, o compute 8 columns more that are dropped); f32 ones on the
 // CUDA cores.
 //
 // fbanet_window_attention_bwd_windows is the same kernel on pre-partitioned
@@ -73,17 +76,22 @@ struct BwdArgs {
 };
 
 // Shared-memory layout (byte offsets) for n tokens, width C, head size dh,
-// head-group width gw. Element strides: bf16 arrays C + 8 / gw + 8 / n + 8
-// (WMMA wants multiples of 8), f32 arrays odd (no bank conflicts). Pass 2
-// (dy and its operand staging) reuses pass 1's space after the statistics.
-// K11's nocore keeps the f32 do [n][C] after pass 1's space (do32).
+// head-group width gw. In bf16 each head of q, k, v and do takes
+// head_pitch(dh) columns (a head of 8 zero-padded to 16, common.cuh); `hp`
+// is that pitch (dh in f32). Element strides: bf16 arrays C + 8 / padded
+// widths + 8 / n + 8 (WMMA wants multiples of 8), f32 arrays odd (no bank
+// conflicts). Pass 2 (dy and its operand staging) reuses pass 1's space
+// after the statistics. K11's nocore keeps the f32 do [n][C] after pass 1's
+// space (do32).
 struct BwdLayout {
-  int ldc, ldg, ldp, lds, ldd, ldy, kc;
+  int hp, ldc, ldo, ldg, ldp, lds, ldd, ldy, kc;
   size_t mu, inv, y, d_o, q, k, v, s, p, dp, dq, dk, dv, scratch, gstage, dy, a2, do32, total;
   __host__ __device__ BwdLayout(int n, int C, int dh, int gw, bool bf, bool nocore = false) {
     const size_t e = bf ? 2 : 4;
+    hp = bf ? head_pitch(dh) : dh;
     ldc = bf ? C + 8 : C + 1;
-    ldg = bf ? gw + 8 : gw + 1;
+    ldo = bf ? C / dh * hp + 8 : C + 1;
+    ldg = bf ? gw / dh * hp + 8 : gw + 1;
     ldp = n + 8;
     lds = n + 1;
     ldd = dh + 1;
@@ -94,7 +102,7 @@ struct BwdLayout {
     const size_t base = inv + align128(sizeof(float) * n);
     y = base;
     d_o = y + align128(e * n * ldc);
-    q = d_o + align128(e * n * ldc);
+    q = d_o + align128(e * n * ldo);
     k = q + align128(e * n * ldg);
     v = k + align128(e * n * ldg);
     s = v + align128(e * n * ldg);
@@ -116,19 +124,27 @@ struct BwdLayout {
   }
 };
 
-// Widest head group (a divisor of heads, at most 64 columns) whose layout
-// fits the H100's 227 KB of shared memory per block; 0 if none does.
+// Widest head group (a divisor of heads, at most 64 columns; in bf16
+// padded, and whole 16-wide tiles of the projections) whose layout fits the
+// H100's 227 KB of shared memory per block; 0 if none does.
 __host__ inline int pick_group(int n, int C, int heads, bool bf, int skip) {
   const int dh = C / heads;
   for (int hg = heads; hg >= 1; --hg)
-    if (heads % hg == 0 && hg * dh <= 64 &&
+    if (heads % hg == 0 && hg * (bf ? head_pitch(dh) : dh) <= 64 &&
+        (!bf || hg * dh % 16 == 0) &&
         BwdLayout(n, C, dh, hg * dh, bf, skip & kNoCore).total <= 232448)
       return hg * dh;
   return 0;
 }
 
-template <typename T, int kSkip>
-__global__ void __launch_bounds__(kThreads) window_attention_bwd_kernel(BwdArgs a) {
+// kPad: bf16 heads whose size is not a multiple of 16, padded (head_pitch);
+// the other instantiations keep each head at its own width. Two blocks an
+// SM (128 registers): with the thread count alone ptxas gave the others
+// 128 but the padded one 176, one block an SM, and FBANet-32's dec1 (C =
+// 64, little shared memory) ran 55 % slower; with one block an SM asked
+// for, it gave every instantiation 154-168 (PERF.md §6).
+template <typename T, int kSkip, bool kPad = false>
+__global__ void __launch_bounds__(kThreads, 2) window_attention_bwd_kernel(BwdArgs a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   constexpr bool bf = std::is_same_v<T, bf16>;
   constexpr bool recompute = !(kSkip & kNoRecompute), dsoftmax = !(kSkip & kNoDsoftmax);
@@ -139,6 +155,10 @@ __global__ void __launch_bounds__(kThreads) window_attention_bwd_kernel(BwdArgs 
   const int C = a.geom.C, n = a.geom.n, heads = a.heads;
   const int dh = C / heads, gw = a.gw;
   const BwdLayout L(n, C, dh, gw, bf, !core);
+  const int hp = kPad ? L.hp : dh, ldo = kPad ? L.ldo : L.ldc;
+  // channel j of q, k, v, do (of a head group or of all heads) -> its
+  // column in the padded tiles
+  auto padded = [&](int j) { return kPad ? j + (j / dh) * (hp - dh) : j; };
   float* sMu = (float*)(smem_raw + L.mu);
   float* sInv = (float*)(smem_raw + L.inv);
   T* sY = (T*)(smem_raw + L.y);
@@ -205,6 +225,8 @@ __global__ void __launch_bounds__(kThreads) window_attention_bwd_kernel(BwdArgs 
       if constexpr (wgrads) ys[tok(t) * C + c] = yv;
       sG[t * ldc + c] = g[tok(t) * C + c];
     }
+    if constexpr (kPad)  // do's padding columns stay zero: no epilogue writes them
+      for (int c = lane; c < ldo; c += 32) sDo[t * ldo + c] = from_f<T>(0.f);
   }
   __syncthreads();
   // dbproj partial: the column sums of g
@@ -217,10 +239,19 @@ __global__ void __launch_bounds__(kThreads) window_attention_bwd_kernel(BwdArgs 
   // do = g Wproj^T: B(k = o, n = i) = wproj[o * C + i], row-major
   float* sDo32 = (float*)(smem_raw + L.do32);
   mm<T, row, row>(n, C, C, sG, ldc, wproj, C, scratch, [&](int m, int i, float v) {
-    sDo[m * ldc + i] = from_f<T>(v);
+    sDo[m * ldo + padded(i)] = from_f<T>(v);
     if constexpr (!core) sDo32[m * C + i] = v;
   });
   __syncthreads();
+  if constexpr (kPad && core) {  // q, k, v's padding columns, where g was staged
+    for (int i = threadIdx.x; i < n * ldg; i += kThreads) {
+      const T zero = from_f<T>(0.f);
+      sQ[i] = zero;
+      sK[i] = zero;
+      sV[i] = zero;
+    }
+    __syncthreads();
+  }
 
   if constexpr (!core) {
     // K11 nocore: o = round(do), dq = dk = dv = do (f32; no scale), so the
@@ -239,7 +270,7 @@ __global__ void __launch_bounds__(kThreads) window_attention_bwd_kernel(BwdArgs 
     for (int i = threadIdx.x; i < n * C; i += kThreads) {
       const int t = i / C, c = i % C;
       const size_t p = tok(t);
-      const T v = sDo[t * ldc + c];
+      const T v = sDo[t * ldo + padded(c)];
       if constexpr (wgrads) os[p * C + c] = v;
       dqs[p * C + c] = v;
       dkvs[p * 2 * C + c] = v;
@@ -253,31 +284,35 @@ __global__ void __launch_bounds__(kThreads) window_attention_bwd_kernel(BwdArgs 
       // q, k, v of the head group: B(k = i, n = j) = w[(row0 + j) * C + i]
       mm<T, row, col>(n, gw, C, sY, ldc, wq + (size_t)g0 * C, C, scratch,
                       [&](int m, int j, float v) {
-                        sQ[m * ldg + j] = from_f<T>((v + a.bq[g0 + j]) * scale);
+                        sQ[m * ldg + padded(j)] = from_f<T>((v + a.bq[g0 + j]) * scale);
                       });
       mm<T, row, col>(n, gw, C, sY, ldc, wkv + (size_t)g0 * C, C, scratch,
-                      [&](int m, int j, float v) { sK[m * ldg + j] = from_f<T>(v + a.bkv[g0 + j]); });
+                      [&](int m, int j, float v) {
+                        sK[m * ldg + padded(j)] = from_f<T>(v + a.bkv[g0 + j]);
+                      });
       mm<T, row, col>(n, gw, C, sY, ldc, wkv + (size_t)(C + g0) * C, C, scratch,
                       [&](int m, int j, float v) {
-                        sV[m * ldg + j] = from_f<T>(v + a.bkv[C + g0 + j]);
+                        sV[m * ldg + padded(j)] = from_f<T>(v + a.bkv[C + g0 + j]);
                       });
     } else {
       // K11 norecompute: q = k = v = x (unscaled)
       for (int i = threadIdx.x; i < n * gw; i += kThreads) {
-        const int m = i / gw, j = i % gw;
-        sQ[m * ldg + j] = sK[m * ldg + j] = sV[m * ldg + j] = sY[m * ldc + g0 + j];
+        const int m = i / gw, j = i % gw, jp = m * ldg + padded(j);
+        sQ[jp] = sK[jp] = sV[jp] = sY[m * ldc + g0 + j];
       }
     }
     __syncthreads();
     for (int hh = 0; hh < gw / dh; ++hh) {
       const int h = g0 / dh + hh;
       const float* bh = a.bias + (size_t)h * n * n;
-      const T* qh = sQ + hh * dh;
-      const T* kh = sK + hh * dh;
-      const T* vh = sV + hh * dh;
-      const T* doh = sDo + h * dh;
+      // the head's tiles, hp columns each (bf16: a head of 8 padded with
+      // zero columns, whose products add zeros or are dropped)
+      const T* qh = sQ + hh * hp;
+      const T* kh = sK + hh * hp;
+      const T* vh = sV + hh * hp;
+      const T* doh = sDo + h * hp;
       // logits: B(d, s) = k[s][d], column-major
-      mm<T, row, col>(n, n, dh, qh, ldg, kh, ldg, scratch, [&](int m, int s, float v) {
+      mm<T, row, col>(n, n, hp, qh, ldg, kh, ldg, scratch, [&](int m, int s, float v) {
         sS[m * lds + s] = v + bh[m * n + s] + (mw ? mw[m * n + s] : 0.f);
       });
       __syncthreads();
@@ -305,12 +340,13 @@ __global__ void __launch_bounds__(kThreads) window_attention_bwd_kernel(BwdArgs 
       // o = p v (written out rounded; only dWproj reads it), dv = p^T do,
       // dp = do v^T
       if constexpr (wgrads)
-        mm<T, row, row>(n, dh, n, sP, ldpl, vh, ldg, scratch, [&](int m, int d, float v) {
-          os[tok(m) * C + h * dh + d] = from_f<T>(v);
+        mm<T, row, row>(n, hp, n, sP, ldpl, vh, ldg, scratch, [&](int m, int d, float v) {
+          if (!kPad || d < dh) os[tok(m) * C + h * dh + d] = from_f<T>(v);
         });
-      mm<T, col, row>(n, dh, n, sP, ldpl, doh, ldc, scratch,
-                      [&](int s, int d, float v) { sDv[s * ldd + d] = v; });
-      mm<T, row, col>(n, n, dh, doh, ldc, vh, ldg, scratch,
+      mm<T, col, row>(n, hp, n, sP, ldpl, doh, ldo, scratch, [&](int s, int d, float v) {
+        if (!kPad || d < dh) sDv[s * ldd + d] = v;
+      });
+      mm<T, row, col>(n, n, hp, doh, ldo, vh, ldg, scratch,
                       [&](int m, int s, float v) { sDp[m * lds + s] = v; });
       __syncthreads();
       // dlogits = p (dp - sum(dp p)) in f32; rounded copy; bias partial
@@ -333,10 +369,12 @@ __global__ void __launch_bounds__(kThreads) window_attention_bwd_kernel(BwdArgs 
       }
       __syncthreads();
       // dq = dlogits k (scaled), dk = dlogits^T q
-      mm<T, row, row>(n, dh, n, sDl, ldpl, kh, ldg, scratch,
-                      [&](int m, int d, float v) { sDq[m * ldd + d] = v * scale; });
-      mm<T, col, row>(n, dh, n, sDl, ldpl, qh, ldg, scratch,
-                      [&](int s, int d, float v) { sDk[s * ldd + d] = v; });
+      mm<T, row, row>(n, hp, n, sDl, ldpl, kh, ldg, scratch, [&](int m, int d, float v) {
+        if (!kPad || d < dh) sDq[m * ldd + d] = v * scale;
+      });
+      mm<T, col, row>(n, hp, n, sDl, ldpl, qh, ldg, scratch, [&](int s, int d, float v) {
+        if (!kPad || d < dh) sDk[s * ldd + d] = v;
+      });
       __syncthreads();
       // f32 column sums (bq, bkv partials) and the rounded values out
       if constexpr (wgrads)

@@ -8,18 +8,21 @@
 namespace fbanet {
 namespace {
 
-// Heads per group: the largest divisor of `heads` whose columns fit in 64.
+// Heads per group: the largest divisor of `heads` whose padded columns
+// (head_pitch, common.cuh) fit in 64 and whose columns fill whole 16-wide
+// tiles of the projections; 1 where none does.
 __host__ __device__ inline int head_group(int heads, int dh) {
   int hg = 1;
   for (int g = 1; g <= heads; ++g)
-    if (heads % g == 0 && g * dh <= 64) hg = g;
+    if (heads % g == 0 && g * head_pitch(dh) <= 64 && g * dh % 16 == 0) hg = g;
   return hg;
 }
 
 // bf16 kernel: byte offsets of its shared-memory arrays, in this order:
 // LN output y and attention output o [n][C+8] bf16; q, k, v of a head
-// group [n][gw+8] bf16; probabilities p [n][n+8] bf16; f32 logits s
-// [n][n+1]; f32 1 / row sums; one 16 x 16 f32 WMMA epilogue slot per warp.
+// group [n][gw+8] bf16 (gw: the group's padded width, group_pitch);
+// probabilities p [n][n+8] bf16; f32 logits s [n][n+1]; f32 1 / row sums;
+// one 16 x 16 f32 WMMA epilogue slot per warp.
 struct Bf16Layout {
   size_t y, o, q, k, v, p, s, inv, scratch, total;
   __host__ __device__ Bf16Layout(int n, int C, int gw) {
@@ -38,6 +41,11 @@ struct Bf16Layout {
 
 __host__ __device__ inline int group_width(int C, int heads) {
   return head_group(heads, C / heads) * (C / heads);
+}
+
+// The group's width with each head padded to head_pitch.
+__host__ __device__ inline int group_pitch(int C, int heads) {
+  return head_group(heads, C / heads) * head_pitch(C / heads);
 }
 
 // Softmax of one logits row per warp: probabilities (rounded to the compute

@@ -20,6 +20,10 @@
 //  - a block owns one tile_m x tile_n output tile (64 or 128 each) for one
 //    slice of the tokens; blockIdx.x is the tile, so the blocks of a slice
 //    are adjacent in launch order and read its tokens from L2 together;
+//    M and N are multiples of 32 (FBANet-32's [32, 32] dWq at enc0, say):
+//    the edge tile's columns past M or N arrive as zeros (TMA fills the part
+//    of a box outside the tensor) and its rows and columns past them are
+//    not written, so a 32-wide output runs as half a 64-wide tile;
 //  - one producer thread streams 64-token stages of A and B with TMA into
 //    a ring of 4-8 stages in dynamic shared memory (64-column boxes in the
 //    128-byte swizzle, one mbarrier per stage for "full", one for "empty"),
@@ -41,8 +45,9 @@
 //    for large outputs.
 //
 // fbanet_token_matmul, f32 (only the f32 gradient check runs it): the first
-// port's kernel, unchanged: 64 x 64 tiles of 4 x 4 CUDA-core FMAs per
-// thread, 32-token stages, slices' partials summed by the caller.
+// port's kernel: 64 x 64 tiles of 4 x 4 CUDA-core FMAs per thread, 32-token
+// stages, slices' partials summed by the caller; edge tiles of M or N in
+// multiples of 32 read zeros past the edge and do not write there.
 //
 // fbanet_column_sum (R2): out[j] = sum over r of P[r][j] for an f32 [R, M]
 // matrix, bound by the bytes of P. A block owns a band of 128 columns
@@ -80,8 +85,8 @@ __global__ void __launch_bounds__(kThreads) token_matmul_f32_kernel(GemmArgs g) 
   for (int t0 = t_begin; t0 < t_end; t0 += kTok) {
     for (int i = threadIdx.x; i < kTok * kTile; i += kThreads) {
       const int tt = i / kTile, c = i % kTile, t = t0 + tt;
-      sA[tt][c] = t < t_end ? A[(size_t)t * g.M + m0 + c] : 0.f;
-      sB[tt][c] = t < t_end ? B[(size_t)t * g.N + n0 + c] : 0.f;
+      sA[tt][c] = t < t_end && m0 + c < g.M ? A[(size_t)t * g.M + m0 + c] : 0.f;
+      sB[tt][c] = t < t_end && n0 + c < g.N ? B[(size_t)t * g.N + n0 + c] : 0.f;
     }
     __syncthreads();
 #pragma unroll 4
@@ -102,8 +107,10 @@ __global__ void __launch_bounds__(kThreads) token_matmul_f32_kernel(GemmArgs g) 
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      out[(size_t)(m0 + tm * 4 + i) * g.N + n0 + tn + 16 * j] = acc[i][j];
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + tm * 4 + i, n = n0 + tn + 16 * j;
+      if (m < g.M && n < g.N) out[(size_t)m * g.N + n] = acc[i][j];
+    }
 }
 
 // ------------------------------------------------------ fixed-order sums --
@@ -202,11 +209,12 @@ struct TmArgs {
 
 // consumers: warpgroup `warp / 4` owns rows [64 (warp / 4), +64) of the
 // tile; each waits for a stage, runs 4 wgmma k16 steps on it, hands it
-// back, then writes its f32 accumulators to `out` ([.][N] rows).
+// back, then writes its f32 accumulators to `out` ([M][N]), the rows below M
+// and the columns below N.
 template <int BM, int BN>
 __device__ __forceinline__ void consume(uint8_t* ring, uint64_t* full, uint64_t* empty,
                                         int n_stages, int m0, int n0, int warp, int lane,
-                                        float* out, int N) {
+                                        float* out, int M, int N) {
   using S = TmShape<BM, BN>;
   const int grp = warp / 4;
   float acc[BN / 2];
@@ -231,11 +239,14 @@ __device__ __forceinline__ void consume(uint8_t* ring, uint64_t* full, uint64_t*
   const int row = m0 + 64 * grp + 16 * (warp % 4) + lane / 4;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
-    const int col = n0 + 8 * j + 2 * (lane % 4);
-    *reinterpret_cast<float2*>(out + (size_t)row * N + col) =
-        make_float2(acc[4 * j], acc[4 * j + 1]);
-    *reinterpret_cast<float2*>(out + (size_t)(row + 8) * N + col) =
-        make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    const int col = n0 + 8 * j + 2 * (lane % 4);  // even, and N is too
+    if (col >= N) continue;
+    if (row < M)
+      *reinterpret_cast<float2*>(out + (size_t)row * N + col) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+    if (row + 8 < M)
+      *reinterpret_cast<float2*>(out + (size_t)(row + 8) * N + col) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
   }
 }
 
@@ -250,7 +261,7 @@ __global__ void __launch_bounds__(TmShape<BM, BN>::kThreads, 1)
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + S::kStages * S::kStageBytes);
   uint64_t* empty = full + S::kStages;
 
-  const int tiles_n = g.N / BN;
+  const int tiles_n = (g.N + BN - 1) / BN;
   const int m0 = (blockIdx.x / tiles_n) * BM, n0 = (blockIdx.x % tiles_n) * BN;
   const int slice = blockIdx.y, splits = gridDim.y;
   const int t_begin = slice * g.chunk;
@@ -287,7 +298,7 @@ __global__ void __launch_bounds__(TmShape<BM, BN>::kThreads, 1)
     }
   } else {
     consume<BM, BN>(ring, full, empty, n_stages, m0, n0, warp, lane,
-                    splits == 1 ? g.out : g.part + (size_t)slice * g.M * g.N, g.N);
+                    splits == 1 ? g.out : g.part + (size_t)slice * g.M * g.N, g.M, g.N);
   }
   if (splits == 1) return;
 
@@ -334,7 +345,7 @@ cudaError_t launch_bf16(const void* a, const void* b, TmArgs g, int splits,
   cudaError_t err = make_tma_map_bf16(&map_a, a, g.T, g.M, kStageTok);
   if (err == cudaSuccess) err = make_tma_map_bf16(&map_b, b, g.T, g.N, kStageTok);
   if (err != cudaSuccess) return err;
-  const dim3 grid((g.M / BM) * (g.N / BN), splits);
+  const dim3 grid(((g.M + BM - 1) / BM) * ((g.N + BN - 1) / BN), splits);
   if (splits == 1) {
     token_matmul_bf16_kernel<BM, BN><<<grid, S::kThreads, S::kSmem, stream>>>(map_a, map_b, g);
     return cudaGetLastError();
@@ -393,24 +404,27 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// bf16: out [M, N] = A^T B; tile_m and tile_n in {64, 128},
-// chunk a multiple of 64 tokens, A and B 16-byte aligned; with more than
-// one slice, `part` holds ceil(T / chunk) x M x N floats and `sync` two
+// bf16: out [M, N] = A^T B; M and N multiples of 32, tile_m and tile_n in
+// {64, 128}, chunk a multiple of 64 tokens, A and B 16-byte aligned; with
+// more than one slice, `part` holds ceil(T / chunk) x M x N floats and `sync` two
 // zeroed words (left zeroed), and every block must fit on the card at once.
-// f32: the slices' partials in `part` (64 x 64 tiles, chunk a multiple of
-// 32), summed by the caller; `out` and `sync` unused.
+// f32: the slices' partials in `part` (64 x 64 tiles, M and N multiples of
+// 32, chunk a multiple of 32), summed by the caller; `out` and `sync`
+// unused.
 int fbanet_token_matmul(const void* a, const void* b, void* part, void* out, void* sync,
                         int T, int M, int N, int chunk, int tile_m, int tile_n, int bf16,
                         void* stream) {
   using namespace fbanet;
-  if (T <= 0 || chunk <= 0 || tile_m <= 0 || tile_n <= 0 || M % tile_m || N % tile_n)
+  if (T <= 0 || chunk <= 0 || tile_m <= 0 || tile_n <= 0 || M <= 0 || N <= 0 || M % 32 ||
+      N % 32)
     return (int)cudaErrorInvalidValue;
   const int splits = (T + chunk - 1) / chunk;
   const cudaStream_t s = (cudaStream_t)stream;
   if (!bf16) {
     if (tile_m != kTile || tile_n != kTile || chunk % kTok) return (int)cudaErrorInvalidValue;
     GemmArgs g{a, b, (float*)part, T, M, N, chunk};
-    token_matmul_f32_kernel<<<dim3(N / kTile, M / kTile, splits), kThreads, 0, s>>>(g);
+    token_matmul_f32_kernel<<<dim3((N + kTile - 1) / kTile, (M + kTile - 1) / kTile, splits),
+                              kThreads, 0, s>>>(g);
     return (int)cudaGetLastError();
   }
   if (chunk % kStageTok || (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) % 16)

@@ -20,7 +20,13 @@ from fbanet_tpu_torch.models.blocks import (
     TailUpsampler,
     tail_x4_direct,
 )
-from fbanet_tpu_torch.models.layers import Conv, ConvProj, Downsample, Upsample
+from fbanet_tpu_torch.models.layers import (
+    Conv,
+    ConvProj,
+    Downsample,
+    Dropout,
+    Upsample,
+)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -42,6 +48,7 @@ class FBANet(nn.Module):
         self.body1 = ResBlock(d)
         self.fusion = FAFBlock(d, cfg.num_frames)
         self.input_proj = ConvProj(d, d)
+        self.pos_drop = Dropout(cfg.drop_rate)  # fbanet.py:66
         layer_kw = dict(
             mlp_ratio=cfg.mlp_ratio, use_qkv_bias=cfg.use_qkv_bias,
             qk_scale=cfg.qk_scale, drop_rate=cfg.drop_rate,
@@ -118,8 +125,9 @@ class FBANet(nn.Module):
         """(output [B, 4H, 4W, cin] f32, HG2 features before the tail
         [B, H, W, D]). `plain=True` runs the fused operators' plain versions
         on any device (the kernel-vs-plain comparison of the whole slice).
-        `train=True` applies stochastic depth with masks drawn from
-        `generator` (the JAX model's `deterministic=False`)."""
+        `train=True` applies stochastic depth and, with a `drop_rate`,
+        dropout, with masks drawn from `generator` (the JAX model's
+        `deterministic=False`)."""
         cfg, dt = self.cfg, self.dtype
         b, f, h, w, cin = burst.shape
         if (f, h, w, cin) != (cfg.num_frames, cfg.img_size, cfg.img_size,
@@ -131,9 +139,9 @@ class FBANet(nn.Module):
         xf = burst.to(dt).reshape(b * f, h, w, cin)
         xf = self.body1(self.body0(self.head(xf, dt), dt), dt)
         fused = self.fusion(xf.reshape(b, f, h, w, d), dt)
-        y = self.input_proj(fused, dt)
-
         swin_kw = dict(train=train, generator=generator)
+        y = self.pos_drop(self.input_proj(fused, dt), **swin_kw)
+
         deconv1, cross = self._hourglass("HG1", y, None, plain, swin_kw)
         y_1 = self.output_proj(deconv1, dt)
         deconv1_2, _ = self._hourglass("HG2", y_1, cross, plain, swin_kw)

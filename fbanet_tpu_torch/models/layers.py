@@ -8,10 +8,18 @@ included (`Conv_0`, `ConvTranspose_0`, `PReLU_0`), so a converted JAX
 checkpoint loads with `strict=True`. Parameters are f32; each forward casts
 them to the compute dtype, as flax's `dtype=` does.
 
-`SwinLayer` takes the published options only (linear token projection, LeFF,
-no SE, no qk_scale, no dropout, any drop_path rate): both of its branches go
-through the fused operators K1 (`ops.attention`) and K2 (`ops.leff`), whose
-backwards are K3 and K4.
+`SwinLayer` takes every option of the JAX layer and routes as JAX's
+`_use_fused_attention` does (layers.py:499-510). With a linear token
+projection, no SE, no qk_scale and no dropout it takes the fused route:
+the attention through K1 (`ops.attention`, backward K3; its shape rule sends
+windows the TPU kernel does not take, window 10 among them, to JAX's
+composed `window_attention_reference`), the LeFF through K2 (`ops.leff`,
+backward K4), or the composed `MlpFFN` with `token_mlp="ffn"`. Every other
+configuration takes the composed route: `WindowAttention`, `LeFF` or
+`MlpFFN` as composed PyTorch ops, the counterparts of JAX's XLA modules,
+rounding where they round (f32 LayerNorm cast to the compute dtype, f32
+logits and softmax cast to it, flax's tanh GELU, a Dense's bias added after
+its product is rounded).
 """
 
 from __future__ import annotations
@@ -24,7 +32,9 @@ from torch import nn
 # window_partition / window_reverse live with K1; re-exported here where
 # fbanet_tpu.models.layers has them
 from fbanet_tpu_torch.ops.attention import (  # noqa: F401
+    dense,
     fused_window_attention_2d,
+    heads_attention,
     window_partition,
     window_reverse,
 )
@@ -46,13 +56,13 @@ def conv_nhwc(x: torch.Tensor, weight: torch.Tensor,
 
 class Conv(nn.Module):
     """Parameters of a flax nn.Conv in torch layout (`weight` [O, I/groups,
-    k, k], `bias` [O]) with its forward on `[B, H, W, C]`."""
+    k, k], `bias` [O] or none) with its forward on `[B, H, W, C]`."""
 
     def __init__(self, cin: int, cout: int, k: int, *, stride: int = 1,
-                 padding: int = 0, groups: int = 1):
+                 padding: int = 0, groups: int = 1, bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(cout, cin // groups, k, k))
-        self.bias = nn.Parameter(torch.zeros(cout))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.stride, self.padding, self.groups = stride, padding, groups
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -62,12 +72,16 @@ class Conv(nn.Module):
 
 class Dense(nn.Module):
     """Parameters of a flax nn.Dense in torch Linear layout (`weight`
-    [out, in], `bias` [out]). The fused operators consume them directly."""
+    [out, in], `bias` [out] or none). The fused operators consume them
+    directly; the composed modules call it (`ops.attention.dense`)."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(cout, cin))
-        self.bias = nn.Parameter(torch.zeros(cout))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return dense(x, self.weight, self.bias, dtype)
 
 
 class LayerNorm(nn.Module):
@@ -117,18 +131,100 @@ def shift_attention_mask(h: int, w: int, ws: int, shift: int) -> np.ndarray:
     return (idw[:, :, None] != idw[:, None, :]).astype(np.float32) * -100.0
 
 
-class WindowAttention(nn.Module):
-    """Parameters of the window attention (`to_q`, `to_kv`, `proj`,
-    `relative_position_bias_table`); the math is K1."""
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax's nn.gelu: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
 
-    def __init__(self, dim: int, window_size: int, heads: int):
+
+class SepConv2d(nn.Module):
+    """Depthwise k x k conv (groups = C) -> ReLU -> pointwise 1x1, both with
+    or without a bias (layers.py:285-307), on `[B, H, W, C]`."""
+
+    def __init__(self, cin: int, features: int, kernel_size: int = 3,
+                 use_bias: bool = True):
         super().__init__()
+        self.depthwise = Conv(cin, cin, kernel_size, padding=kernel_size // 2,
+                              groups=cin, bias=use_bias)
+        self.pointwise = Conv(cin, features, 1, bias=use_bias)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        return self.pointwise(torch.relu(self.depthwise(x, dtype)), dtype)
+
+
+class SELayer(nn.Module):
+    """Squeeze-and-excitation gate (layers.py:310-329): the mean over every
+    axis but the first and the last, `Dense_0` (C -> C / 16, no bias), ReLU,
+    `Dense_1` (no bias), sigmoid, times x."""
+
+    def __init__(self, dim: int, reduction: int = 16):
+        super().__init__()
+        self.Dense_0 = Dense(dim, dim // reduction, bias=False)
+        self.Dense_1 = Dense(dim // reduction, dim, bias=False)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        s = x.mean(dim=tuple(range(1, x.dim() - 1)))
+        s = torch.sigmoid(self.Dense_1(torch.relu(self.Dense_0(s, dtype)),
+                                       dtype))
+        return x * s.reshape(s.shape[0], *([1] * (x.dim() - 2)), s.shape[-1])
+
+
+class Dropout(nn.Module):
+    """flax nn.Dropout: in training, each element kept with probability
+    1 - rate from the caller's generator and scaled by 1 / (1 - rate), the
+    others zero; the identity in eval or at rate 0. As `DropPath`, the same
+    seed gives other bits than jax.random's, under the same law."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if not train or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        device = generator.device if generator is not None else x.device
+        bits = torch.empty(x.shape, device=device).bernoulli_(
+            keep, generator=generator)
+        return torch.where(bits.to(x.device).bool(),
+                           x / keep if keep > 0 else x,
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class WindowAttention(nn.Module):
+    """The window attention's parameters (`to_q`, `to_kv` or, with
+    `token_projection="conv"`, `to_q` / `to_k` / `to_v` as SepConv2d;
+    `proj`, `relative_position_bias_table`, `SELayer_0` with the SE gate)
+    and, for the composed route, JAX's composed forward on `[G, N, C]`
+    windows (layers.py:354-419). On the fused route K1 reads the parameters
+    (windows JAX's kernel does not take go to
+    `ops.attention.window_attention_composed`, this forward's math for the
+    linear projection)."""
+
+    def __init__(self, dim: int, window_size: int, heads: int,
+                 use_qkv_bias: bool = True, qk_scale: float | None = None,
+                 attn_drop_rate: float = 0.0, proj_drop_rate: float = 0.0,
+                 token_projection: str = "linear",
+                 use_se_layer: bool = False):
+        super().__init__()
+        if token_projection not in ("linear", "conv"):
+            raise ValueError(f"token_projection {token_projection!r}")
         self.heads, self.window_size = heads, window_size
-        self.to_q = Dense(dim, dim)
-        self.to_kv = Dense(dim, 2 * dim)
-        self.proj = Dense(dim, dim)
+        self.qk_scale, self.token_projection = qk_scale, token_projection
+        if token_projection == "linear":
+            self.to_q = Dense(dim, dim, bias=use_qkv_bias)
+            self.to_kv = Dense(dim, 2 * dim, bias=use_qkv_bias)
+        else:
+            self.to_q = SepConv2d(dim, dim, use_bias=use_qkv_bias)
+            self.to_k = SepConv2d(dim, dim, use_bias=use_qkv_bias)
+            self.to_v = SepConv2d(dim, dim, use_bias=use_qkv_bias)
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window_size - 1) ** 2, heads))
+        self.proj = Dense(dim, dim)
+        if use_se_layer:
+            self.SELayer_0 = SELayer(dim)
+        self.attn_drop = Dropout(attn_drop_rate)
+        self.proj_drop = Dropout(proj_drop_rate)
         self.register_buffer(
             "rel_index",
             torch.from_numpy(relative_position_index(window_size).astype(
@@ -140,10 +236,34 @@ class WindowAttention(nn.Module):
         b = self.relative_position_bias_table[self.rel_index]
         return b.reshape(n, n, self.heads).permute(2, 0, 1)
 
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None,
+                dtype: torch.dtype, *, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """[G, N, C] windows (already normalised) -> [G, N, C] in
+        `dtype`."""
+        g, n, c = x.shape
+        scale = self.qk_scale or (c // self.heads) ** -0.5
+        if self.token_projection == "linear":
+            q = self.to_q(x, dtype)
+            k, v = self.to_kv(x, dtype).split(c, -1)
+        else:
+            xs = x.reshape(g, self.window_size, self.window_size, c)
+            q, k, v = (m(xs, dtype).reshape(g, n, c)
+                       for m in (self.to_q, self.to_k, self.to_v))
+        out = heads_attention(
+            q * scale, k, v, self.bias(), mask, self.heads, dtype,
+            drop=lambda p: self.attn_drop(p, train=train, generator=generator))
+        out = self.proj(out, dtype)
+        if hasattr(self, "SELayer_0"):
+            out = self.SELayer_0(out, dtype)
+        return self.proj_drop(out, train=train, generator=generator)
+
 
 class LeFF(nn.Module):
-    """Parameters of the LeFF (`linear1`, `depthwise` [Ch, 1, 3, 3],
-    `linear2`); the math is K2."""
+    """The LeFF's parameters (`linear1`, `depthwise` [Ch, 1, 3, 3],
+    `linear2`), which K2 reads on the fused route, and JAX's composed
+    forward for the composed route (layers.py:433-445): linear1 -> GELU ->
+    depthwise 3x3 -> GELU -> linear2."""
 
     def __init__(self, dim: int, hidden_dim: int):
         super().__init__()
@@ -151,6 +271,30 @@ class LeFF(nn.Module):
         self.depthwise = Conv(hidden_dim, hidden_dim, 3, padding=1,
                               groups=hidden_dim)
         self.linear2 = Dense(hidden_dim, dim)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, *,
+                train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        y = gelu(self.depthwise(gelu(self.linear1(x, dtype)), dtype))
+        return self.linear2(y, dtype)
+
+
+class MlpFFN(nn.Module):
+    """The plain transformer FFN, `token_mlp="ffn"` (layers.py:448-467):
+    `Dense_0` -> GELU -> dropout -> `Dense_1` -> dropout."""
+
+    def __init__(self, dim: int, hidden_dim: int, drop_rate: float = 0.0):
+        super().__init__()
+        self.Dense_0 = Dense(dim, hidden_dim)
+        self.Dense_1 = Dense(hidden_dim, dim)
+        self.drop = Dropout(drop_rate)
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, *,
+                train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        kw = dict(train=train, generator=generator)
+        y = self.drop(gelu(self.Dense_0(x, dtype)), **kw)
+        return self.drop(self.Dense_1(y, dtype), **kw)
 
 
 class DropPath(nn.Module):
@@ -179,11 +323,20 @@ class DropPath(nn.Module):
 
 class SwinLayer(nn.Module):
     """One (shifted-)window transformer layer on `[B, H, W, C]`
-    (layers.py:470-607): roll by -shift, K1, roll back, K2. When drop_path
-    is the identity (eval, or rate 0) both kernels add the residual
-    themselves; in training with a rate they return the branch and the
-    layer adds `skip + drop_path(branch)`. Windows of inputs no larger than
-    the window are clamped to the input, unshifted (layers.py:517-518)."""
+    (layers.py:470-607), computed in x's dtype. Windows of inputs no larger
+    than the window are clamped to the input, unshifted (layers.py:517-518).
+
+    `route` is "fused" where JAX's `_use_fused_attention` holds (linear
+    token projection, no SE, qk_scale None, drop_rate and attn_drop_rate 0):
+    roll by -shift, K1 (with `use_qkv_bias=False` it gets zero biases, as
+    JAX's FusedWindowAttention), roll back, then K2 with
+    `token_mlp="leff"`, or norm2 and the composed `MlpFFN` with "ffn". When
+    drop_path is the identity (eval, or rate 0) the kernels add the
+    residual themselves; in training with a rate they return the branch and
+    the layer adds `skip + drop_path(branch)`. Else "composed": norm1 ->
+    roll -> partition -> `WindowAttention` -> reverse -> roll back -> skip +
+    drop_path -> norm2 -> `LeFF` or `MlpFFN` -> skip + drop_path
+    (layers.py:548-603)."""
 
     def __init__(self, dim: int, input_resolution: tuple[int, int],
                  heads: int, window_size: int = 8, shift_size: int = 0,
@@ -193,19 +346,8 @@ class SwinLayer(nn.Module):
                  token_projection: str = "linear", token_mlp: str = "leff",
                  use_se_layer: bool = False):
         super().__init__()
-        unsupported = {
-            "use_qkv_bias=False": not use_qkv_bias,
-            "qk_scale": qk_scale is not None,
-            "drop_rate": drop_rate != 0.0,
-            "attn_drop_rate": attn_drop_rate != 0.0,
-            f"token_projection={token_projection}": token_projection != "linear",
-            f"token_mlp={token_mlp}": token_mlp != "leff",
-            "use_se_layer": use_se_layer,
-        }
-        bad = [k for k, v in unsupported.items() if v]
-        if bad:
-            raise NotImplementedError(
-                f"SwinLayer options not ported yet: {', '.join(bad)}")
+        if token_mlp not in ("leff", "ffn"):
+            raise ValueError(f"token_mlp {token_mlp!r}")
         h, w = input_resolution
         ws, shift = window_size, shift_size
         if min(h, w) <= ws:
@@ -214,10 +356,20 @@ class SwinLayer(nn.Module):
             raise ValueError(f"resolution {h}x{w} not divisible by window {ws}")
         self.dim, self.heads = dim, heads
         self.input_resolution, self.window_size, self.shift = (h, w), ws, shift
+        self.route = ("fused" if token_projection == "linear"
+                      and not use_se_layer and qk_scale is None
+                      and attn_drop_rate == 0.0 and drop_rate == 0.0
+                      else "composed")
+        self.token_mlp = token_mlp
         self.norm1 = LayerNorm(dim)
-        self.attn = WindowAttention(dim, ws, heads)
+        self.attn = WindowAttention(
+            dim, ws, heads, use_qkv_bias=use_qkv_bias, qk_scale=qk_scale,
+            attn_drop_rate=attn_drop_rate, proj_drop_rate=drop_rate,
+            token_projection=token_projection, use_se_layer=use_se_layer)
         self.norm2 = LayerNorm(dim)
-        self.mlp = LeFF(dim, int(dim * mlp_ratio))
+        hidden = int(dim * mlp_ratio)
+        self.mlp = (LeFF(dim, hidden) if token_mlp == "leff"
+                    else MlpFFN(dim, hidden, drop_rate))
         mask = (torch.from_numpy(shift_attention_mask(h, w, ws, shift))
                 if shift > 0 else None)
         self.register_buffer("mask", mask, persistent=False)
@@ -229,19 +381,30 @@ class SwinLayer(nn.Module):
         if tuple(x.shape[1:]) != (*self.input_resolution, self.dim):
             raise ValueError(f"SwinLayer expects [B, {self.input_resolution}, "
                              f"{self.dim}], got {tuple(x.shape)}")
+        kw = dict(train=train, generator=generator)
+        if self.route == "composed":
+            return self._composed(x, **kw)
         dp_identity = not train or self.drop_path.rate == 0.0
         s = self.shift
         y = torch.roll(x, (-s, -s), (1, 2)) if s else x
         a = self.attn
+        bq, bkv = a.to_q.bias, a.to_kv.bias
+        if bq is None:  # use_qkv_bias=False: zero biases, as JAX's
+            # FusedWindowAttention passes (layers.py:223-228)
+            bq = x.new_zeros(self.dim, dtype=torch.float32)
+            bkv = x.new_zeros(2 * self.dim, dtype=torch.float32)
         y = fused_window_attention_2d(
-            y, self.norm1.weight, self.norm1.bias, a.to_q.weight, a.to_q.bias,
-            a.to_kv.weight, a.to_kv.bias, a.proj.weight, a.proj.bias,
-            a.bias(), self.mask, heads=self.heads,
-            window_size=self.window_size, residual=dp_identity, plain=plain)
+            y, self.norm1.weight, self.norm1.bias, a.to_q.weight, bq,
+            a.to_kv.weight, bkv, a.proj.weight, a.proj.bias, a.bias(),
+            self.mask, heads=self.heads, window_size=self.window_size,
+            residual=dp_identity, plain=plain)
         if s:
             y = torch.roll(y, (s, s), (1, 2))
         if not dp_identity:
-            y = x + self.drop_path(y, train=train, generator=generator)
+            y = x + self.drop_path(y, **kw)
+        if self.token_mlp == "ffn":
+            z = self.mlp(self.norm2(y).to(y.dtype), y.dtype, **kw)
+            return y + self.drop_path(z, **kw)
         m = self.mlp
         out = fused_leff(
             y, self.norm2.weight, self.norm2.bias, m.linear1.weight,
@@ -250,7 +413,22 @@ class SwinLayer(nn.Module):
             plain=plain)
         if dp_identity:
             return out
-        return y + self.drop_path(out, train=train, generator=generator)
+        return y + self.drop_path(out, **kw)
+
+    def _composed(self, x: torch.Tensor, **kw) -> torch.Tensor:
+        """The composed route (layers.py:536-603); no kernel runs."""
+        _b, h, w, _c = x.shape
+        dt, s, ws = x.dtype, self.shift, self.window_size
+        y = self.norm1(x).to(dt)
+        if s:
+            y = torch.roll(y, (-s, -s), (1, 2))
+        y = self.attn(window_partition(y, ws), self.mask, dt, **kw)
+        y = window_reverse(y, ws, h, w)
+        if s:
+            y = torch.roll(y, (s, s), (1, 2))
+        x = x + self.drop_path(y, **kw)
+        z = self.mlp(self.norm2(x).to(dt), dt, **kw)
+        return x + self.drop_path(z, **kw)
 
 
 class Downsample(nn.Module):

@@ -22,9 +22,7 @@ the parameters; the backward recomputes the rest.
 fused_window_attention) is the same pair on `[G, N, C]` windows: K1b, the
 windowed entry of K1's two forms (which replaces `_attention_kernel`), and
 K3's windowed entry as its backward. Its plain versions are
-`window_attention_reference` and `window_attention_bwd_reference`. Where the
-JAX API falls back to XLA for a shape its kernel does not take
-(attention_pallas.py:785-788), the port raises on CUDA, naming the shape.
+`window_attention_reference` and `window_attention_bwd_reference`.
 
 The plain forward follows the TPU kernel's rounding points
 (`_attn_block_math`, attention_pallas.py:153-231): LN in f32 rounded to the
@@ -39,6 +37,18 @@ f32, which is what "bf16 inputs, f32 accumulation" means. The plain backward,
 Gradients come back in torch Linear layouts ([out, in]); the bias gradient
 is that of the gathered `[heads, N, N]` bias, which autograd carries to the
 relative-position table through the index gather. The mask gets none.
+
+Both entries follow JAX's shape rule first (`_supported`,
+attention_pallas.py:62-64, 749, 785-788): windows whose token count or head
+size is not a multiple of 8 (window 10's 100 tokens, say), or a map the
+window does not divide, take the composed branch on every device,
+`window_attention_composed`: JAX's composed `window_attention_reference`
+in PyTorch ops, differentiated by autograd, counted in
+`fused_window_attention_2d.composed` / `fused_window_attention.composed`.
+It rounds where that function rounds (each Dense's product rounded to the
+compute dtype before its bias is added, q scaled after), not where the
+kernel does; its pieces `dense` and `heads_attention` are the composed
+SwinLayer's too (models/layers.py).
 
 `fused_window_attention_2d.launches` counts K1 launches,
 `fused_window_attention.launches` K1b launches and
@@ -121,6 +131,64 @@ def window_attention_reference(x, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
     [nW, N, N] or None."""
     return _attention_math(x, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
                            bproj, bias, mask, heads, x.dtype).to(x.dtype)
+
+
+def _supported(n: int, c: int, heads: int) -> bool:
+    """JAX's shape rule for its Pallas attention (attention_pallas.py:62):
+    windows of n tokens and heads of C / heads channels it takes; every
+    other shape runs the composed branch."""
+    return n % 8 == 0 and c % heads == 0 and (c // heads) % 8 == 0
+
+
+def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+          dtype: torch.dtype) -> torch.Tensor:
+    """flax nn.Dense in `dtype` with a torch Linear weight [out, in]: the
+    product rounded to `dtype`, then the bias added (a second rounding)."""
+    y = x.to(dtype) @ weight.to(dtype).t()
+    return y if bias is None else y + bias.to(dtype)
+
+
+def heads_attention(q, k, v, bias, mask, heads: int, dtype: torch.dtype,
+                    drop=None) -> torch.Tensor:
+    """softmax(q k^T + bias [+ mask]) v per head on [G, N, C] windows, as
+    JAX's composed attention rounds it (layers.py:386-414,
+    attention_pallas.py:117-130): f32 logits of the dtype's q and k (q comes
+    scaled), the f32 bias [heads, N, N] and the mask [nW, N, N] added, an
+    f32 softmax cast to `dtype`, `drop` (the attention dropout) applied to
+    it, the product with v in `dtype`."""
+    g, n, c = q.shape
+    dh = c // heads
+
+    def split(t):  # [G, N, C] -> [G, heads, N, dh]
+        return t.reshape(g, n, heads, dh).transpose(1, 2)
+
+    logits = split(q).float() @ split(k).float().transpose(-1, -2) \
+        + bias.float()[None]
+    if mask is not None:
+        nw = mask.shape[0]
+        logits = (logits.reshape(g // nw, nw, heads, n, n)
+                  + mask.float()[None, :, None]).reshape(g, heads, n, n)
+    p = torch.softmax(logits, -1).to(dtype)
+    if drop is not None:
+        p = drop(p)
+    o = p @ split(v).to(dtype)
+    return o.transpose(1, 2).reshape(g, n, c)
+
+
+def window_attention_composed(x, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
+                              bproj, bias, mask, *, heads: int
+                              ) -> torch.Tensor:
+    """The composed branch of both entries: JAX's composed
+    `window_attention_reference` (attention_pallas.py:90-132) on [G, N, C]
+    windows in x's dtype, in PyTorch ops (autograd differentiates it):
+    norm1 in f32 cast to the dtype, the Dense products, q scaled, then
+    `heads_attention` and the output projection."""
+    cd, c = x.dtype, x.shape[-1]
+    y = layer_norm_f32(x, ln_scale, ln_bias).to(cd)
+    q = dense(y, wq, bq, cd) * (c // heads) ** -0.5
+    k, v = dense(y, wkv, bkv, cd).split(c, -1)
+    return dense(heads_attention(q, k, v, bias, mask, heads, cd), wproj,
+                 bproj, cd)
 
 
 def _plain_2d(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj, bias,
@@ -312,9 +380,12 @@ def _kernel_forward(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
 # 128 or 256 and head size 16 or 64, with two or four warpgroups and the
 # weights staged once per block (where all 4 C^2 fit) or streamed per
 # window; warpgroups 0 is the first kernel (csrc/attention.cu: f32, every
-# other shape), one window per block. K7's cores and K9's stages follow the
-# plan onto either form.
+# other shape, FBANet-32's head sizes 8 and 32 among them), one window per
+# block. K7's cores and K9's stages follow the plan onto either form.
 _K1_BASE_PLAN = (0, 1, 0)
+# head sizes of the wgmma forms of K1 and K3; every other head size (8 and
+# 32 at embed 32) runs on their first kernels
+_WGMMA_HEAD_SIZES = (16, 64)
 # (warpgroups, staged) of the wgmma form, in the order the plan tries them
 _K1_FORMS = ((2, 1), (4, 1), (4, 0))
 _K1_SLOTS = 4  # TMA ring slots per warpgroup when the weights stream
@@ -365,8 +436,9 @@ def _attention_plan(b: int, h: int, w: int, c: int, heads: int, ws: int = 8,
     Measured at the five groups at B=2, 4 and 8 (tools/measure_attention.py
     `plans`, NVIDIA H100 80GB HBM3 at 700 W): the fastest plan, or within
     7 % of it, at every group (PERF.md §6). Else `_K1_BASE_PLAN`, the
-    first kernel."""
-    if bf16 and h % ws == 0 and w % ws == 0:
+    first kernel: f32, and head sizes other than `_WGMMA_HEAD_SIZES`."""
+    if bf16 and h % ws == 0 and w % ws == 0 and \
+            c % heads == 0 and c // heads in _WGMMA_HEAD_SIZES:
         for nwg, staged in _K1_FORMS:
             size = smem(ws * ws, c, heads, nwg, staged)
             resident = min(_SM_SMEM // (size + 1024), 4 // nwg) if size else 0
@@ -420,8 +492,9 @@ def _check_plan(lib, x, n: int, c: int, heads: int, plan, fail) -> int:
         return bf16
     smem = lib.fbanet_window_attention_smem(n, c, heads, bf16)
     if smem == 0:
-        fail("in bfloat16 the window's token count, C and the head size "
-             "must be multiples of 16 (tensor-core tiles)")
+        fail("in bfloat16 the window's token count and C must be multiples "
+             "of 16, the head size of 8, and a group of heads must fill "
+             "whole 16-column tensor-core tiles")
     if smem > _SMEM_LIMIT:
         fail(f"needs {smem} B of shared memory per block (limit "
              f"{_SMEM_LIMIT})")
@@ -500,8 +573,10 @@ def _attention_bwd_plan(b: int, h: int, w: int, c: int, heads: int,
     less device time than four where both fit; one window per block (a
     partial row per window) ran 0-6 % faster per call, sums included, than
     this plan, whose partial at dec1 is 13x smaller (PERF.md §6). Else
-    `_K3_BASE_PLAN`, the first kernel."""
-    if bf16 and h % ws == 0 and w % ws == 0:
+    `_K3_BASE_PLAN`, the first kernel: f32, and head sizes other than
+    `_WGMMA_HEAD_SIZES`."""
+    if bf16 and h % ws == 0 and w % ws == 0 and \
+            c % heads == 0 and c // heads in _WGMMA_HEAD_SIZES:
         for nwg in (2, 4):
             size = smem(ws * ws, c, heads, nwg)
             per_sm = _SM_SMEM // (size + 1024) if size else 0
@@ -570,9 +645,10 @@ def _attention_bwd_launch(x4, g4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
         bf16 = int(x4.dtype == torch.bfloat16)
         if lib.fbanet_window_attention_bwd_group(n, c, heads, bf16, 0) == 0:
             _unsupported("the backward kernel takes no head group of this "
-                         "shape (bfloat16 needs tokens, C and the head size "
-                         "in multiples of 16, and a group must fit shared "
-                         "memory)", x4, heads, ws)
+                         "shape (bfloat16 needs tokens and C in multiples of "
+                         "16, the head size of 8, and a group of whole "
+                         "16-column tiles that fits shared memory)", x4,
+                         heads, ws)
         err = lib.fbanet_window_attention_bwd(*ptrs, *geom, bf16,
                                               _build.stream(x4))
         _attention_bwd_launch.base.launches += 1
@@ -738,8 +814,9 @@ def launch_bwd_windows(x, g, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bias,
             n, c, heads, bf16, skip) == 0:
         _unsupported_windows(
             "the backward kernel takes no head group of this shape (bfloat16 "
-            "needs tokens, C and the head size in multiples of 16, and a "
-            "group must fit shared memory)", x, heads)
+            "needs tokens and C in multiples of 16, the head size of 8, and "
+            "a group of whole 16-column tiles that fits shared memory)", x,
+            heads)
     g = g.to(x.dtype).contiguous()
     wgrads = not skip & _NO_WGRADS
     ptrs, scratch, _kept = _bwd_operands(
@@ -850,17 +927,28 @@ def fused_window_attention_2d(x4: torch.Tensor, ln_scale, ln_bias, wq, bq,
     `residual=True` (valid for shifted layers too: the roll is a
     permutation). Weights are torch Linear layouts: wq [C, C], wkv [2C, C],
     wproj [C, C]. `plain=True` forces the plain versions on any device; the
-    kernel-vs-plain comparisons use it.
+    kernel-vs-plain comparisons use it. A shape JAX's kernel does not take
+    (`_supported`) runs the composed branch, `plain` or not.
     """
+    b, h, w, c = x4.shape
+    ws = window_size
+    if h % ws or w % ws or not _supported(ws * ws, c, heads):
+        fused_window_attention_2d.composed.launches += 1
+        out = window_reverse(window_attention_composed(
+            window_partition(x4, ws), ln_scale, ln_bias, wq, bq, wkv, bkv,
+            wproj, bproj, bias, mask, heads=heads), ws, h, w)
+        return x4 + out if residual else out
     return _FusedAttention.apply(x4, ln_scale, ln_bias, wq, bq, wkv, bkv,
                                  wproj, bproj, bias, mask, heads, window_size,
                                  residual, plain)
 
 
 fused_window_attention_2d.launches = 0
-# launch counts per form, kept as the wrappers keep theirs
+# launch counts per form, kept as the wrappers keep theirs, and the composed
+# branch's calls
 fused_window_attention_2d.wgmma = SimpleNamespace(launches=0)
 fused_window_attention_2d.base = SimpleNamespace(launches=0)
+fused_window_attention_2d.composed = SimpleNamespace(launches=0)
 
 
 class _WindowAttention(torch.autograd.Function):
@@ -909,11 +997,19 @@ def fused_window_attention(x: torch.Tensor, ln_scale, ln_bias, wq, bq, wkv,
     the card, the plain backward on the CPU). `mask` is the shift mask
     `[windows_per_image, N, N]` or None; window g takes mask[g %
     windows_per_image], so G must be a multiple of it. Weights are torch
-    Linear layouts. `plain=True` forces the plain versions on any device."""
+    Linear layouts. `plain=True` forces the plain versions on any device.
+    Windows JAX's kernel does not take (`_supported`) run the composed
+    branch, `plain` or not."""
     _check_windows(x, heads, mask, windows_per_image)
+    if not _supported(x.shape[1], x.shape[2], heads):
+        fused_window_attention.composed.launches += 1
+        return window_attention_composed(
+            x, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj, bias, mask,
+            heads=heads)
     return _WindowAttention.apply(x, ln_scale, ln_bias, wq, bq, wkv, bkv,
                                   wproj, bproj, bias, mask, heads,
                                   windows_per_image, plain)
 
 
 fused_window_attention.launches = 0
+fused_window_attention.composed = SimpleNamespace(launches=0)

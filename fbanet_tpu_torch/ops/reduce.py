@@ -15,7 +15,8 @@ atomics: the same inputs give bitwise the same gradients.
   to 128 x 256 and a fixed slice of the tokens, streamed through a TMA ring
   into wgmma; after a grid barrier the blocks add the slices' partial tiles
   in a fixed order. `_token_matmul_plan` fixes tiles and slices from the
-  shapes alone.
+  shapes alone. M and N are multiples of 32: a width of 32 (FBANet-32's
+  enc0) is the masked half of a 64-wide edge tile.
 - `column_sum(p)`: the column sums of an f32 [R, M] matrix: the bias,
   LayerNorm, depthwise and relative-position gradients from per-block
   partials. Blocks sum fixed row slices of 128-column bands in a fixed
@@ -68,7 +69,8 @@ def _token_matmul_plan(t: int, m: int, n: int, bf16: bool = True,
     [T, M] x [T, N] product: the output tile of one block, and the token
     slices [s chunk, min(T, (s + 1) chunk)) for s < splits, each summed by
     its own blocks. bf16: the first tile of `_TILES` that divides the
-    output and whose least output size it reaches, else 64 x 64; slices of
+    output and whose least output size it reaches, else 64 x 64 (with
+    masked edge tiles where M or N is an odd multiple of 32); slices of
     whole 64-token stages, as many as fill the card's `sms` SMs once (one
     block per SM, all resident for the grid barrier before the slices'
     sum) but at least `_MIN_SLICE_STAGES` stages each. f32: 64 x 64 tiles,
@@ -79,13 +81,13 @@ def _token_matmul_plan(t: int, m: int, n: int, bf16: bool = True,
                                and not n % bn), (64, 64))
         stage = _STAGE
         stages = _cdiv(t, stage)
-        tiles = (m // tile_m) * (n // tile_n)
+        tiles = _cdiv(m, tile_m) * _cdiv(n, tile_n)
         splits = max(1, min(sms // tiles, stages // _MIN_SLICE_STAGES))
     else:
         tile_m = tile_n = _F32_TILE
         stage = _F32_STAGE
         stages = _cdiv(t, stage)
-        tiles = (m // tile_m) * (n // tile_n)
+        tiles = _cdiv(m, tile_m) * _cdiv(n, tile_n)
         splits = max(1, min(_cdiv(t, 256), _cdiv(2 * sms, tiles)))
     chunk = _cdiv(stages, splits) * stage
     return tile_m, tile_n, chunk, _cdiv(t, chunk)
@@ -143,7 +145,7 @@ def _describe(**named: torch.Tensor) -> str:
 def _check_token_matmul(a: torch.Tensor, b: torch.Tensor) -> None:
     """Raise ValueError naming the shapes if the kernel does not take
     (a, b): both 2-D [T, M] and [T, N] with T > 0, one dtype (float32 or
-    bfloat16), contiguous, M and N multiples of 64, on one CUDA device,
+    bfloat16), contiguous, M and N multiples of 32, on one CUDA device,
     16-byte aligned."""
     def no(why):
         _refuse("token_matmul", _describe(a=a, b=b), why)
@@ -155,8 +157,8 @@ def _check_token_matmul(a: torch.Tensor, b: torch.Tensor) -> None:
         no("a and b of one dtype, float32 or bfloat16")
     if not (a.is_contiguous() and b.is_contiguous()):
         no("contiguous a and b")
-    if a.shape[1] % 64 or b.shape[1] % 64:
-        no("M and N multiples of the 64-wide output tile")
+    if a.shape[1] % 32 or b.shape[1] % 32:
+        no("M and N multiples of 32 (half the 64-wide output tile)")
     if a.device.type != "cuda" or b.device != a.device:
         no("a and b on one CUDA device")
     if (a.data_ptr() | b.data_ptr()) % 16:

@@ -4,7 +4,7 @@ synthetic RealBSR tree and record the per-epoch PSNR climb above the
 bilinear-base starting point.
 
     python -m fbanet_tpu_torch.tools.convergence_proof [--out DIR]
-        [--bursts 96 --frames 14 --lr_size 64 --epochs 60 --embed_dim 64
+        [--bursts 96 --frames 14 --lr_size 64 --epochs 60 --embed_dim 32
          --batch_size 8 --grad_accum 1 --noise 0.05] [--device cuda|cpu]
 
 The zero-init `tail_conv` (`models/fbanet.py::init_parameters`) makes an
@@ -15,13 +15,7 @@ super-resolution learned by the whole stack under the published recipe
 --grad_accum 2` is the published global batch of 16 on one card; under
 torchrun `--batch_size` is the global batch over the ranks.
 
-The JAX script's flags, plus `--device`, and one other default:
-`--embed_dim` is 64, the published width, where the JAX script has 32. At
-embed 32 the card's kernels refuse the model: the weight-gradient sum R1
-(`ops/reduce.py::token_matmul`) takes widths in multiples of 64 (C = 32
-is not), and K1's bf16 forms take head sizes of 16 or 64, where the
-published heads give 8 at the bottleneck and in the decoder (ROADMAP
-Queue 1). The CPU runs the plain versions at any width.
+The JAX script's flags and defaults, plus `--device`.
 
 Writes the tree (once) and the training logs under `--out` (default
 `build/convergence` at the repository root), the per-epoch `history.json`
@@ -78,7 +72,7 @@ def main(argv: list[str] | None = None) -> dict:
     p.add_argument("--frames", type=int, default=14)
     p.add_argument("--lr_size", type=int, default=64)
     p.add_argument("--epochs", type=int, default=60)
-    p.add_argument("--embed_dim", type=int, default=64)
+    p.add_argument("--embed_dim", type=int, default=32)
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--grad_accum", type=int, default=1,
                    help="microbatches per optimizer step; --batch_size 8 "

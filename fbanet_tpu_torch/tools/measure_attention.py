@@ -66,13 +66,14 @@ def _inputs(batch: int, h: int, c: int, heads: int, seed: int):
     return x, {k: p[k] for k in order}
 
 
-def shapes(batch: int = 8) -> dict:
-    """{"rows": one dict per group, "sums": ms, device_ms, plain_ms,
-    bound_ms, bound_by summed over the groups}."""
+def shapes(batch: int = 8, groups: tuple = GROUPS) -> dict:
+    """At each of `groups` (measure_reduce.groups): {"rows": one dict per
+    group, "sums": ms, device_ms, plain_ms, bound_ms, bound_by summed over
+    the groups}."""
     from fbanet_tpu_torch.ops import attention
 
     rows = []
-    for i, (name, h, c, heads) in enumerate(GROUPS):
+    for i, (name, h, c, heads) in enumerate(groups):
         x, p = _inputs(batch, h, c, heads, 720 + i)
 
         def k1():

@@ -97,13 +97,14 @@ def _plain(x, g, p, heads):
     return attention._plain_bwd_2d(x, g, *p.values(), heads, WS, True)
 
 
-def shapes(batch: int = 8) -> dict:
-    """{"rows": one dict per group, "sums": ms, device_ms, plain_ms,
-    bound_ms, bound_by summed over the groups}."""
+def shapes(batch: int = 8, groups: tuple = GROUPS) -> dict:
+    """At each of `groups` (measure_reduce.groups): {"rows": one dict per
+    group, "sums": ms, device_ms, plain_ms, bound_ms, bound_by summed over
+    the groups}."""
     from fbanet_tpu_torch.ops import attention
 
     rows = []
-    for i, (name, h, c, heads) in enumerate(GROUPS):
+    for i, (name, h, c, heads) in enumerate(groups):
         x, g, p = case(batch, h, c, heads, "cuda", 700 + i)
 
         def k3():

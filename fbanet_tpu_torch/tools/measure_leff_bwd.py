@@ -75,13 +75,14 @@ def case(batch: int, h: int, c: int, device: str, seed: int):
     return x, g, p
 
 
-def shapes(batch: int = 8) -> dict:
-    """{"rows": one dict per group, "sums": ms, device_ms, plain_ms,
-    bound_ms, bound_by summed over the groups}."""
+def shapes(batch: int = 8, groups: tuple = GROUPS) -> dict:
+    """At each of `groups` (measure_reduce.groups): {"rows": one dict per
+    group, "sums": ms, device_ms, plain_ms, bound_ms, bound_by summed over
+    the groups}."""
     from fbanet_tpu_torch.ops import leff
 
     rows = []
-    for i, (name, h, c, _heads) in enumerate(GROUPS):
+    for i, (name, h, c, _heads) in enumerate(groups):
         x, g, p = case(batch, h, c, "cuda", 800 + i)
 
         def k4():

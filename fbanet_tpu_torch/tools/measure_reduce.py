@@ -44,9 +44,19 @@ from pathlib import Path
 
 import torch
 
-# (name, H = W of the group at 160 px, C, heads) of the five SwinGroups
-GROUPS = (("enc0", 160, 64, 1), ("enc1", 80, 128, 2), ("bott", 40, 256, 16),
-          ("dec0", 80, 256, 16), ("dec1", 160, 128, 8))
+
+
+def groups(embed: int = 64) -> tuple:
+    """(name, H = W of the group at 160 px, C, heads) of the five
+    SwinGroups at `embed` with the published heads: FBANet-64's, or at
+    embed 32 (the configuration's default) head size 8 at bott, dec0 and
+    dec1."""
+    return (("enc0", 160, embed, 1), ("enc1", 80, 2 * embed, 2),
+            ("bott", 40, 4 * embed, 16), ("dec0", 80, 4 * embed, 16),
+            ("dec1", 160, 2 * embed, 8))
+
+
+GROUPS = groups(64)
 WS = 8
 # H100 SXM at 700 W (NVIDIA data sheet, dense): bf16 tensor cores, f32 on
 # the CUDA cores, device memory
@@ -58,10 +68,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def r1_shapes(batch: int = 8, size: int = 160) -> list[tuple]:
+def r1_shapes(batch: int = 8, size: int = 160,
+              groups: tuple = GROUPS) -> list[tuple]:
     """(group, product, T, M, N) of every token_matmul of a train step."""
     out = []
-    for name, h, c, _heads in GROUPS:
+    for name, h, c, _heads in groups:
         t = batch * (h * size // 160) ** 2
         for prod, m, n in (("dWq", c, c), ("dWkv", 2 * c, c),
                            ("dWproj", c, c), ("dW1", 4 * c, c),
@@ -70,7 +81,8 @@ def r1_shapes(batch: int = 8, size: int = 160) -> list[tuple]:
     return out
 
 
-def r2_shapes(batch: int = 8, size: int = 160) -> list[tuple]:
+def r2_shapes(batch: int = 8, size: int = 160,
+              groups: tuple = GROUPS) -> list[tuple]:
     """(group, source, R, M) of K3's per-block and K4's per-tile partials
     (the main path's column_sum inputs besides R1's slices; the blocks and
     tiles are their plans'), and two earlier yardsticks: the 8 x 8-tile
@@ -82,7 +94,7 @@ def r2_shapes(batch: int = 8, size: int = 160) -> list[tuple]:
     from fbanet_tpu_torch.ops.leff import _leff_bwd_plan
 
     out = []
-    for name, h, c, heads in GROUPS:
+    for name, h, c, heads in groups:
         hh = h * size // 160
         out.append((name, "K3", _partial_rows(
             batch * (hh // WS) ** 2, _attention_bwd_plan(batch, hh, hh, c,
@@ -209,8 +221,10 @@ def _row(kind, label, fn, plain, lib, work, device):
     return row
 
 
-def shapes(batch: int = 8, size: int = 160, device: str = "cuda") -> dict:
-    """Every R1 and R2 shape of a train step at B=`batch`: {"R1": rows,
+def shapes(batch: int = 8, size: int = 160, device: str = "cuda",
+           groups: tuple = GROUPS) -> dict:
+    """Every R1 and R2 shape of a train step at B=`batch` (of the model
+    whose SwinGroups are `groups`): {"R1": rows,
     "R2": rows, "sums": {kernel: {ms, plain_ms, library_ms, bound_ms,
     bound_by}}} (bound_by: what bounds most of the summed bound).
     Raises if a kernel disagrees with its plain version or does not
@@ -219,7 +233,7 @@ def shapes(batch: int = 8, size: int = 160, device: str = "cuda") -> dict:
 
     gen = torch.Generator(device=device).manual_seed(700)
     res = {"R1": [], "R2": []}
-    for group, prod, t, m, n in r1_shapes(batch, size):
+    for group, prod, t, m, n in r1_shapes(batch, size, groups):
         a = torch.randn(t, m, generator=gen, device=device).bfloat16()
         b = torch.randn(t, n, generator=gen, device=device).bfloat16()
         res["R1"].append(_row(
@@ -228,7 +242,7 @@ def shapes(batch: int = 8, size: int = 160, device: str = "cuda") -> dict:
             lambda: _library_mm(a, b),
             (2 * t * m * n, 0, 2 * t * (m + n) + 4 * m * n), device))
         del a, b
-    for group, src, r, m in r2_shapes(batch, size):
+    for group, src, r, m in r2_shapes(batch, size, groups):
         p = torch.randn(r, m, generator=gen, device=device)
         res["R2"].append(_row(
             "R2", f"{group} {src} {r} x {m}", lambda: column_sum(p),
@@ -272,7 +286,7 @@ def plans(batch: int = 8, size: int = 160) -> list[dict]:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator(device="cuda").manual_seed(701)
     out = []
-    for group, prod, t, m, n in r1_shapes(batch, size):
+    for group, prod, t, m, n in r1_shapes(batch, size, groups):
         a = torch.randn(t, m, generator=gen, device="cuda").bfloat16()
         b = torch.randn(t, n, generator=gen, device="cuda").bfloat16()
         ref = a.float().t() @ b.float()

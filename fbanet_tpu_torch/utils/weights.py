@@ -12,7 +12,12 @@ without flax:
     kernel/scale/alpha    leaf names     -> weight
 
 The port's modules carry exactly these names (flax auto-names included), so
-`model.load_state_dict(sd, strict=True)` needs no rename table.
+`model.load_state_dict(sd, strict=True)` needs no rename table. That holds
+for every configuration the JAX model builds: the depthwise kernels of
+`SepConv2d` ([3, 3, 1, C] -> [C, 1, 3, 3], `attn.to_q.depthwise` and the
+like with `token_projection="conv"`), Dense and Conv layers without a bias
+(no `bias` key), the SE gate `attn.SELayer_0.Dense_{0,1}` and the FFN
+`mlp.Dense_{0,1}` (`tests/test_torch_configs.py`).
 """
 
 from __future__ import annotations

@@ -106,8 +106,3 @@ def test_swin_layer_matches(res, shift):
     assert tm.shift == (shift if res > 8 else 0)
     p = _pair(jm, tm, x, seed=3)
     assert max_err(tm(t(x)), jm.apply(p, jnp.asarray(x))) <= 1e-5
-
-
-def test_swin_layer_rejects_unported_options():
-    with pytest.raises(NotImplementedError, match="token_mlp=ffn"):
-        layers.SwinLayer(16, (16, 16), 2, token_mlp="ffn")

@@ -130,13 +130,17 @@ def _meta(*shape, dtype=torch.bfloat16):
      "one dtype"),
     (_meta(64, 128).t(), _meta(128, 64), "contiguous"),
     (_meta(128, 64), _meta(64, 128).t(), "contiguous"),
-    (_meta(128, 96), _meta(128, 64), "multiples of the 64-wide"),
-    (_meta(128, 64), _meta(128, 32), "multiples of the 64-wide"),
+    # M and N in multiples of 32 are the kernel's shapes (a 32-wide edge is
+    # half a 64-wide tile): a meta tensor is refused for its device
+    (_meta(128, 96), _meta(128, 64), "one CUDA device"),
+    (_meta(128, 64), _meta(128, 32), "one CUDA device"),
+    (_meta(128, 48), _meta(128, 64), "multiples of 32"),
+    (_meta(128, 64), _meta(128, 80), "multiples of 32"),
     (_meta(128, 64), _meta(127, 64), "the same T"),
     (_meta(0, 64), _meta(0, 64), "the same T > 0"),
     (_meta(128), _meta(128, 64), r"a \[T, M\]"),
 ], ids=["meta", "mixed-dtype", "float16", "a-strided", "b-strided", "M-96",
-        "N-32", "T-mismatch", "T-0", "1-D"])
+        "N-32", "M-48", "N-80", "T-mismatch", "T-0", "1-D"])
 def test_token_matmul_refuses(a, b, why):
     with pytest.raises(ValueError, match=why) as info:
         reduce.token_matmul(a, b)
