@@ -6,6 +6,7 @@
                                      # W ranks over NCCL, one a card
     python3 chip_smoke.py configs F  # phase_configs alone, its results as
                                      # JSON in F (the full run starts it so)
+    python3 chip_smoke.py raw F      # phase_raw alone, likewise
 
 Phases, each printed as it runs; any failure raises and the exit code is
 non-zero:
@@ -160,14 +161,30 @@ non-zero:
    forward timed, 3 steps. Two B=2 steps of FBANet-64 under each of
    use_qkv_bias=False, token_mlp="ffn" and conv + SE + qk_scale +
    dropout, with the launches their routes give.
+14. raw (in a process of its own): FBANet-64 on RealBSR-RAW (4-channel
+   packed Bayer, 14 frames, 160 px, bf16) from uint16 storage tensors.
+   Served at B=8 through `eval_step` with ECC on R/G1/G2: 20 launches of K1
+   and K2 (wgmma forms), a finite [8, 640, 640, 4] output within 40 dB of
+   the plain path, the forward timed; 5 AdamW steps at B=8 with exactly
+   the RGB step's launches of K1-K4, R1 and R2 (one RGB step at the same
+   width counted beside them), step ms and peak memory; an f32 B=2 step's
+   gradients against the plain versions. Then `train.main` for one epoch
+   with `--profile_dir` (the trace names K1's kernel), `evaluate.main
+   --save_images` and `tiled.main` (psize 80, overlap 40: `.npy` of
+   [640, 640, 4] beside 640 x 640 PNGs) on a RAW tree of 8 + 4 bursts
+   written through data/png.py; LPIPS (random weights) on a B=8 pair of
+   640^2 images, the card against the CPU within 1e-4 relative, and ms;
+   `bakeoff.main --synthetic`: every method above the unaligned PSNR,
+   seconds per method.
 
 Each kernel wrapper counts its launches (K1, K2, K3, K7, K8, K9, K10
 and K11 per form); the counts are set to 0 just before the registration, the CLI
 stream, the serving, the training (the B=8 steps, then the f32 B=2 step,
 whose plans send K1, K2 and K3 to their first kernels), each run of the
 trainer phase, each DDP step of the ddp phase, the measurement and the
-variant runs, and each serving, forward and step of the configs phase, and
-read just after. The line before the last is a JSON object
+variant runs, each serving, forward and step of the configs phase, and
+each serving, step and entry point of the raw phase, and read just
+after. The line before the last is a JSON object
 {"kernels": [...]} (launches on those runs; error, times and bound from
 phases 3-6, 9 and 10, errors also from 13; K7 and K9-K11 also per variant; K1, K2, K3, K7, K8,
 K9, K10 and K11 with their first kernels as entries of their own), preceded
@@ -255,51 +272,16 @@ def log(msg: str) -> None:
 
 
 def make_realistic_bursts(batch, frames, size, seed=0, hr_scale=0):
-    """[B, F, S, S, 3] photographic-like bursts in [0, 1] (a copy of
-    bench.py:make_realistic_bursts, numpy only): smooth multi-frequency
-    sinusoid fields, per-frame subpixel shifts (frame 0 unshifted), sensor
-    noise. With `hr_scale` it also returns the noise-free frame-0 field
-    sampled on the x`hr_scale` grid, [B, S*s, S*s, 3]: the HR target."""
-    import numpy as np
+    """[B, F, S, S, 3] photographic-like bursts in [0, 1] (bench.py's
+    make_realistic_bursts: `data/synthetic.py::realistic_bursts`): smooth
+    multi-frequency sinusoid fields, per-frame subpixel shifts (frame 0
+    unshifted), sensor noise. With `hr_scale` it also returns the
+    noise-free frame-0 field sampled on the x`hr_scale` grid, [B, S*s, S*s,
+    3]: the HR target."""
+    from fbanet_tpu_torch.data.synthetic import realistic_bursts
 
-    rng = np.random.default_rng(seed)
-    yy, xx = np.meshgrid(np.arange(size, dtype=np.float32),
-                         np.arange(size, dtype=np.float32), indexing="ij")
-    k = 16
-    out = np.empty((batch, frames, size, size, 3), np.float32)
-    fields = []
-    for b in range(batch):
-        freq = rng.uniform(-0.35, 0.35, size=(k, 2)).astype(np.float32)
-        phase = rng.uniform(0, 2 * np.pi, size=(k, 3)).astype(np.float32)
-        amp = (rng.uniform(0.3, 1.0, size=(k,)) * (2.0 / k)).astype(
-            np.float32)
-        shifts = rng.uniform(-3.0, 3.0, size=(frames, 2)).astype(np.float32)
-        shifts[0] = 0.0
-        fields.append((freq, phase, amp))
-        for f in range(frames):
-            arg = (freq[:, 0, None, None] * (yy + shifts[f, 0])[None]
-                   + freq[:, 1, None, None] * (xx + shifts[f, 1])[None])
-            for c in range(3):
-                field = np.einsum(
-                    "k,kij->ij", amp, np.sin(arg + phase[:, c, None, None]))
-                out[b, f, :, :, c] = field
-    norm = max(1.0, np.abs(out).max())
-    out = 0.5 + 0.45 * out / norm
-    out += rng.normal(scale=0.01, size=out.shape).astype(np.float32)
-    lr = np.clip(out, 0.0, 1.0, dtype=np.float32)
-    if not hr_scale:
-        return lr
-    # HR pixel centres in LR coordinates (half-pixel convention)
-    g = (np.arange(size * hr_scale, dtype=np.float32) + 0.5) / hr_scale - 0.5
-    hy, hx = np.meshgrid(g, g, indexing="ij")
-    hr = np.empty((batch, size * hr_scale, size * hr_scale, 3), np.float32)
-    for b, (freq, phase, amp) in enumerate(fields):
-        arg = freq[:, 0, None, None] * hy[None] + freq[:, 1, None, None] * hx[None]
-        for c in range(3):
-            hr[b, :, :, c] = np.einsum(
-                "k,kij->ij", amp, np.sin(arg + phase[:, c, None, None]))
-    hr = np.clip(0.5 + 0.45 * hr / norm, 0.0, 1.0, dtype=np.float32)
-    return lr, hr
+    got = realistic_bursts(batch, frames, size, seed=seed, hr_scale=hr_scale)
+    return (got["LR"], got["HR"]) if hr_scale else got["LR"]
 
 
 def make_homography_bursts(batch, frames, size, seed=0, shift=3.0,
@@ -3061,6 +3043,328 @@ def phase_configs(card: str) -> tuple[dict, dict, dict]:
     return checks, runs, times
 
 
+# the raw phase: FBANet-64 on RealBSR-RAW (4-channel packed Bayer)
+RAW_TREE = {"train": 8, "test": 4}  # bursts of 14 x 160^2 x 4 on disk
+LPIPS_TOL = 1e-4  # LPIPS on the card vs the CPU, relative: f32 convolutions
+
+
+def raw_bursts(batch, seed):
+    """Packed-Bayer bursts for the RAW model from `make_realistic_bursts`:
+    channels (R, G, G', B) with G' = 0.97 G + 0.015, as 16383-scaled uint16
+    (the dataset's storage wire) on the card: (LR [B, 14, 160, 160, 4], HR
+    [B, 640, 640, 4])."""
+    import numpy as np
+    import torch
+
+    def bayer(x):
+        x = np.concatenate([x[..., :2], 0.97 * x[..., 1:2] + 0.015,
+                            x[..., 2:]], -1)
+        return torch.from_numpy(np.round(np.clip(x, 0, 1) * 16383).astype(
+            np.uint16)).cuda()
+
+    lr, hr = make_realistic_bursts(batch, 14, 160, seed=seed, hr_scale=4)
+    return bayer(lr), bayer(hr)
+
+
+def raw_model(seed: int, dtype: str = "bfloat16", channels: int = 4):
+    """FBANet-64 at the published configuration (14 frames, 160 px, window
+    8, drop_path 0.1) with `channels` input channels, every parameter
+    drawn from `seed`."""
+    from fbanet_tpu_torch.models import ModelConfig
+
+    return _config_model(ModelConfig(
+        num_frames=14, img_size=160, embed_dim=64, window_size=8,
+        in_channels=channels, dtype=dtype, drop_path_rate=0.1), seed)
+
+
+def raw_serving(card: str) -> tuple[dict, dict]:
+    """FBANet-64 RAW served at B=8 through `eval_step` (ECC on channels
+    R, G1, G2, the forward, clamp, PSNR / SSIM) from uint16 storage
+    tensors: 20 launches of K1 and K2 (wgmma forms), none of K1's first
+    kernel; finite [8, 640, 640, 4] in [0, 1]; the kernel path within
+    SLICE_PSNR_MIN of the plain path; the B=8 forward timed against the
+    plain versions. Returns (launches, times)."""
+    import torch
+
+    from fbanet_tpu_torch.evaluate import eval_step
+    from fbanet_tpu_torch.metrics import psnr, to_unit_f32
+
+    model, layers = raw_model(seed=90)
+    lr, hr = raw_bursts(8, seed=91)
+    counters = _config_counters()
+    for c in counters.values():
+        c.launches = 0
+    pred, p, s, _ = eval_step(model, lr, hr, online_align="ecc")
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    _expect("RAW serving", launches, {"K1": layers, "K1-base": 0,
+                                      "K2": layers, "composed": 0})
+    if tuple(pred.shape) != (8, 640, 640, 4) or not torch.isfinite(pred).all() \
+            or pred.min() < 0 or pred.max() > 1:
+        raise AssertionError(f"RAW output {tuple(pred.shape)} not finite or "
+                             "outside [0, 1]")
+    plain = eval_step(model, lr, hr, online_align="ecc", plain=True)[0]
+    agree = float(psnr(pred, plain).min())
+    log(f"raw serving B=8 (uint16 wire, ECC on R/G1/G2): launches "
+        f"{launches}; PSNR {float(p.mean()):.4f} SSIM {float(s.mean()):.4f} "
+        f"(random weights); kernel vs plain path {agree:.2f} dB (min over "
+        f"the batch, limit {SLICE_PSNR_MIN})")
+    if not agree >= SLICE_PSNR_MIN:
+        raise AssertionError(f"RAW kernel vs plain path {agree:.2f} dB")
+
+    x = to_unit_f32(lr)
+
+    def forward(plain=False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = model(x, plain=plain)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            raise AssertionError("RAW: non-finite B=8 forward")
+        return (time.perf_counter() - t0) * 1e3
+
+    forward()
+    fwd_ms = statistics.median(forward() for _ in range(5))
+    plain_ms = statistics.median(forward(True) for _ in range(2))
+    log(f"raw serving B=8 on {card}: forward {fwd_ms:.2f} ms (plain "
+        f"versions {plain_ms:.2f} ms)")
+    return launches, {"fwd_ms": fwd_ms, "plain_fwd_ms": plain_ms}
+
+
+def raw_training(card: str) -> tuple[dict, dict]:
+    """5 AdamW steps of FBANet-64 RAW at B=8 from uint16 storage tensors:
+    finite losses, every parameter moved, and per step the same launches
+    of K1-K4, R1 and R2 as one step of the RGB model at the same width;
+    step ms and peak memory. Then one f32 B=2 step's gradients, kernels vs
+    plain, within TRAIN_GRAD_TOL (K1's, K2's and K3's first kernels and K4,
+    20 each). Returns (launches, times)."""
+    import torch
+
+    from fbanet_tpu_torch.config import TrainConfig
+    from fbanet_tpu_torch.train import make_train_step
+
+    rgb, layers = raw_model(seed=92, channels=3)
+    lr3, hr3 = make_realistic_bursts(2, 14, 160, seed=93, hr_scale=4)
+    lr3, hr3 = torch.from_numpy(lr3).cuda(), torch.from_numpy(hr3).cuda()
+    lr3, hr3 = lr3.repeat(4, 1, 1, 1, 1), hr3.repeat(4, 1, 1, 1)
+    rgb_step = _config_steps(rgb, lr3, hr3, 1)[2][0]
+    del rgb, lr3, hr3
+
+    model, _ = raw_model(seed=94)
+    lr, hr = raw_bursts(8, seed=95)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, per_step = _config_steps(model, lr, hr, 5)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i, got in enumerate(per_step):
+        _expect(f"RAW train step {i} (the RGB step's launches)", got,
+                rgb_step)
+    if rgb_step["K1"] != layers or rgb_step["K3"] != layers:
+        raise AssertionError(f"RGB step launches {rgb_step}")
+    step_ms = statistics.median(times[1:])
+    log(f"raw train B=8 on {card}: {step_ms:.2f} ms/step ({8e3 / step_ms:.3f}"
+        f" samples/s), peak {peak:.2f} GiB, losses {losses}, step ms "
+        f"{[round(t, 2) for t in times]}, launches per step {per_step[-1]} "
+        f"(the RGB step's: {rgb_step})")
+    launches = {k: sum(s[k] for s in per_step) for k in per_step[0]}
+
+    m32, _ = raw_model(seed=94, dtype="float32")
+    tcfg = TrainConfig(batch_size=2, lr_initial=1e-4, optimizer="adamw")
+    counters = _config_counters()
+    for c in counters.values():
+        c.launches = 0
+    grads = []
+    for plain in (False, True):
+        m32.zero_grad(set_to_none=True)
+        make_train_step(m32, None, tcfg, plain=plain).loss_fn(
+            lr[:2], hr[:2], torch.Generator(device="cuda").manual_seed(11)
+        ).backward()
+        grads.append({k: p.grad.clone() for k, p in m32.named_parameters()
+                      if p.grad is not None})
+    f32_launches = {k: c.launches for k, c in counters.items()}
+    _expect("RAW f32 step", f32_launches, {
+        "K1-base": layers, "K2-base": layers, "K3-base": layers,
+        "K4": layers})
+    worst, worst_name = 0.0, ""
+    for k, ref in grads[1].items():
+        scale = float(ref.abs().max())
+        err = float((grads[0][k] - ref).abs().max()) / (scale or 1.0)
+        if not err <= worst:
+            worst, worst_name = err, k
+    log(f"raw f32 B=2 gradients, kernels vs plain: {len(grads[1])} tensors, "
+        f"max err {worst:.3e} ({worst_name}; limit {TRAIN_GRAD_TOL})")
+    if not worst <= TRAIN_GRAD_TOL or grads[0].keys() != grads[1].keys():
+        raise AssertionError(f"RAW f32 gradient {worst_name}: {worst:.3e}")
+    launches = {k: v + f32_launches[k] for k, v in launches.items()}
+    return launches, {"step_ms": step_ms, "peak_gib": peak,
+                      "grad_err": worst}
+
+
+def raw_entry_points(card: str) -> dict:
+    """`train.main` (one epoch, B=8, `--profile_dir`) -> `evaluate.main
+    --save_images` -> `tiled.main` (psize 80, overlap 40) on a RAW tree
+    written through `data/png.py`: 8 train and 4 test bursts of 14 x 160^2
+    x 4 (16-bit). Checks the trace file names K1's kernel, 20 launches of
+    K1-K4 a step and of K1 and K2 a forward, 4 PNGs of 640 x 640 x 3 from
+    evaluate, and from tiled 4 `.npy` of [640, 640, 4] beside their PNGs.
+    Returns the launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fbanet_tpu_torch import evaluate as E
+    from fbanet_tpu_torch import tiled as TL
+    from fbanet_tpu_torch import train as T
+    from fbanet_tpu_torch.data import png
+    from fbanet_tpu_torch.data.synthetic import write_synthetic_realbsr
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="raw_", dir=ROOT / "build"))
+    t0 = time.perf_counter()
+    for seed, (split, n) in enumerate(RAW_TREE.items()):
+        write_synthetic_realbsr(tmp / "tree", num_bursts=n, num_frames=14,
+                                lr_size=160, splits=(split,), seed=seed,
+                                channels=4, level=1)
+    log(f"raw: wrote {sum(RAW_TREE.values())} RAW bursts of 14 x 160^2 x 4 "
+        f"in {time.perf_counter() - t0:.2f} s")
+    common = ["--dataroot", str(tmp / "tree"), "--embed_dim", "64",
+              "--train_ps", "160", "--burst_size", "14", "--in_channels", "4",
+              "--dtype", "bfloat16", "--device", "cuda"]
+    counters = _config_counters()
+
+    def run(fn, argv):
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = fn(argv)
+        torch.cuda.synchronize()
+        return out, {k: c.launches for k, c in counters.items()}, \
+            time.perf_counter() - t0
+
+    res, lt, secs = run(T.main, [
+        *common, "--batch_size", "8", "--nepoch", "1", "--save_dir",
+        str(tmp / "log"), "--train_workers", "8", "--eval_workers", "4",
+        "--profile_dir", str(tmp / "prof")])
+    steps = sum(h["steps"] for h in res["history"])
+    _expect("RAW train.main", lt, {"K1": 20 * (steps + 1), "K1-base": 0,
+                                   "K2": 20 * (steps + 1), "K3": 20 * steps,
+                                   "K4": 20 * steps})
+    trace = tmp / "prof" / "trace.json"
+    text = trace.read_text() if trace.exists() else ""
+    log(f"raw train.main: {steps} step(s) + eval in {secs:.2f} s, loss "
+        f"{res['history'][0]['loss']:.5f}, PSNR {res['best_psnr']:.4f}; "
+        f"trace {trace.name} {len(text) / 2**20:.2f} MiB, names K1's "
+        f"kernel: {'attention_wgmma_kernel' in text}")
+    if "attention_wgmma_kernel" not in text:
+        raise AssertionError(f"RAW --profile_dir: {trace} does not name K1")
+
+    best = str(Path(res["model_dir"]) / "model_best")
+    ev, le, secs = run(E.main, [*common, "--weights", best, "--save_images",
+                                "--result_dir", str(tmp / "eval")])
+    pngs = sorted((tmp / "eval").glob("*.png"))
+    heads = {png.read_header(q)[:3] for q in pngs}
+    log(f"raw evaluate.main --save_images: PSNR {ev['psnr']:.4f}, "
+        f"{len(pngs)} PNGs {heads} in {secs:.2f} s")
+    if len(pngs) != 4 or heads != {(640, 640, 8)} or \
+            not np.isfinite(ev["psnr"]):
+        raise AssertionError(f"RAW evaluate: {len(pngs)} PNGs {heads}")
+
+    written, ltl, secs = run(TL.main, [*common, "--weights", best, "--psize",
+                                       "80", "--overlap", "40",
+                                       "--result_dir", str(tmp / "tiled")])
+    npys = [np.load(q.with_suffix(".npy")) for q in written]
+    heads = {png.read_header(q)[:3] for q in written}
+    log(f"raw tiled.main: {len(written)} PNGs {heads}, npy "
+        f"{sorted({a.shape for a in npys})}, finite "
+        f"{all(np.isfinite(a).all() for a in npys)} in {secs:.2f} s; "
+        f"launches {ltl}")
+    if len(written) != 4 or heads != {(640, 640, 8)} or \
+            {a.shape for a in npys} != {(640, 640, 4)} or \
+            not all(np.isfinite(a).all() for a in npys):
+        raise AssertionError("RAW tiled outputs")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {k: lt[k] + le[k] + ltl[k] for k in lt}
+
+
+def raw_lpips(card: str) -> dict:
+    """LPIPS (random weights, `random_initialized_lpips(0)`) on a B=8 pair
+    of 640^2 images at boundary_ignore 40: the card against the CPU within
+    LPIPS_TOL relative, and the card's ms (CUDA events, median of 5)."""
+    import torch
+
+    from fbanet_tpu_torch.models.lpips import random_initialized_lpips
+
+    g = torch.Generator().manual_seed(96)
+    a, b = (torch.rand(8, 640, 640, 3, generator=g) for _ in range(2))
+    metric = random_initialized_lpips(0)
+    ref = metric(a, b, boundary_ignore=40)
+    metric = metric.cuda()
+    ac, bc = a.cuda(), b.cuda()
+    got = metric(ac, bc, boundary_ignore=40)
+    err = float(((got.cpu() - ref).abs() / ref.abs()).max())
+    ms = statistics.median(_cuda_ms(lambda: metric(ac, bc, boundary_ignore=40))
+                           for _ in range(5))
+    log(f"raw LPIPS B=8 640^2 (boundary 40) on {card}: {ms:.3f} ms, card vs "
+        f"CPU max rel err {err:.3e} (limit {LPIPS_TOL}), values "
+        f"{[round(v, 5) for v in got.tolist()]}")
+    if not (err <= LPIPS_TOL and torch.isfinite(got).all()):
+        raise AssertionError(f"LPIPS card vs CPU {err:.3e}")
+    return {"lpips_ms": ms, "lpips_err": err}
+
+
+def _cuda_ms(fn) -> float:
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def raw_bakeoff(card: str) -> dict:
+    """`bakeoff.main --synthetic` on the card (3 scenes x 3 pairs at 160
+    px): every method's mean PSNR above the unaligned pair's; seconds per
+    method (mean over the scenes)."""
+    from fbanet_tpu_torch import bakeoff
+
+    t0 = time.perf_counter()
+    res = bakeoff.main(["--synthetic", "--device", "cuda"])
+    secs = time.perf_counter() - t0
+    per = {m: statistics.mean(r[m]["seconds"] for r in res.values())
+           for m in bakeoff.METHODS}
+    log(f"raw bakeoff --synthetic on {card} ({secs:.1f} s): PSNR "
+        f"{ {s: {m: round(v['psnr'], 3) for m, v in r.items()} for s, r in res.items()} }; "
+        f"s per frame {({m: round(v, 4) for m, v in per.items()})}")
+    bad = [(s, m) for s, r in res.items() for m in bakeoff.METHODS
+           if not r[m]["psnr"] > r["unaligned"]["psnr"]]
+    if bad:
+        raise AssertionError(f"bakeoff: not above unaligned: {bad}")
+    return {"bakeoff_s": per}
+
+
+def phase_raw(card: str) -> tuple[dict, dict]:
+    """FBANet-64 on RealBSR-RAW (in a process of its own, as the configs
+    phase): serving, training, the entry points on a RAW tree, LPIPS and
+    the bake-off. Returns (launches on the main-path runs, times)."""
+    t0 = time.perf_counter()
+    launches, times = raw_serving(card)
+    more, t = raw_training(card)
+    times.update(t)
+    for extra in (more, raw_entry_points(card)):
+        launches = {k: launches[k] + extra[k] for k in launches}
+    times.update(raw_lpips(card))
+    times.update(raw_bakeoff(card))
+    log(f"raw: launches on the phase's runs {launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return launches, times
+
+
 def main() -> None:
     if not (ROOT / "fbanet_tpu_torch" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py: fbanet_tpu_torch/ not found next to "
@@ -3096,6 +3400,11 @@ def main() -> None:
         Path(sys.argv[2]).write_text(json.dumps(
             {"checks": checks, "launches": launches, "times": times},
             default=str))
+        return
+    if sys.argv[1:2] == ["raw"]:  # the raw phase, in its own process
+        launches, times = phase_raw(card)
+        Path(sys.argv[2]).write_text(json.dumps(
+            {"launches": launches, "times": times}, default=str))
         return
     log((lib_path.parent / "build.log").read_text())
 
@@ -3144,6 +3453,11 @@ def main() -> None:
         str(result / "configs.json")], check=True))
     got = json.loads((result / "configs.json").read_text())
     checks, configured = got["checks"], got["launches"]
+    # the raw phase takes a profiler trace: a process of its own too
+    timed("raw", lambda: subprocess.run([
+        sys.executable, str(ROOT / "chip_smoke.py"), "raw",
+        str(result / "raw.json")], check=True))
+    raw = json.loads((result / "raw.json").read_text())["launches"]
     for name, got in checks.items():  # FBANet-32's checks and B=8 times
         kres[name]["max_abs_err"] = max(kres[name]["max_abs_err"],
                                         got.get("max_abs_err", 0.0))
@@ -3153,12 +3467,13 @@ def main() -> None:
     # training (K1-K4, R1, R2), the entry points from disk (K1-K4, R1, R2),
     # the DDP steps (K1-K4, R1, R2),
     # measurement (K1b, K9-K11 and, through the tools, K1-K4, R1, R2) and
-    # the variants (K7, K8 and, through the tools, K1-K4, R1, R2) and the
-    # configs phase's runs (K1-K4 and their first kernels, R1, R2)
+    # the variants (K7, K8 and, through the tools, K1-K4, R1, R2), the
+    # configs phase's runs (K1-K4 and their first kernels, R1, R2) and the
+    # raw phase's (K1-K4 and their first kernels, R1, R2)
     launches = {k: registered.get(k, 0) + served.get(k, 0) + trained.get(k, 0)
                 + from_disk.get(k, 0) + data_parallel.get(k, 0)
                 + measured.get(k, 0) + varied.get(k, 0)
-                + configured.get(k, 0) for k in kres}
+                + configured.get(k, 0) + raw.get(k, 0) for k in kres}
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on a main path: "

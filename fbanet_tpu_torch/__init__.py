@@ -8,7 +8,8 @@ backwards) are hand-written CUDA C++ kernels for `sm_90a` here
 (`ops/attention.py`, `ops/leff.py`, sources in `csrc/`).
 
 Layouts follow the JAX package at the public functions: bursts
-`[B, F, H, W, 3]` in, `[B, 4H, 4W, 3]` out, the Swin stream `[B, H, W, C]`.
+`[B, F, H, W, C]` in (C = 3 RGB, 4 packed-Bayer RAW), `[B, 4H, 4W, C]`
+out, the Swin stream `[B, H, W, D]`.
 Parameters use torch layouts under the names `fbanet_tpu.utils.torch_io`
 produces, so a converted JAX checkpoint loads with `strict=True`.
 

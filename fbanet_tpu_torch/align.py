@@ -115,10 +115,10 @@ def align_tree(input_dir: str | Path, output_dir: str | Path, *,
                device: str = "cuda") -> int:
     """Align every burst directory under `input_dir` into the same layout
     under `output_dir`; returns the number of bursts aligned.
-    `overlap=False` runs decode -> align -> encode serially."""
-    from PIL import Image
-
+    `overlap=False` runs decode -> align -> encode serially. PNGs are
+    written through PIL where it is installed, else `data/png.py`."""
     from fbanet_tpu_torch.data.realbsr import decode_png
+    from fbanet_tpu_torch.evaluate import save_rgb
     from fbanet_tpu_torch.metrics import psnr
 
     input_dir, output_dir = Path(input_dir), Path(output_dir)
@@ -140,7 +140,7 @@ def align_tree(input_dir: str | Path, output_dir: str | Path, *,
         out_b.mkdir(parents=True, exist_ok=True)
         for f, img in zip(files, aligned):
             arr = np.clip(img * 255.0 + 0.5, 0, 255).astype(np.uint8)
-            Image.fromarray(arr).save(out_b / f.name)
+            save_rgb(out_b / f.name, arr)
         if report_metrics:
             # before/after PSNR against frame 0, the reference's diagnostic
             # (homography_alignment.py:60-62)

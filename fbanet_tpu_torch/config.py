@@ -15,12 +15,17 @@ Left out, because the port does not read them:
   (`models/layers.py`).
 - `ModelConfig.remat`: jax.checkpoint per SwinLayer. The port's fused
   operators already save only their inputs for the backward.
-- `TrainConfig.donate_state` (XLA buffer donation) and
-  `TrainConfig.profile_dir` (a jax.profiler trace).
+- `TrainConfig.donate_state` (XLA buffer donation).
 
-The command line has one flag the JAX one lacks: `--device` (default
-`cuda`), where the entry points run. It is not a field of `Config`: the
-CLIs hand it to `train()`, `evaluate()` and `tiled_forward()`.
+`TrainConfig.profile_dir` traces the first epoch with torch.profiler
+(`utils/profiling.py::trace`, a Chrome trace in `<profile_dir>/trace.json`)
+where the JAX package takes a jax.profiler trace.
+
+The command line has two flags the JAX one lacks: `--device` (default
+`cuda`), where the entry points run, and `--profile_dir`, which sets that
+field (the JAX package's field has no flag). `--device` is not a field of
+`Config`: the CLIs hand it to `train()`, `evaluate()` and
+`tiled_forward()`.
 """
 
 from __future__ import annotations
@@ -126,6 +131,7 @@ class TrainConfig:
     resume: bool = False
     pretrain_weights: str = ""
     grad_clip_norm: float = 0.0  # 0 = off
+    profile_dir: str = ""  # a torch.profiler trace of the first epoch here
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
@@ -212,6 +218,9 @@ def add_cli_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--weights", type=str, default="")
     p.add_argument("--dtype", type=str, default="bfloat16")
     p.add_argument("--seed", type=int, default=1234)
+    p.add_argument("--profile_dir", type=str, default="",
+                   help="write a torch.profiler trace of the first epoch "
+                        "(trace.json) to this directory")
     p.add_argument("--device", type=str, default="cuda",
                    help="where to run: cuda (the default; raises without a "
                         "CUDA device) or cpu")
@@ -263,6 +272,7 @@ def from_cli(args: argparse.Namespace) -> Config:
         mixup=args.mixup,
         pretrain_weights=args.pretrain_weights,
         seed=args.seed,
+        profile_dir=args.profile_dir,
     )
     ev = EvalConfig(weights=args.weights, save_images=args.save_images)
     return Config(model=model, data=data, train=train, eval=ev)

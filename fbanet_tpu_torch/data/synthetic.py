@@ -138,6 +138,59 @@ def synthetic_batch(seed: int, batch: int, *, num_frames: int = 14,
     return {"LR": np.stack(lrs), "HR": np.stack(hrs)}
 
 
+def realistic_bursts(batch: int, frames: int, size: int, seed: int = 0,
+                     hr_scale: int = 0) -> dict[str, np.ndarray]:
+    """Photographic-like bursts (bench.py:make_realistic_bursts, numpy
+    only): {'LR': [B, F, S, S, 3] in [0, 1], 'shifts': [B, F, 2] (dy, dx)}
+    and, with `hr_scale`, 'HR' [B, S*s, S*s, 3]. Each burst is a smooth
+    field of 16 random sinusoids per channel; frame f samples it at
+    (y + dy_f, x + dx_f), subpixel shifts in [-3, 3) with frame 0 unshifted,
+    plus sensor noise (std 0.01). 'HR' is the noise-free frame-0 field on
+    the x`hr_scale` grid (half-pixel convention): the SR target. Aligning
+    frame f to frame 0 is the translation (-dx_f, -dy_f)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(size, dtype=np.float32),
+                         np.arange(size, dtype=np.float32), indexing="ij")
+    k = 16
+    out = np.empty((batch, frames, size, size, 3), np.float32)
+    all_shifts = np.empty((batch, frames, 2), np.float32)
+    fields = []
+    for b in range(batch):
+        freq = rng.uniform(-0.35, 0.35, size=(k, 2)).astype(np.float32)
+        phase = rng.uniform(0, 2 * np.pi, size=(k, 3)).astype(np.float32)
+        amp = (rng.uniform(0.3, 1.0, size=(k,)) * (2.0 / k)).astype(
+            np.float32)
+        shifts = rng.uniform(-3.0, 3.0, size=(frames, 2)).astype(np.float32)
+        shifts[0] = 0.0
+        all_shifts[b] = shifts
+        fields.append((freq, phase, amp))
+        for f in range(frames):
+            arg = (freq[:, 0, None, None] * (yy + shifts[f, 0])[None]
+                   + freq[:, 1, None, None] * (xx + shifts[f, 1])[None])
+            for c in range(3):
+                field = np.einsum(
+                    "k,kij->ij", amp, np.sin(arg + phase[:, c, None, None]))
+                out[b, f, :, :, c] = field
+    norm = max(1.0, np.abs(out).max())
+    out = 0.5 + 0.45 * out / norm
+    out += rng.normal(scale=0.01, size=out.shape).astype(np.float32)
+    res = {"LR": np.clip(out, 0.0, 1.0, dtype=np.float32),
+           "shifts": all_shifts}
+    if not hr_scale:
+        return res
+    # HR pixel centres in LR coordinates (half-pixel convention)
+    g = (np.arange(size * hr_scale, dtype=np.float32) + 0.5) / hr_scale - 0.5
+    hy, hx = np.meshgrid(g, g, indexing="ij")
+    hr = np.empty((batch, size * hr_scale, size * hr_scale, 3), np.float32)
+    for b, (freq, phase, amp) in enumerate(fields):
+        arg = freq[:, 0, None, None] * hy[None] + freq[:, 1, None, None] * hx[None]
+        for c in range(3):
+            hr[b, :, :, c] = np.einsum(
+                "k,kij->ij", amp, np.sin(arg + phase[:, c, None, None]))
+    res["HR"] = np.clip(0.5 + 0.45 * hr / norm, 0.0, 1.0, dtype=np.float32)
+    return res
+
+
 def _save_png(path: Path, img01: np.ndarray, level: int = 6) -> None:
     png.write_png(path, np.clip(img01 * 255.0 + 0.5, 0, 255).astype(np.uint8),
                   level)

@@ -16,6 +16,13 @@ every batch of `EvalConfig.batch_size`, the last batch padded to it (the
 JAX package's sharded eval); the per-image PSNR and SSIM are gathered in
 the single-process order before the averages, and `--save_images` has each
 rank write its own real rows' images, so each image is written once.
+
+`--save_images` writes each prediction as a PNG through `display_uint8`
+(RGB rounded to 8 bits; a RAW packed-Bayer prediction through the
+reference's post-processing, `utils/raw.py`, collapsed to RGB).
+`--lpips_weights FILE.npz` adds the per-image LPIPS of the prediction
+against the target at the same boundary crop (`models/lpips.py`), averaged
+and gathered as PSNR and SSIM are.
 """
 
 from __future__ import annotations
@@ -35,13 +42,7 @@ from fbanet_tpu_torch.models import create_model
 from fbanet_tpu_torch.parallel import mesh
 from fbanet_tpu_torch.train import gather_valid, resolve_device
 from fbanet_tpu_torch.utils.checkpoint import load_params
-
-LPIPS_PENDING = ("LPIPS is not ported yet (models/lpips.py, ROADMAP Queue 1 "
-                 "item 8)")
-RAW_PENDING = ("writing RAW (4-channel) predictions as images needs the RAW "
-               "post-processing, which is not ported yet (utils/raw.py, "
-               "ROADMAP Queue 1 item 8)")
-
+from fbanet_tpu_torch.utils.raw import postprocess_raw, to_uint8
 
 @torch.no_grad()
 def eval_step(model: torch.nn.Module, lr: torch.Tensor, hr: torch.Tensor, *,
@@ -76,27 +77,39 @@ def save_rgb(path: Path, img: np.ndarray) -> None:
     Image.fromarray(img).save(path)
 
 
+def display_uint8(pred: torch.Tensor | np.ndarray) -> np.ndarray:
+    """Predictions `[..., H, W, C]` in [0, 1] -> uint8 display images on
+    the host: RGB as round(x 255); RAW (C = 4, packed Bayer) through the
+    reference's post-processing with the greens averaged to RGB
+    (`postprocess_raw(..., return_rgb=True)`, whose brightness
+    normalisation reads the mean of everything passed in one call)."""
+    pred = torch.as_tensor(pred)
+    if pred.shape[-1] == 4:
+        return to_uint8(postprocess_raw(pred, return_rgb=True))
+    return torch.clamp(pred * 255.0 + 0.5, 0, 255).to(torch.uint8).cpu(
+    ).numpy()
+
+
 def evaluate(cfg: Config, *, save_images: bool = False,
              result_dir: str = "./results", lpips_weights: str | None = None,
              device: torch.device | str = "cuda") -> dict:
     """Evaluate `cfg.eval.weights` (or `cfg.train.pretrain_weights`) on the
     validation split, on `device`, over the ranks of torchrun's environment
     where there is one. Returns {'psnr', 'ssim', 'num_images', 'seconds'
-    (the batches' wall time)}, the same on every rank."""
+    (the batches' wall time)} and, with `lpips_weights`, 'lpips', the same
+    on every rank."""
     device = resolve_device(device, "evaluate")
-    if lpips_weights:
-        raise NotImplementedError(LPIPS_PENDING)
-    if save_images and cfg.data.channels == 4:
-        raise NotImplementedError(RAW_PENDING)
     world, device = mesh.init(device)
     try:
-        return _evaluate(cfg, save_images, result_dir, device, world)
+        return _evaluate(cfg, save_images, result_dir, lpips_weights, device,
+                         world)
     finally:
         world.close()
 
 
 def _evaluate(cfg: Config, save_images: bool, result_dir: str,
-              device: torch.device, world: mesh.World) -> dict:
+              lpips_weights: str | None, device: torch.device,
+              world: mesh.World) -> dict:
     mesh.row_block(cfg.eval.batch_size, world.rank, world.size)
     model = create_model(cfg.model, device=device, seed=0)
     weights = cfg.eval.weights or cfg.train.pretrain_weights
@@ -108,6 +121,11 @@ def _evaluate(cfg: Config, save_images: bool, result_dir: str,
     # the crop must leave pixels (and SSIM's 11 px window) on small images
     if cfg.data.crop_size and cfg.data.crop_size * cfg.data.scale <= 2 * bi + 11:
         bi = 0
+    lpips_model = None
+    if lpips_weights:
+        from fbanet_tpu_torch.models.lpips import load_lpips
+
+        lpips_model = load_lpips(lpips_weights).to(device)
 
     ds = RealBSRDataset(cfg.data.dataroot, split="val", layout=cfg.data.layout,
                         burst_size=cfg.data.burst_size,
@@ -127,33 +145,41 @@ def _evaluate(cfg: Config, save_images: bool, result_dir: str,
     if save_images:
         out_dir.mkdir(parents=True, exist_ok=True)
 
-    psnrs, ssims, valid = [], [], []
+    metrics = {"psnr": [], "ssim": []}
+    if lpips_model is not None:
+        metrics["lpips"] = []
+    valid = []
     t0 = time.perf_counter()
     for batch in loader.epoch(0):
-        pred, p, s, _ = eval_step(model, batch["LR"], batch["HR"],
-                                  online_align=cfg.data.online_align,
-                                  boundary_ignore=bi)
-        if world.size > 1:  # gathered over the ranks at the end
-            psnrs.append(p)
-            ssims.append(s.reshape(-1))
+        pred, p, s, hr = eval_step(model, batch["LR"], batch["HR"],
+                                   online_align=cfg.data.online_align,
+                                   boundary_ignore=bi)
+        per_image = {"psnr": p, "ssim": s.reshape(-1)}
+        if lpips_model is not None:
+            per_image["lpips"] = lpips_model(pred, hr, boundary_ignore=bi)
+        for k, v in per_image.items():
+            if world.size > 1:  # gathered over the ranks at the end
+                metrics[k].append(v)
+            else:
+                metrics[k].extend(v.cpu().tolist())
+        if world.size > 1:
             valid.append(batch["valid"])
-        else:
-            psnrs.extend(p.cpu().tolist())
-            ssims.extend(s.reshape(-1).cpu().tolist())
         if save_images:
-            arr = torch.clamp(pred * 255.0 + 0.5, 0, 255).to(torch.uint8)
-            for img, name in zip(arr.cpu().numpy(), batch["burst_name"]):
+            names = batch["burst_name"]
+            for img, name in zip(display_uint8(pred[:len(names)]), names):
                 save_rgb(out_dir / f"{name}.png", img)
     if world.size > 1 and valid:
-        psnrs = gather_valid(world, torch.stack(psnrs), valid)
-        ssims = gather_valid(world, torch.stack(ssims), valid)
+        metrics = {k: gather_valid(world, torch.stack(v), valid)
+                   for k, v in metrics.items()}
     seconds = time.perf_counter() - t0
 
-    results = {"psnr": finite_average(psnrs), "ssim": finite_average(ssims),
-               "num_images": len(psnrs), "seconds": seconds}
+    results = {k: finite_average(v) for k, v in metrics.items()}
+    results.update(num_images=len(metrics["psnr"]), seconds=seconds)
     if world.is_main:
-        print(f"PSNR: {results['psnr']:.4f}  SSIM: {results['ssim']:.4f}"
-              f"  ({results['num_images']} images)")
+        line = f"PSNR: {results['psnr']:.4f}  SSIM: {results['ssim']:.4f}"
+        if "lpips" in results:
+            line += f"  LPIPS: {results['lpips']:.4f}"
+        print(line + f"  ({results['num_images']} images)")
     return results
 
 
@@ -162,7 +188,8 @@ def main(argv: list[str] | None = None) -> dict:
         description="FBANet evaluation (PyTorch port)"))
     parser.add_argument("--result_dir", type=str, default="./results")
     parser.add_argument("--lpips_weights", type=str, default="",
-                        help="LPIPS weights (.npz); not ported yet: raises")
+                        help="LPIPS weights (.npz, the JAX package's "
+                             "layout): adds per-image LPIPS")
     args = parser.parse_args(argv)
     return evaluate(from_cli(args), save_images=args.save_images,
                     result_dir=args.result_dir,

@@ -426,8 +426,12 @@ class SwinLayer(nn.Module):
         y = window_reverse(y, ws, h, w)
         if s:
             y = torch.roll(y, (s, s), (1, 2))
-        x = x + self.drop_path(y, **kw)
-        z = self.mlp(self.norm2(x).to(dt), dt, **kw)
+        # norm2 reads the residual sum before it is rounded to the stream's
+        # dtype: XLA fuses the add into the LayerNorm and keeps the f32
+        # value (its excess precision), so JAX's bf16 layer does the same
+        y = self.drop_path(y, **kw)
+        z = self.mlp(self.norm2(x.float() + y.float()).to(dt), dt, **kw)
+        x = x + y
         return x + self.drop_path(z, **kw)
 
 

@@ -13,6 +13,10 @@ batch (or batches of `tile_batch`); with psize 80 and overlap 40 a tile is
 JAX's `tiled_forward(..., mesh=...)`) each batch of tiles is padded to a
 multiple of the world size and split into row blocks, the HR tiles are
 gathered, and rank 0 alone merges and writes.
+
+Each burst's result is a PNG (`evaluate.display_uint8`); a RAW tree
+(`--in_channels 4`) also gets the packed-Bayer prediction `[4H, 4W, 4]`
+as `<burst>.npy` beside its display PNG, as the JAX package writes.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch
 
 from fbanet_tpu_torch.config import add_cli_args, from_cli
 from fbanet_tpu_torch.data.realbsr import RealBSRDataset
-from fbanet_tpu_torch.evaluate import RAW_PENDING, save_rgb
+from fbanet_tpu_torch.evaluate import display_uint8, save_rgb
 from fbanet_tpu_torch.metrics import to_unit_f32
 from fbanet_tpu_torch.models import create_model
 from fbanet_tpu_torch.parallel import mesh
@@ -124,8 +128,6 @@ def main(argv: list[str] | None = None) -> list[Path]:
     args = parser.parse_args(argv)
     cfg = from_cli(args)
     device = resolve_device(args.device, "tiled")
-    if cfg.data.channels == 4:
-        raise NotImplementedError(RAW_PENDING)
     world, device = mesh.init(device)
     try:
         return _tile_tree(args, cfg, device, world)
@@ -171,7 +173,9 @@ def _tile_tree(args, cfg, device: torch.device,
                            device=device, world=world)
         if sr is None:  # rank 0 writes
             continue
-        arr = np.clip(sr * 255.0 + 0.5, 0, 255).astype(np.uint8)
+        if sr.shape[-1] == 4:  # RAW: the packed prediction too
+            np.save(out_dir / f"{sample['burst_name']}.npy", sr)
+        arr = display_uint8(sr)
         path = out_dir / f"{sample['burst_name']}.png"
         save_rgb(path, arr)
         written.append(path)

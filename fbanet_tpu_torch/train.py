@@ -28,6 +28,8 @@ evaluation, the epoch loop and the command line.
   mid-epoch (`save_every_steps`, `stop_after_steps`: the same samples and
   the same stochastic depth as the uninterrupted run). Each step draws its
   stochastic depth from a generator seeded by (seed, epoch, step).
+  `--profile_dir` traces the first epoch's steps with torch.profiler
+  (`utils/profiling.py::trace`: `<profile_dir>/trace.json`).
 
 Data parallelism (`parallel/mesh.py`, the JAX package's single-host mesh
 semantics): under torchrun each rank runs this loop on its own card
@@ -74,7 +76,7 @@ from fbanet_tpu_torch.models import create_model
 from fbanet_tpu_torch.parallel import mesh
 from fbanet_tpu_torch.parallel.mesh import World
 from fbanet_tpu_torch.utils.checkpoint import CheckpointTriad, load_checkpoint
-from fbanet_tpu_torch.utils.profiling import StepTimer
+from fbanet_tpu_torch.utils.profiling import StepTimer, trace
 
 
 def lr_for_epoch(epoch: int, cfg: TrainConfig, *, start_epoch: int = 1,
@@ -481,47 +483,56 @@ def _train(cfg: Config, device: torch.device, world: World) -> dict:
         steps = start_step
         timer = StepTimer(skip_first=1 if epoch == start_epoch else 0)
         stopped_early = False
-        # `steps` counts optimizer steps; with grad_accum each takes ga
-        # loader batches, so the loader resumes at the microbatch position
-        batches = iter(train_loader.epoch(epoch, start_step=start_step * ga))
-        # one-step-deep loss pipeline: step N's loss is read after step
-        # N+1 is queued, so the host's wait overlaps the card's work;
-        # epoch_loss is flushed before every checkpoint
-        pending_loss = None
-        while True:
-            with timer.data_wait():
-                if ga == 1:
-                    batch = next(batches, None)
-                else:  # a trailing partial group is dropped
-                    group = list(itertools.islice(batches, ga))
-                    batch = (None if len(group) < ga else
-                             {"LR": tuple(b["LR"] for b in group),
-                              "HR": tuple(b["HR"] for b in group)})
-            if batch is None:
-                break
-            gen = step_generator(tcfg.seed, epoch, steps, device,
-                                 world.rank, world.size)
-            # mixup's draws: the same on every rank
-            mix_gen = (step_generator(tcfg.seed, epoch, steps, device)
-                       if world.size > 1 and tcfg.mixup else None)
-            with timer.step():
-                loss = train_step(batch["LR"], batch["HR"], gen, lr,
-                                  mix_gen)
-                if pending_loss is not None:
+        # the first epoch's steps traced (rank 0's), as the JAX package
+        # traces its first epoch with jax.profiler
+        profile_ctx = (trace(tcfg.profile_dir)
+                       if tcfg.profile_dir and epoch == start_epoch
+                       and world.is_main else contextlib.nullcontext())
+        with profile_ctx:
+            # `steps` counts optimizer steps; with grad_accum each takes ga
+            # loader batches, so the loader resumes at the microbatch
+            # position
+            batches = iter(train_loader.epoch(epoch,
+                                              start_step=start_step * ga))
+            # one-step-deep loss pipeline: step N's loss is read after step
+            # N+1 is queued, so the host's wait overlaps the card's work;
+            # epoch_loss is flushed before every checkpoint
+            pending_loss = None
+            while True:
+                with timer.data_wait():
+                    if ga == 1:
+                        batch = next(batches, None)
+                    else:  # a trailing partial group is dropped
+                        group = list(itertools.islice(batches, ga))
+                        batch = (None if len(group) < ga else
+                                 {"LR": tuple(b["LR"] for b in group),
+                                  "HR": tuple(b["HR"] for b in group)})
+                if batch is None:
+                    break
+                gen = step_generator(tcfg.seed, epoch, steps, device,
+                                     world.rank, world.size)
+                # mixup's draws: the same on every rank
+                mix_gen = (step_generator(tcfg.seed, epoch, steps, device)
+                           if world.size > 1 and tcfg.mixup else None)
+                with timer.step():
+                    loss = train_step(batch["LR"], batch["HR"], gen, lr,
+                                      mix_gen)
+                    if pending_loss is not None:
+                        epoch_loss += float(pending_loss)
+                pending_loss = loss
+                steps += 1
+                if (tcfg.save_every_steps
+                        and steps % tcfg.save_every_steps == 0):
                     epoch_loss += float(pending_loss)
-            pending_loss = loss
-            steps += 1
-            if tcfg.save_every_steps and steps % tcfg.save_every_steps == 0:
-                epoch_loss += float(pending_loss)
-                pending_loss = None
-                triad.on_step(epoch, steps, epoch_loss,
-                              params=model.state_dict(),
-                              opt_state=optimizer.state_dict(),
-                              best_psnr=best_psnr)
-            if tcfg.stop_after_steps and steps >= tcfg.stop_after_steps:
-                batches.close()  # stops the loader's producer thread
-                stopped_early = True
-                break
+                    pending_loss = None
+                    triad.on_step(epoch, steps, epoch_loss,
+                                  params=model.state_dict(),
+                                  opt_state=optimizer.state_dict(),
+                                  best_psnr=best_psnr)
+                if tcfg.stop_after_steps and steps >= tcfg.stop_after_steps:
+                    batches.close()  # stops the loader's producer thread
+                    stopped_early = True
+                    break
         if pending_loss is not None:
             epoch_loss += float(pending_loss)
         timing = {"step_s": timer.times, "data_wait_s": timer.waits}

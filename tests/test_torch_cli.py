@@ -109,7 +109,7 @@ ARGVS = [
 ]
 # fields the port leaves out on purpose (fbanet_tpu_torch/config.py)
 OMITTED = {"model": {"attention_impl", "remat"},
-           "train": {"donate_state", "profile_dir"}, "data": set(),
+           "train": {"donate_state"}, "data": set(),
            "eval": set()}
 
 
@@ -246,12 +246,36 @@ def test_evaluate_matches_jax(tree, jax_ckpt, jax_eval, tmp_path, capsys):
         assert np.abs(a - b).max() <= 1
 
 
-def test_lpips_flag_raises_naming_the_roadmap(tree):
+def test_evaluate_lpips_flag_reports_the_ports_lpips(tree, jax_ckpt,
+                                                     tmp_path, capsys):
+    """`--lpips_weights` (a random `.npz` in the JAX layout) adds `lpips`:
+    the mean of `models/lpips.py`'s LPIPS of the same predictions against
+    their targets at the eval crop (0 here: 64 px images), within 1e-6."""
     from fbanet_tpu_torch import evaluate as PE
+    from fbanet_tpu_torch.data.realbsr import RealBSRDataset
+    from fbanet_tpu_torch.models import create_model, lpips
+    from fbanet_tpu_torch.utils.checkpoint import load_params
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        PE.main(["--dataroot", str(tree), "--lpips_weights", "x.npz",
-                 *COMMON, *CPU])
+    np.savez(tmp_path / "lpips.npz", **lpips.random_lpips_weights(2))
+    got = PE.main(["--dataroot", str(tree), "--weights", str(jax_ckpt[0]),
+                   "--lpips_weights", str(tmp_path / "lpips.npz"), *COMMON,
+                   *CPU])
+    assert "LPIPS:" in capsys.readouterr().out
+    import fbanet_tpu_torch.config as PC
+
+    cfg = _parse(PC, COMMON)
+    model = create_model(cfg.model, device="cpu")
+    model.load_state_dict(load_params(jax_ckpt[0]), strict=True)
+    ds = RealBSRDataset(tree, split="val", burst_size=3, crop_size=16,
+                        augment=False)
+    samples = [ds.load(i) for i in range(len(ds))]
+    pred, _, _, hr = PE.eval_step(
+        model, torch.from_numpy(np.stack([s["LR"] for s in samples])),
+        torch.from_numpy(np.stack([s["HR"] for s in samples])),
+        boundary_ignore=0)
+    want = float(lpips.load_lpips(tmp_path / "lpips.npz")(pred, hr).mean())
+    assert got["num_images"] == 4
+    assert abs(got["lpips"] - want) <= 1e-6, (got, want)
 
 
 def test_tiled_cli(tree, jax_ckpt, tmp_path):

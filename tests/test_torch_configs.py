@@ -24,7 +24,9 @@
   `--token_projection conv` on the composed one, one layer a group: the
   layer tests above hold the shifted layers) and `--win_size 10` at 40 px:
   the f32 forward within 1e-4, and `jax_params_to_state_dict` equal to
-  the JAX package's `flax_to_torch_state_dict`, loading strictly.
+  the JAX package's `flax_to_torch_state_dict`, loading strictly; the
+  composed route (`--att_se --token_projection conv`) and window 10's
+  composed branch also in bf16, within the bf16 limits above.
 - Plans, on the CPU: K1's and K3's plans keep FBANet-32's head sizes (8 and
   32) on the first kernels, R1's plan covers its 32-wide weight gradients,
   and R1's check refuses a 32-wide meta tensor for its device, not for its
@@ -39,9 +41,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import TINY, flax_params_like, max_err, n, normal, rng, t
+from torch_parity import TINY, flax_params_like, max_err, n, normal, t
+from torch_parity import jax_forward as _jax_forward
 
-from fbanet_tpu.models import create_model as jax_create_model
 from fbanet_tpu.models import layers as jlayers
 from fbanet_tpu.utils.torch_io import flax_to_torch_state_dict
 from fbanet_tpu_torch.models import create_model, layers
@@ -175,30 +177,6 @@ def test_swin_layer_option_matches(name):
         assert max_err(got[k], g) <= 1e-4 * scale, k
 
 
-def _jax_forward(cfg, dtypes=("float32",)):
-    """(torch model, flax params, burst, {dtype: (JAX output, JAX HG2
-    features)}): both models hold the same random parameters, one JAX
-    compile per compute dtype."""
-    tmodel = create_model(cfg, device="cpu", seed=3)
-    sd = random_state_dict(tmodel, seed=11)
-    tmodel.load_state_dict(sd, strict=True)
-    size = cfg.img_size
-    burst = rng(5).uniform(0, 1, (1, cfg.num_frames, size, size, 3)
-                           ).astype(np.float32)
-    params = flax_params_like(jax_create_model(cfg), jnp.asarray(burst),
-                              state_dict=sd)
-    outs = {}
-    for dtype in dtypes:
-        jmodel = jax_create_model(cfg.replace(dtype=dtype))
-        out, state = jax.jit(lambda p, x, m=jmodel: m.apply(
-            {"params": p}, x, deterministic=True,
-            capture_intermediates=lambda mod, _: mod.name == "output_proj_2",
-            mutable=["intermediates"]))(params, jnp.asarray(burst))
-        outs[dtype] = (np.asarray(out), np.asarray(
-            state["intermediates"]["output_proj_2"]["__call__"][0]))
-    return tmodel, params, burst, outs
-
-
 @pytest.fixture(scope="module")
 def embed32():
     return _jax_forward(EMBED32, ("float32", "bfloat16"))
@@ -223,15 +201,15 @@ def test_embed32_forward_matches_jax(embed32):
     assert max_err(out, out_j) <= 1e-4
 
 
-def test_embed32_bf16_forward_matches_jax(embed32):
-    """The bf16 forward at embed 32 within test_bf16_forward_matches_jax's
-    limits: the port's bf16 features no farther from its f32 features than
-    JAX's bf16 features are, in max and mean; the two bf16 forwards at most
-    4 ulps of the largest feature apart and 2 ulps of the mean feature on
-    average; the outputs within one ulp of the largest output value."""
-    m32, _, burst, outs = embed32
-    out_j, feats_j = outs["bfloat16"]
-    tmodel = create_model(EMBED32.replace(dtype="bfloat16"), device="cpu")
+def _assert_bf16_within_ulps(m32, cfg, burst, out_j, feats_j):
+    """The port's bf16 forward of `m32`'s parameters against JAX's bf16
+    output `out_j` and HG2 features `feats_j`, in bf16 ulps (the limits of
+    test_bf16_forward_matches_jax): the port's bf16 features no farther
+    from its f32 features than JAX's bf16 features are, in max and mean;
+    the two bf16 forwards at most 4 ulps of the largest feature apart and
+    2 ulps of the mean feature on average; the outputs within one ulp of
+    the largest output value. Returns the bf16 model."""
+    tmodel = create_model(cfg.replace(dtype="bfloat16"), device="cpu")
     tmodel.load_state_dict(m32.state_dict(), strict=True)
     with torch.no_grad():
         out, feats = tmodel.forward_with_features(t(burst))
@@ -245,6 +223,14 @@ def test_embed32_bf16_forward_matches_jax(embed32):
     assert gap.max() <= 4 * ulp * np.abs(fj).max()
     assert gap.mean() <= 2 * ulp * np.abs(fj).mean()
     assert max_err(out, out_j) <= ulp * np.abs(out_j).max()
+    return tmodel
+
+
+def test_embed32_bf16_forward_matches_jax(embed32):
+    """The bf16 forward at embed 32 within test_bf16_forward_matches_jax's
+    limits (`_assert_bf16_within_ulps`)."""
+    m32, _, burst, outs = embed32
+    _assert_bf16_within_ulps(m32, EMBED32, burst, *outs["bfloat16"])
 
 
 # the tiny model under the flags, with their routes
@@ -258,15 +244,32 @@ FLAGS = {
 }
 
 
-@pytest.mark.parametrize("flag", list(FLAGS))
-def test_flag_model_matches_jax(flag):
+# the composed route in bf16: the composed modules and the fused entries'
+# composed branch (window 10), one JAX compile each (bf16 only)
+FLAG_CASES = [(f, "float32") for f in FLAGS] + [("att_se-conv", "bfloat16"),
+                                                 ("window10", "bfloat16")]
+
+
+@pytest.mark.parametrize(
+    "flag,dtype", FLAG_CASES,
+    ids=[*FLAGS, "att_se-conv-bf16", "window10-bf16"])
+def test_flag_model_matches_jax(flag, dtype):
+    """f32: the forward within 1e-4 of JAX's, and the parameter names and
+    layouts as the JAX package exports them. bf16: the forward of the same
+    parameters within `_assert_bf16_within_ulps`'s limits of JAX's bf16
+    forward."""
     kw, route, size = FLAGS[flag]
     cfg = TINY.replace(img_size=size, **kw)
-    tmodel, params, burst, outs = _jax_forward(cfg)
+    tmodel, params, burst, outs = _jax_forward(cfg, (dtype,))
     assert {m.route for m in tmodel.modules()
             if isinstance(m, layers.SwinLayer)} == {route}
     composed = attention.fused_window_attention_2d.composed
     before = composed.launches
+    if dtype == "bfloat16":
+        _assert_bf16_within_ulps(tmodel, cfg, burst, *outs[dtype])
+        # the bf16 and the f32 forward: 20 composed attentions each
+        assert composed.launches - before == (40 if flag == "window10" else 0)
+        return
     with torch.no_grad():
         out = tmodel(t(burst))
     # window 10: each of the 20 layers' attention takes the composed branch

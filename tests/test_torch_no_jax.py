@@ -13,7 +13,9 @@
    variant tool's K7 and K8 plain versions and the MFU fields, and the
    entry points that read a dataset: the synthetic tree writer,
    `train.main` for one epoch and `evaluate.main` on its checkpoint, with
-   `--device cpu`.
+   `--device cpu`; then the RAW post-processing, LPIPS, the MAT-file
+   writer, the single-image dataset, the bake-off's registrations and the
+   legacy-checkpoint importer and measurement tools (imported).
 """
 
 import ast
@@ -48,8 +50,14 @@ def test_port_sources_import_no_jax():
     assert {"measure_swin_rates.py", "measure_bwd.py",
             "measure_swin_variants.py", "profile_components.py",
             "flops_accounting.py", "convergence_proof.py"} <= tools, tools
+    assert {"import_torch_checkpoint.py", "align_parity_table.py",
+            "measure_ecc_eps.py", "measure_align_overlap.py",
+            "measure_downsample_b16.py"} <= tools, tools
     parallel = {f.name for f in files if f.parent.name == "parallel"}
     assert {"mesh.py", "dryrun.py"} <= parallel, parallel
+    names = {str(f.relative_to(ROOT / "fbanet_tpu_torch")) for f in files}
+    assert {"utils/raw.py", "models/lpips.py", "utils/mat5.py",
+            "data/single_image.py", "bakeoff.py"} <= names, names
     bad = [f"{f.relative_to(ROOT)}: {m}" for f in files + [ROOT / "chip_smoke.py"]
            for m in _imports(f) if _forbidden(m)]
     assert not bad, bad
@@ -140,6 +148,26 @@ with tempfile.TemporaryDirectory() as tmp:
     ckpt = Path(res["model_dir"], "model_best")
     ev = E.main([*common, "--weights", str(ckpt)])
     assert abs(ev["psnr"] - res["best_psnr"]) < 1e-4, (ev, res["best_psnr"])
+import numpy as np
+from fbanet_tpu_torch.bakeoff import compare_registrations, synthetic_scene
+from fbanet_tpu_torch.data import single_image
+from fbanet_tpu_torch.models.lpips import random_initialized_lpips
+from fbanet_tpu_torch.tools import (align_parity_table,
+                                    import_torch_checkpoint,
+                                    measure_align_overlap,
+                                    measure_downsample_b16, measure_ecc_eps)
+from fbanet_tpu_torch.utils import mat5
+from fbanet_tpu_torch.utils.raw import postprocess_raw, to_uint8
+assert to_uint8(postprocess_raw(torch.rand(1, 4, 4, 4), return_rgb=True)
+                ).shape == (1, 4, 4, 3)
+assert random_initialized_lpips(0)(torch.rand(1, 40, 40, 3),
+                                   torch.rand(1, 40, 40, 3)).shape == (1,)
+with tempfile.TemporaryDirectory() as tmp:
+    mat5.savemat(Path(tmp, "x.mat"), dict(a=np.arange(6.0)))
+    assert mat5.loadmat(Path(tmp, "x.mat"))["a"].shape == (1, 6)
+frames = synthetic_scene("translation", size=32, num_frames=2)
+assert set(compare_registrations(*frames, methods=("translation",),
+                                 device="cpu")) == set(("unaligned", "translation"))
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED
                 or m.startswith("fbanet_tpu."))
 print("LOADED", loaded)

@@ -66,3 +66,32 @@ def flax_params_like(module, *init_args, state_dict) -> dict:
 
 def max_err(a, b) -> float:
     return float(np.max(np.abs(n(a) - n(b))))
+
+
+def jax_forward(cfg, dtypes=("float32",)):
+    """(torch model, flax params, burst, {dtype: (JAX output, JAX HG2
+    features)}) for the JAX `ModelConfig` `cfg`: both models hold the same
+    random parameters, the burst [1, F, S, S, cfg.in_channels] is uniform
+    from a seed, one JAX compile per compute dtype."""
+    from fbanet_tpu.models import create_model as jax_create_model
+    from fbanet_tpu_torch.models import create_model
+    from fbanet_tpu_torch.utils.weights import random_state_dict
+
+    tmodel = create_model(cfg, device="cpu", seed=3)
+    sd = random_state_dict(tmodel, seed=11)
+    tmodel.load_state_dict(sd, strict=True)
+    size = cfg.img_size
+    burst = rng(5).uniform(0, 1, (1, cfg.num_frames, size, size,
+                                  cfg.in_channels)).astype(np.float32)
+    params = flax_params_like(jax_create_model(cfg), jnp.asarray(burst),
+                              state_dict=sd)
+    outs = {}
+    for dtype in dtypes:
+        jmodel = jax_create_model(cfg.replace(dtype=dtype))
+        out, state = jax.jit(lambda p, x, m=jmodel: m.apply(
+            {"params": p}, x, deterministic=True,
+            capture_intermediates=lambda mod, _: mod.name == "output_proj_2",
+            mutable=["intermediates"]))(params, jnp.asarray(burst))
+        outs[dtype] = (np.asarray(out), np.asarray(
+            state["intermediates"]["output_proj_2"]["__call__"][0]))
+    return tmodel, params, burst, outs
