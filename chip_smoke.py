@@ -146,19 +146,24 @@ non-zero:
    then mfu_forward / mfu_train (`flops_accounting.mfu_fields`) from the
    slice's forward and the train phase's step times.
 13. configs (in a process of its own): every configuration the JAX model
-   builds. FBANet-32 (embed
-   32, the configuration's default): K1, K1b and K3 on their first kernels
-   at its five group shapes (head size 32 at enc0 / enc1, 8 at the
-   others) against their plain versions, B=2, f32 and bf16, masked and
-   not, each bitwise on a repeat; K1-K4 and K1b per group at B=8 (ms,
-   device ms, bound) and R1 / R2 at every shape of its B=8 step (R1's
-   32-wide outputs among them, beside torch.mm); then 3 batches of 4
-   served through `eval_step` against the plain path and 5 AdamW steps at
-   B=8 (20 launches of each of K1-K4 a step, K1 and K3 on their first
-   kernels), one profiled, and an f32 B=2 step's gradients against the
-   plain versions. FBANet-64 at window 10, B=8: 20 composed attentions
-   (JAX's shape rule) and 20 K2 a forward against the plain path, the
-   forward timed, 3 steps. Two B=2 steps of FBANet-64 under each of
+   builds. FBANet-32 (embed 32, the configuration's default; head size 32
+   at enc0 / enc1, 8 at the others): its plans must send K1 and K3 to
+   their wgmma forms at enc1 to dec1 in bf16 and to their first kernels at
+   enc0 (C = 32) and in f32; K1 and K3 against their plain versions under
+   those plans, f32 at B=2, bf16 at B=2 and B=8, masked and not, each
+   bitwise on a repeat (K3: dx and every parameter gradient, its sums
+   included), the first kernels also through `_K1_BASE_PLAN` /
+   `_K3_BASE_PLAN` in bf16, K1b and K3's windowed entry in bf16 at B=2;
+   the layout models against the kernels' sizes at head sizes 8 and 32;
+   K1-K4 and K1b per group at B=8 (ms, device ms, bound) and R1 / R2 at
+   every shape of its B=8 step (R1's 32-wide outputs among them, beside
+   torch.mm); then 3 batches of 4 served through `eval_step` against the
+   plain path and 5 AdamW steps at B=8 (20 launches of each of K1-K4 a
+   step, K1 and K3 16 on their wgmma forms and 4 on their first kernels),
+   one profiled, and an f32 B=2 step's gradients against the plain
+   versions. FBANet-64 at window 10, B=8: 20 composed attentions (JAX's
+   shape rule) and 20 K2 a forward against the plain path, the forward
+   timed, 3 steps. Two B=2 steps of FBANet-64 under each of
    use_qkv_bias=False, token_mlp="ffn" and conv + SE + qk_scale +
    dropout, with the launches their routes give.
 14. raw (in a process of its own): FBANet-64 on RealBSR-RAW (4-channel
@@ -187,7 +192,9 @@ each serving, step and entry point of the raw phase, and read just
 after. The line before the last is a JSON object
 {"kernels": [...]} (launches on those runs; error, times and bound from
 phases 3-6, 9 and 10, errors also from 13; K7 and K9-K11 also per variant; K1, K2, K3, K7, K8,
-K9, K10 and K11 with their first kernels as entries of their own), preceded
+K9, K10 and K11 with their first kernels as entries of their own, K1
+and K3 also with their wgmma forms at head sizes 8 and 32, whose line
+numbers come from 13), preceded
 by the nvidia-smi name/power-limit line; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1872,9 +1879,11 @@ def _counters():
     )
 
     return {"K1": attention.fused_window_attention_2d.wgmma,
+            "K1-narrow": attention.fused_window_attention_2d.narrow,
             "K1-base": attention.fused_window_attention_2d.base,
             "K2": leff._leff_launch.wgmma, "K2-base": leff._leff_launch.base,
             "K3": attention._attention_bwd_launch.wgmma,
+            "K3-narrow": attention._attention_bwd_launch.narrow,
             "K3-base": attention._attention_bwd_launch.base,
             "K4": leff.leff_bwd, "R1": reduce.token_matmul,
             "R2": reduce.column_sum,
@@ -2573,22 +2582,29 @@ def phase_ranks(card: str, work: Path) -> None:
 
 
 # the configs phase: every configuration the JAX model builds. FBANet-32
-# (embed 32, the configuration's default) has head size 8 at the
-# bottleneck, dec0 and dec1 and 32 at enc0 and enc1, which K1's and K3's
-# first kernels take, and weight gradients 32 wide, which R1 takes as half
-# a 64-wide tile; window 10 (N = 100) and the options of JAX's composed
+# (embed 32, the configuration's default) has head size 32 at enc0 and
+# enc1 and 8 at the bottleneck, dec0 and dec1: K1's and K3's wgmma forms
+# take enc1 to dec1 in bf16 (`.narrow` counts), their first kernels enc0
+# (C = 32) and f32; weight gradients 32 wide, which R1 takes as half a
+# 64-wide tile; window 10 (N = 100) and the options of JAX's composed
 # SwinLayer run composed PyTorch ops.
 CONFIG_SHAPES = [(160, 32, 1), (80, 64, 2), (40, 128, 16), (80, 128, 16),
                  (160, 64, 8)]
 
 
 def configs_kernels() -> dict:
-    """K1, K1b and K3 (first kernels) at FBANet-32's five group shapes
-    against their plain versions (B=2, f32 and bf16, masked and not, each
-    with a bitwise repeat; K1b and K3's windowed entry in bf16, masked),
-    then K1-K4 per group at B=8 under their plans and R1 / R2 at every
-    shape of FBANet-32's B=8 train step (tools/measure_*.py with
-    `groups(32)`). Returns {kernel: {max_abs_err, b8 / shapes}}."""
+    """K1, K1b and K3 at FBANet-32's five group shapes against their plain
+    versions, each with a bitwise repeat: under their plans (the wgmma
+    forms at enc1 to dec1 in bf16, the first kernels at enc0 and in f32)
+    at B=2 in f32 and at B=2 and B=8 in bf16, masked and not, K3's dx and
+    every parameter gradient with its sums; in bf16 the first kernels too
+    through `_K1_BASE_PLAN` / `_K3_BASE_PLAN`; K1b and K3's windowed entry
+    in bf16 at B=2, masked and not; the layout models against the kernels'
+    own sizes at head sizes 8 and 32. Then K1-K4 per group at B=8 under
+    their plans and R1 / R2 at every shape of FBANet-32's B=8 train step
+    (tools/measure_*.py with `groups(32)`). Returns {kernel: {max_abs_err,
+    b8 / shapes}}, with ms, plain ms and bound at B=2 (bf16, masked,
+    residual, summed over enc1 to dec1) for the wgmma forms' entries."""
     import torch
 
     from fbanet_tpu_torch.ops import attention
@@ -2601,6 +2617,10 @@ def configs_kernels() -> dict:
     )
 
     res = {k: dict(max_abs_err=0.0) for k in ("K1-base", "K1b", "K3-base")}
+    for k in ("K1-narrow", "K3-narrow"):
+        res[k] = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                      library_ms=None)
+    bounds = {k: Bound() for k in ("K1-narrow", "K3-narrow")}
     failures = []
 
     def record(name, line, errs, abs_err, same, finite, dname, tol):
@@ -2611,109 +2631,191 @@ def configs_kernels() -> dict:
         if not (max(errs) <= tol[dname]) or not same or not finite:
             failures.append(line)
 
+    def record_bwd(name, line, got, again, ref, dname):
+        record(name, line, _grad_errors(got, ref),
+               max(float((u.float() - v.float()).abs().max())
+                   for u, v in zip(got, ref)),
+               all(torch.equal(u, v) for u, v in zip(got, again)),
+               all(bool(torch.isfinite(u).all()) for u in got), dname,
+               BWD_TOL)
+
+    # the layout models the CPU tests plan with, against the kernels' own
+    # sizes, at the head sizes the wgmma forms take for embed 32
+    for c in (64, 128, 256):
+        for heads in (c // 8, c // 32):
+            for nwg in (2, 4):
+                pairs = [(f"K3 warpgroups {nwg}",
+                          attention._attention_bwd_smem(WS * WS, c, heads,
+                                                        nwg),
+                          attention._kernel_bwd_smem(WS * WS, c, heads,
+                                                     nwg))]
+                pairs += [(f"K1 warpgroups {nwg} staged {staged}",
+                           attention._attention_smem(WS * WS, c, heads, nwg,
+                                                     staged),
+                           attention._kernel_attention_smem(
+                               WS * WS, c, heads, nwg, staged))
+                          for staged in (0, 1)]
+                for what, ours, theirs in pairs:
+                    if ours != theirs:
+                        failures.append(f"{what} shared memory C={c} heads="
+                                        f"{heads}: kernel {theirs}, plan "
+                                        f"{ours}")
     for i, (h, c, heads) in enumerate(CONFIG_SHAPES):
         for dname in ("float32", "bfloat16"):
             dtype = getattr(torch, dname)
             bf16 = dname == "bfloat16"
-            for masked in (False, True):
-                x, a = attention_case(h, c, heads, dtype, masked, 900 + i)
-                plan = attention._attention_plan(
-                    2, h, h, c, heads, WS, bf16,
-                    smem=attention._kernel_attention_smem)
-                bplan = attention._attention_bwd_plan(
-                    2, h, h, c, heads, WS, bf16,
-                    smem=attention._kernel_bwd_smem)
-                if plan != attention._K1_BASE_PLAN or \
-                        bplan != attention._K3_BASE_PLAN:
-                    failures.append(f"H={h} C={c} heads={heads}: plans "
-                                    f"{plan} {bplan}, not the first kernels")
+            for batch in ((2, 8) if bf16 else (2,)):
+                for masked in (False, True):
+                    x, a = attention_case(h, c, heads, dtype, masked,
+                                          900 + i + 20 * (batch == 8), batch)
+                    plan = attention._attention_plan(
+                        batch, h, h, c, heads, WS, bf16,
+                        smem=attention._kernel_attention_smem)
+                    bplan = attention._attention_bwd_plan(
+                        batch, h, h, c, heads, WS, bf16,
+                        smem=attention._kernel_bwd_smem)
+                    wgmma = bf16 and c > 32  # enc1 to dec1 in bf16
+                    if (plan[0] > 0) != wgmma or (bplan[0] > 0) != wgmma:
+                        failures.append(
+                            f"B={batch} H={h} C={c} heads={heads} {dname}: "
+                            f"plans {plan} {bplan}, not the "
+                            f"{'wgmma forms' if wgmma else 'first kernels'}")
+                    k1_name = "K1-narrow" if plan[0] else "K1-base"
+                    k3_name = "K3-narrow" if bplan[0] else "K3-base"
 
-                def k1(plain=False, x=x, a=a, heads=heads):
-                    return attention.fused_window_attention_2d(
-                        x, **a, heads=heads, window_size=WS, residual=True,
-                        plain=plain)
+                    def k1(plain=False, x=x, a=a, heads=heads):
+                        return attention.fused_window_attention_2d(
+                            x, **a, heads=heads, window_size=WS,
+                            residual=True, plain=plain)
 
-                got, again, ref = k1(), k1(), k1(plain=True)
-                torch.cuda.synchronize()
-                err, rel = rel_err(got, ref)
-                record("K1-base", f"configs K1 B=2 H={h} C={c} heads={heads} "
-                       f"{dname} masked={masked} plan {plan}", [rel], err,
-                       torch.equal(got, again),
-                       bool(torch.isfinite(got).all()), dname, TOL)
-                g = _normal_fn(950 + i)((2, h, h, c), 1.0).to(dtype)
-                p = {k: v for k, v in a.items() if k != "bproj"}
+                    got, again, ref = k1(), k1(), k1(plain=True)
+                    torch.cuda.synchronize()
+                    err, rel = rel_err(got, ref)
+                    record(k1_name, f"configs K1 B={batch} H={h} C={c} "
+                           f"heads={heads} {dname} masked={masked} plan "
+                           f"{plan}", [rel], err, torch.equal(got, again),
+                           bool(torch.isfinite(got).all()), dname, TOL)
+                    timed = wgmma and masked and batch == 2
+                    if timed:
+                        res[k1_name]["ms"] += time_ms(k1)
+                        res[k1_name]["plain_ms"] += time_ms(
+                            lambda: k1(plain=True))
+                        bounds[k1_name].add(*attention_work(
+                            h, c, heads, masked, backward=False))
+                    if wgmma:
+                        # the first kernel, which still serves f32 and enc0
+                        def k1_base(x=x, a=a, heads=heads):
+                            return attention._attention_launch(
+                                x, *a.values(), heads, WS, True,
+                                attention._K1_BASE_PLAN)
 
-                def k3(x=x, g=g, p=p, heads=heads):
-                    return attention.window_attention_bwd(
-                        x, g, **p, heads=heads, window_size=WS,
-                        residual=True)
+                        got, again = k1_base(), k1_base()
+                        torch.cuda.synchronize()
+                        err, rel = rel_err(got, ref)
+                        record("K1-base", f"configs K1 B={batch} H={h} "
+                               f"C={c} heads={heads} {dname} masked="
+                               f"{masked} plan {attention._K1_BASE_PLAN} "
+                               f"(first kernel)", [rel], err,
+                               torch.equal(got, again),
+                               bool(torch.isfinite(got).all()), dname, TOL)
+                    g = _normal_fn(950 + i + 20 * (batch == 8))(
+                        (batch, h, h, c), 1.0).to(dtype)
+                    p = {k: v for k, v in a.items() if k != "bproj"}
 
-                got, again = k3(), k3()
-                ref = attention._plain_bwd_2d(x, g, *p.values(), heads, WS,
-                                              True)
-                torch.cuda.synchronize()
-                record("K3-base", f"configs K3 B=2 H={h} C={c} heads={heads} "
-                       f"{dname} masked={masked} plan {bplan}",
-                       _grad_errors(got, ref),
-                       max(float((u.float() - v.float()).abs().max())
-                           for u, v in zip(got, ref)),
-                       all(torch.equal(u, v) for u, v in zip(got, again)),
-                       all(bool(torch.isfinite(u).all()) for u in got),
-                       dname, BWD_TOL)
-                if not (bf16 and masked):
-                    continue
-                # K1b and K3's windowed entry: the same windows, partitioned
-                xw = attention.window_partition(x, WS).contiguous()
-                gw = attention.window_partition(g, WS).contiguous()
-                nw = (h // WS) ** 2
-                pw = {k: v for k, v in a.items()}
+                    def k3(x=x, g=g, p=p, heads=heads):
+                        return attention.window_attention_bwd(
+                            x, g, **p, heads=heads, window_size=WS,
+                            residual=True)
 
-                def k1b(plain=False, xw=xw, pw=pw, heads=heads, nw=nw):
-                    return attention.fused_window_attention(
-                        xw, **pw, heads=heads, windows_per_image=nw,
-                        plain=plain)
+                    def k3_plain(x=x, g=g, p=p, heads=heads):
+                        return attention._plain_bwd_2d(
+                            x, g, *p.values(), heads, WS, True)
 
-                got, again, ref = k1b(), k1b(), k1b(plain=True)
-                torch.cuda.synchronize()
-                err, rel = rel_err(got, ref)
-                record("K1b", f"configs K1b G={xw.shape[0]} C={c} heads="
-                       f"{heads} {dname} masked", [rel], err,
-                       torch.equal(got, again),
-                       bool(torch.isfinite(got).all()), dname, TOL)
+                    got, again, ref = k3(), k3(), k3_plain()
+                    torch.cuda.synchronize()
+                    record_bwd(k3_name, f"configs K3 B={batch} H={h} C={c} "
+                               f"heads={heads} {dname} masked={masked} plan "
+                               f"{bplan}", got, again, ref, dname)
+                    if timed:
+                        res[k3_name]["ms"] += time_ms(k3)
+                        res[k3_name]["plain_ms"] += time_ms(k3_plain)
+                        bounds[k3_name].add(*attention_work(
+                            h, c, heads, masked, backward=True))
+                    if wgmma:
+                        def k3_base(x=x, g=g, p=p, heads=heads):
+                            return attention._attention_bwd_launch(
+                                x, g, *p.values(), heads, WS, True,
+                                attention._K3_BASE_PLAN)
 
-                def k3w(xw=xw, gw=gw, p=p, heads=heads, nw=nw):
-                    return attention.window_attention_bwd_windows(
-                        xw, gw, **p, heads=heads, windows_per_image=nw)
+                        got, again = k3_base(), k3_base()
+                        torch.cuda.synchronize()
+                        record_bwd("K3-base", f"configs K3 B={batch} H={h} "
+                                   f"C={c} heads={heads} {dname} masked="
+                                   f"{masked} plan {attention._K3_BASE_PLAN} "
+                                   f"(first kernel)", got, again, ref,
+                                   dname)
+                    if not (bf16 and batch == 2):
+                        continue
+                    # K1b and K3's windowed entry: the same windows,
+                    # partitioned, under their plans
+                    xw = attention.window_partition(x, WS).contiguous()
+                    gw = attention.window_partition(g, WS).contiguous()
+                    nw = (h // WS) ** 2
 
-                got, again = k3w(), k3w()
-                ref = attention.window_attention_bwd_reference(
-                    xw, gw, *p.values(), heads=heads)
-                torch.cuda.synchronize()
-                record("K3-base", f"configs K3 windows G={xw.shape[0]} C={c} "
-                       f"heads={heads} {dname} masked",
-                       _grad_errors(got, ref),
-                       max(float((u.float() - v.float()).abs().max())
-                           for u, v in zip(got, ref)),
-                       all(torch.equal(u, v) for u, v in zip(got, again)),
-                       all(bool(torch.isfinite(u).all()) for u in got),
-                       dname, BWD_TOL)
+                    def k1b(plain=False, xw=xw, a=a, heads=heads, nw=nw):
+                        return attention.fused_window_attention(
+                            xw, **a, heads=heads, windows_per_image=nw,
+                            plain=plain)
+
+                    got, again, ref = k1b(), k1b(), k1b(plain=True)
+                    torch.cuda.synchronize()
+                    err, rel = rel_err(got, ref)
+                    record("K1b", f"configs K1b G={xw.shape[0]} C={c} heads="
+                           f"{heads} {dname} masked={masked}", [rel], err,
+                           torch.equal(got, again),
+                           bool(torch.isfinite(got).all()), dname, TOL)
+
+                    def k3w(xw=xw, gw=gw, p=p, heads=heads, nw=nw):
+                        return attention.window_attention_bwd_windows(
+                            xw, gw, **p, heads=heads, windows_per_image=nw)
+
+                    got, again = k3w(), k3w()
+                    ref = attention.window_attention_bwd_reference(
+                        xw, gw, *p.values(), heads=heads)
+                    torch.cuda.synchronize()
+                    record_bwd(k3_name, f"configs K3 windows G={xw.shape[0]}"
+                               f" C={c} heads={heads} {dname} masked="
+                               f"{masked}", got, again, ref, dname)
+                    del xw, gw
+                del x, a
+    for k, bound in bounds.items():
+        res[k].update(bound.fields())
+        log(f"configs {k} B=2 over enc1-dec1 (bf16, masked, residual): "
+            f"{res[k]}")
     if failures:
         raise AssertionError("configs: kernel disagrees with its plain "
                              "version or does not repeat:\n"
                              + "\n".join(failures))
-    # every kernel of FBANet-32's step at B=8 per group, under its plan
+    # every kernel of FBANet-32's step at B=8 per group, under its plan:
+    # K1's and K3's groups on the wgmma form under "-narrow", enc0 under
+    # "-base"
     groups32 = measure_reduce.groups(32)
-    for name, tool in (("K1-base", measure_attention),
-                       ("K2", measure_leff),
-                       ("K3-base", measure_attention_bwd),
-                       ("K4", measure_leff_bwd)):
+    for (wgmma, base), tool in ((("K1-narrow", "K1-base"), measure_attention),
+                                (("K2", "K2"), measure_leff),
+                                (("K3-narrow", "K3-base"),
+                                 measure_attention_bwd),
+                                (("K4", "K4"), measure_leff_bwd)):
         b8 = tool.shapes(batch=8, groups=groups32)
-        res.setdefault(name, {})["b8"] = {r["group"]: {k: r[k] for k in (
-            "plan", "ms", "device_ms", "bound_ms", "share_of_bound",
-            "max_rel_err")} for r in b8["rows"]}
-        res[name]["b8_sums"] = b8["sums"]
-    # K1b (the windowed entry, first kernel) per group at B=8: the same
-    # windows as K1's map, partitioned
+        for name in dict.fromkeys((wgmma, base)):
+            rows = [r for r in b8["rows"]
+                    if (wgmma if r["plan"][0] else base) == name]
+            res.setdefault(name, {})["b8"] = {r["group"]: {k: r[k] for k in (
+                "plan", "ms", "device_ms", "bound_ms", "share_of_bound",
+                "max_rel_err")} for r in rows}
+            res[name]["b8_sums"] = measure_reduce.shape_sums(name, rows, 8)
+    # K1b (the windowed entry: the wgmma form at enc1 to dec1, the first
+    # kernel at enc0) per group at B=8: the same windows as K1's map,
+    # partitioned
     rows = {}
     for i, (name, h, c, heads) in enumerate(groups32):
         x, a = attention_case(h, c, heads, torch.bfloat16, True, 980 + i,
@@ -2748,8 +2850,9 @@ def _config_counters() -> dict:
     from fbanet_tpu_torch.ops import attention, leff
 
     kernels = _counters()
-    return {**{k: kernels[k] for k in ("K1", "K1-base", "K2", "K2-base",
-                                       "K3", "K3-base", "K4", "R1", "R2")},
+    return {**{k: kernels[k] for k in ("K1", "K1-narrow", "K1-base", "K2",
+                                       "K2-base", "K3", "K3-narrow",
+                                       "K3-base", "K4", "R1", "R2")},
             "K2-all": leff.fused_leff,
             "composed": attention.fused_window_attention_2d.composed}
 
@@ -2811,10 +2914,12 @@ def configs_fbanet32(card: str) -> tuple[dict, dict]:
     heads), 14 frames, 160 px, bf16: 3 batches of 4 served through
     `eval_step` (ECC, forward, clamp, PSNR/SSIM) against the plain path,
     then 5 AdamW steps at B=8 with drop_path 0.1; 20 launches a forward of
-    K1's first kernel and of K2, 20 a step of each of K1-K4 (K1 and K3 on
-    their first kernels, head sizes 8 and 32), none of the wgmma forms of
-    K1 / K3 and no composed branch; one f32 B=2 step's gradients against
-    the plain versions. Returns (launches on these runs, times)."""
+    K1 and of K2, 20 a step of each of K1-K4: K1 and K3 16 on their wgmma
+    forms at head sizes 8 and 32 (enc1 to dec1, `-narrow`) and 4 on their
+    first kernels (enc0, C = 32), none at head sizes 16 and 64 and no
+    composed branch; one f32 B=2 step's gradients against the plain
+    versions (K1 and K3 20 on their first kernels). Returns (launches on
+    these runs, times)."""
     import torch
 
     from fbanet_tpu_torch.evaluate import eval_step
@@ -2826,6 +2931,7 @@ def configs_fbanet32(card: str) -> tuple[dict, dict]:
     cfg = ModelConfig(num_frames=14, img_size=160, embed_dim=32,
                       window_size=8, dtype="bfloat16", drop_path_rate=0.1)
     model, layers = _config_model(cfg, seed=41)
+    first = cfg.depths[0] * 2  # enc0's layers in the two hourglasses
     counters = _config_counters()
     requests = [tuple(torch.from_numpy(a).cuda() for a in
                       make_realistic_bursts(4, 14, 160, seed=50 + i,
@@ -2839,7 +2945,8 @@ def configs_fbanet32(card: str) -> tuple[dict, dict]:
     log(f"configs FBANet-32: served 3 batches of 4, launches {launches}")
     n = layers * len(served)
     _expect("FBANet-32 serving", launches, {
-        "K1": 0, "K1-base": n, "K2-all": n, "composed": 0})
+        "K1": 0, "K1-narrow": n - first * len(served),
+        "K1-base": first * len(served), "K2-all": n, "composed": 0})
     for pred, *_ in served:
         if tuple(pred.shape) != (4, 640, 640, 3) or \
                 not torch.isfinite(pred).all():
@@ -2874,8 +2981,9 @@ def configs_fbanet32(card: str) -> tuple[dict, dict]:
     losses, times, per_step = _config_steps(model, lr8, hr8, 5)
     for i, got in enumerate(per_step):
         _expect(f"FBANet-32 train step {i}", got, {
-            "K1": 0, "K1-base": layers, "K2-all": layers, "K3": 0,
-            "K3-base": layers, "K4": layers, "composed": 0})
+            "K1": 0, "K1-narrow": layers - first, "K1-base": first,
+            "K2-all": layers, "K3": 0, "K3-narrow": layers - first,
+            "K3-base": first, "K4": layers, "composed": 0})
     step_ms = statistics.median(times[1:])
     log(f"configs FBANet-32 B=8 on {card}: forward {fwd_ms:.2f} ms (plain "
         f"versions {plain_fwd_ms:.2f}), train step {step_ms:.2f} ms "
@@ -2914,8 +3022,8 @@ def configs_fbanet32(card: str) -> tuple[dict, dict]:
                       if p.grad is not None})
     f32_launches = {k: c.launches for k, c in counters.items()}
     _expect("FBANet-32 f32 step", f32_launches, {
-        "K1-base": layers, "K2-base": layers, "K3-base": layers,
-        "K4": layers})
+        "K1-narrow": 0, "K1-base": layers, "K2-base": layers,
+        "K3-narrow": 0, "K3-base": layers, "K4": layers})
     worst, worst_name = 0.0, ""
     for k, ref in grads[1].items():
         scale = float(ref.abs().max())
@@ -3458,11 +3566,18 @@ def main() -> None:
         sys.executable, str(ROOT / "chip_smoke.py"), "raw",
         str(result / "raw.json")], check=True))
     raw = json.loads((result / "raw.json").read_text())["launches"]
-    for name, got in checks.items():  # FBANet-32's checks and B=8 times
-        kres[name]["max_abs_err"] = max(kres[name]["max_abs_err"],
-                                        got.get("max_abs_err", 0.0))
-        kres[name]["fbanet32"] = {k: v for k, v in got.items()
-                                  if k != "max_abs_err"}
+    # FBANet-32's checks and B=8 times; the wgmma forms at head sizes 8
+    # and 32 take their line's numbers from that phase (B=2 at enc1-dec1)
+    line_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms")
+    for name, got in checks.items():
+        if name not in kres:
+            kres[name] = {k: got[k] for k in line_keys}
+        entry = kres[name]
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   got.get("max_abs_err", 0.0))
+        entry["fbanet32"] = {k: v for k, v in got.items()
+                             if k not in line_keys}
     # launches on the main paths: registration (K5, K6), serving (K1, K2),
     # training (K1-K4, R1, R2), the entry points from disk (K1-K4, R1, R2),
     # the DDP steps (K1-K4, R1, R2),
@@ -3479,20 +3594,27 @@ def main() -> None:
         raise AssertionError(f"kernels never launched on a main path: "
                              f"{missing}")
     table = (
-        ("K1", "K1 fused window attention (wgmma form)", "attention_wgmma.cu",
+        ("K1", "K1 fused window attention (wgmma form at head sizes 16 and "
+         "64)", "attention_wgmma.cu", "fbanet_tpu/ops/attention_pallas.py:250"),
+        ("K1-narrow", "K1 fused window attention (wgmma form at head sizes "
+         "8 and 32: FBANet-32's enc1 to dec1)", "attention_wgmma.cu",
          "fbanet_tpu/ops/attention_pallas.py:250"),
-        ("K1-base", "K1 fused window attention (first kernel: f32, K9 and "
-         "K7-base base)", "attention.cu",
+        ("K1-base", "K1 fused window attention (first kernel: f32, "
+         "FBANet-32's enc0, K9 and K7-base base)", "attention.cu",
          "fbanet_tpu/ops/attention_pallas.py:250"),
         ("K2", "K2 fused LeFF (wgmma form)", "leff.cu",
          "fbanet_tpu/ops/leff_pallas.py:172"),
         ("K2-base", "K2 fused LeFF (first kernel: f32, K8-base/K10-base "
          "base)",
          "leff.cu", "fbanet_tpu/ops/leff_pallas.py:172"),
-        ("K3", "K3 fused window attention backward (wgmma form)",
+        ("K3", "K3 fused window attention backward (wgmma form at head "
+         "sizes 16 and 64)",
+         "attention_bwd_wgmma.cu", "fbanet_tpu/ops/attention_pallas.py:334"),
+        ("K3-narrow", "K3 fused window attention backward (wgmma form at "
+         "head sizes 8 and 32: FBANet-32's enc1 to dec1)",
          "attention_bwd_wgmma.cu", "fbanet_tpu/ops/attention_pallas.py:334"),
         ("K3-base", "K3 fused window attention backward (first kernel: "
-         "f32, K11-base base)", "attention_bwd.cu",
+         "f32, FBANet-32's enc0, K11-base base)", "attention_bwd.cu",
          "fbanet_tpu/ops/attention_pallas.py:334"),
         ("K4", "K4 fused LeFF backward (and K4b)", "leff_bwd.cu",
          "fbanet_tpu/ops/leff_pallas.py:278 and :528"),

@@ -18,8 +18,8 @@ extern "C" {
 
 // Dynamic shared memory of K3's wgmma form with `nwg` warpgroups, or 0 for
 // a shape it does not take: 64-token windows, C 64, 128 or 256, head size
-// 16 or 64, nwg 4 (or 2 at C <= 128: each warpgroup holds at most one
-// 64-column piece of dy).
+// 8, 16, 32 or 64, nwg 4 (or 2 at C <= 128: each warpgroup holds at most one
+// 64-column piece of dy), within 232,448 bytes.
 int fbanet_window_attention_bwd_wgmma_smem(int n, int C, int heads, int nwg) {
   return fbanet::bwd_wgmma_smem(n, C, heads, nwg);
 }

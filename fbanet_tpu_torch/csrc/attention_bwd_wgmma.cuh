@@ -1,6 +1,6 @@
 // K3's wgmma form: the backward of K1 (fused norm1 + window attention) in
-// bf16, for 8 x 8 windows (64 tokens), C = 64, 128 or 256 and head size 16
-// or 64, on the post-roll map [B, H, W, C] or on pre-partitioned windows
+// bf16, for 8 x 8 windows (64 tokens), C = 64, 128 or 256 and head size 8,
+// 16, 32 or 64, on the post-roll map [B, H, W, C] or on pre-partitioned windows
 // [G, 64, C] (K1b's backward). The function, its outputs and its rounding
 // points are those of the first kernel (attention_bwd.cuh, kept for f32
 // and for the shapes ops/attention.py::_attention_bwd_plan does not send
@@ -43,6 +43,19 @@
 // What bounds it on the H100: arithmetic, as the first kernel; per block
 // the window's steps run in order, with eight block barriers per window.
 //
+// Head sizes 32 and 8 (embed 32, the configuration's default): a head of 32
+// is a tile of 64-byte rows (64-byte swizzle), two k16 steps of q k^T and
+// do v^T, n32 products for the rest. A head of 8 has no swizzle mode of its
+// own (16-byte rows), so each head is held zero-padded to 16 columns
+// (common.cuh's head_pitch, as the first kernels hold it): the tiles of do,
+// q, k and v take 2 C columns, their epilogues write the pad's zeros with
+// the values, q k^T and do v^T are one k16 step with a zero half, and
+// o = p v, dv = p^T do, dq = dlogits k and dk = dlogits^T q run as n16
+// products whose pad columns (exact zeros) are dropped. dy's product takes
+// the padded head tiles as A, one k16 step a head, against [Wq; Wkv] from
+// a TMA map that inserts 8 zero rows after each 8 (hopper.cuh's
+// make_tma_map_bf16_pad8): twice the boxes of the other head sizes.
+//
 // K11 is this kernel with the stages in SKIP (common.cuh's kNo* bits, one
 // at a time) removed at compile time, each bit as the first kernel's and
 // ops/attention.py::attention_bwd_math's: norecompute (no LayerNorm and no
@@ -80,9 +93,10 @@ struct AbArgs {
 };
 
 // Shared-memory layout (byte offsets from a 1024-byte aligned base) for C
-// channels and NWG warpgroups: y | g [64 rows] K-major in 64-channel
-// atoms (g until do is formed, then y); do, q, k, v, each 64 x C bf16 as
-// per-head tiles; each warpgroup's ring of two weight boxes; each
+// channels, `heads` heads and NWG warpgroups: y | g [64 rows] K-major in
+// 64-channel atoms (g until do is formed, then y); do, q, k, v, each 64 x C
+// bf16 as per-head tiles (64 x 2 C at head size 8, each head padded to 16
+// columns); each warpgroup's ring of two weight boxes; each
 // warpgroup's p / dlogits tile (64 x 64 bf16, MN-major), over y | g where
 // that is large enough; the column-sum scratch (NWG x 4 warps x 64
 // floats); the block's running column partials (6C floats: LN scale and
@@ -92,14 +106,15 @@ struct AbArgs {
 // (the host checks they end before the rings).
 struct AbLayout {
   size_t yg, d_o, q, k, v, ring, pt, cs, colp, mu, inv, bars, total, red, red_end;
-  __host__ __device__ AbLayout(int C, int nwg) {
+  __host__ __device__ AbLayout(int C, int heads, int nwg) {
     const size_t t = (size_t)128 * C;  // one 64 x C bf16 tensor
+    const size_t ht = (size_t)128 * heads * head_pitch(C / heads);  // one as head tiles
     yg = 0;
     d_o = t;
-    q = 2 * t;
-    k = 3 * t;
-    v = 4 * t;
-    ring = 5 * t;
+    q = t + ht;
+    k = t + 2 * ht;
+    v = t + 3 * ht;
+    ring = t + 4 * ht;
     const size_t after = ring + (size_t)nwg * 2 * kBoxBytes;
     pt = t >= (size_t)nwg * 8192 ? 0 : after;
     cs = pt == 0 ? after : after + (size_t)nwg * 8192;
@@ -114,35 +129,42 @@ struct AbLayout {
 };
 
 // Dynamic shared memory of the form with `nwg` warpgroups, or 0 for a
-// shape it does not take: 64-token windows, C 64, 128 or 256, head size 16
-// or 64, nwg 4 (or 2 at C <= 128: each warpgroup holds at most one
-// 64-column piece of dy).
+// shape it does not take: 64-token windows, C 64, 128 or 256, head size 8,
+// 16, 32 or 64, nwg 4 (or 2 at C <= 128: each warpgroup holds at most one
+// 64-column piece of dy), within 232,448 bytes (head size 8's padded tiles
+// exceed it at C = 256).
 inline int bwd_wgmma_smem(int n, int C, int heads, int nwg) {
   if (n != kWinTok || C % 64 || C > 256 || heads < 1 || C % heads) return 0;
   const int dh = C / heads;
-  if ((dh != 16 && dh != 64) || (nwg != 4 && nwg != 2) || C > 64 * nwg) return 0;
-  const AbLayout L(C, nwg);
-  if (L.red_end > L.ring) return 0;
+  if ((dh != 8 && dh != 16 && dh != 32 && dh != 64) || (nwg != 4 && nwg != 2) ||
+      C > 64 * nwg)
+    return 0;
+  const AbLayout L(C, heads, nwg);
+  if (L.red_end > L.ring || L.total > 232448) return 0;  // at most the H100's 227 KB a block
   return (int)L.total;
 }
 
 template <int DH, int NWG, int SKIP>
 __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
     attention_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_w3,
-                               const __grid_constant__ CUtensorMap map_wproj, AbArgs a) {
+                               const __grid_constant__ CUtensorMap map_wproj,
+                               const __grid_constant__ CUtensorMap map_w3p, AbArgs a) {
   // the stages this instantiation runs (all of them for K3, SKIP = 0)
   constexpr bool RECOMPUTE = !(SKIP & kNoRecompute), DSOFTMAX = !(SKIP & kNoDsoftmax);
   constexpr bool WGRADS = !(SKIP & kNoWgrads), DXCHAIN = !(SKIP & kNoDx);
   constexpr bool CORE = !(SKIP & kNoCore), QKV = RECOMPUTE && CORE;
   constexpr int NT = NWG * 128, NW = NT / 32;
-  constexpr int PITCH = 2 * DH;            // bytes per row of a head tile
+  constexpr int HP = head_pitch(DH);       // columns of a head tile (DH, or 16 at DH 8)
+  constexpr int PAD = HP / DH;             // 2 at DH 8: a zero column per head column
+  constexpr int PITCH = 2 * HP;            // bytes per row of a head tile
   constexpr uint32_t HT = 64 * PITCH;      // bytes of a head tile
-  static_assert(DH == 16 || DH == 64, "the head sizes instantiated here");
+  static_assert(DH == 8 || DH == 16 || DH == 32 || DH == 64, "the head sizes instantiated here");
+  static_assert(SKIP == 0 || DH == 16 || DH == 64, "K11 is built at head sizes 16 and 64");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int C = a.geom.C, heads = a.heads;
-  const AbLayout L(C, NWG);
+  const AbLayout L(C, heads, NWG);
   uint8_t* sYG = sm + L.yg;
   uint8_t* sDo = sm + L.d_o;
   uint8_t* sQ = sm + L.q;
@@ -165,20 +187,28 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
   const int wbar = 1 + wg;  // this warpgroup's named barrier
 
   auto desc_k = [](const uint8_t* p) {  // a head tile, K-major
-    return smem_desc(smem_addr(p), 16, 16 * DH, sw_layout(2 * DH));
+    return smem_desc(smem_addr(p), 16, 16 * HP, sw_layout(PITCH));
   };
   auto desc_mn = [](const uint8_t* p) {  // a head tile, MN-major
-    return smem_desc(smem_addr(p), 128 * DH, 16 * DH, sw_layout(2 * DH));
+    return smem_desc(smem_addr(p), HT, 16 * HP, sw_layout(PITCH));
   };
   // (row, column c) of the tensor held as per-head tiles from `base`
   auto tile_at = [&](uint8_t* base, int row, int c) {
     return base + (c / DH) * HT + swz_at(row, (c % DH) * 2, PITCH);
   };
+  // the pair (row, c), (row, c + 1) rounded into the head tiles; at head
+  // size 8 zeros into the same pair of the head's pad columns too
+  auto put_pair = [&](uint8_t* base, int row, int c, uint32_t w) {
+    *reinterpret_cast<uint32_t*>(tile_at(base, row, c)) = w;
+    if constexpr (PAD > 1)
+      *reinterpret_cast<uint32_t*>(base + (c / DH) * HT + swz_at(row, (c % DH + DH) * 2, PITCH)) =
+          0u;
+  };
 
   // --- the warpgroup's weight boxes, in the order it consumes them: per
   // window its do pieces (K over Wproj rows), its q | k | v pieces (32 rows
   // of [Wq; Wkv], K over columns), its dy pieces (K over [Wq; Wkv] rows) ---
-  const int kD = C / kBoxRows, kQ = C / 64, kY = 3 * C / kBoxRows;  // boxes per piece
+  const int kD = C / kBoxRows, kQ = C / 64, kY = PAD * 3 * C / kBoxRows;  // boxes per piece
   auto owned = [&](int pieces) { return pieces > wg ? (pieces - wg + NWG - 1) / NWG : 0; };
   const int nD = owned(C / 64) * kD, nQ = QKV ? owned(3 * C / kBoxRows) * kQ : 0,
             nY = DXCHAIN ? owned(C / 64) * kY : 0, per_win = nD + nQ + nY;
@@ -199,6 +229,12 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
       idx -= nQ;
       col = 64 * (wg + (idx / kY) * NWG);
       row = kBoxRows * (idx % kY);
+      if constexpr (PAD > 1) {  // [Wq; Wkv] with 8 zero rows after each 8
+        mbar_expect_tx(&bars[it & 1], kBoxBytes);
+        tma_load_3d(ring + (it & 1) * kBoxBytes, &map_w3p, col, 0, 2 * (idx % kY),
+                    &bars[it & 1]);
+        return;
+      }
     }
     mbar_expect_tx(&bars[it & 1], kBoxBytes);
     tma_load_2d(ring + (it & 1) * kBoxBytes, map, col, row, &bars[it & 1]);
@@ -224,6 +260,7 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
   if (producer) {
     tma_prefetch_map(&map_w3);
     tma_prefetch_map(&map_wproj);
+    if constexpr (PAD > 1) tma_prefetch_map(&map_w3p);
     if (total_boxes > 0) issue(0);
   }
 
@@ -268,8 +305,8 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
       for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int h = 0; h < 2; ++h)
-          *reinterpret_cast<uint32_t*>(tile_at(sDo, arow + 8 * h, 64 * p + 8 * j + acol)) =
-              pack_bf2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+          put_pair(sDo, arow + 8 * h, 64 * p + 8 * j + acol,
+                   pack_bf2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
       if constexpr (!CORE && WGRADS) {
         // K11 nocore: dq = dk = dv = do in f32 (unscaled) and o = do rounded:
         // the piece's column sums over the 64 tokens (the two rows, the
@@ -384,7 +421,7 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
               v0 += a.bkv[col - C];
               v1 += a.bkv[col - C + 1];
             }
-            *reinterpret_cast<uint32_t*>(tile_at(dst, arow + 8 * h, c)) = pack_bf2(v0, v1);
+            put_pair(dst, arow + 8 * h, c, pack_bf2(v0, v1));
           }
       }
       fence_proxy_async();
@@ -418,8 +455,9 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
           dst[d] += ((cs[d] + cs[64 + d]) + cs[128 + d]) + cs[192 + d];
         named_bar_sync(wbar, 128);
       };
-      // a DH-wide accumulator rounded into head tile `tile` and device memory
-      // row stride `ld` from `gdst`
+      // an HP-wide accumulator's DH head columns rounded into head tile
+      // `tile` and device memory row stride `ld` from `gdst` (at head size 8
+      // the pad columns, zeros, are dropped: the tile's stay zero)
       auto store_head = [&](const float* acc, uint8_t* tile, bf16* gdst, int ld) {
 #pragma unroll
         for (int j = 0; j < DH / 8; ++j)
@@ -464,7 +502,7 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
         for (int i = 0; i < 32; ++i) s[i] = 0.f;
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk)
+        for (int kk = 0; kk < HP / 16; ++kk)
           wgmma_ss<64, 0, 0>(s, desc_k(qh + kk * 32), desc_k(kh + kk * 32));
         wgmma_commit();
         wgmma_wait_all();
@@ -508,12 +546,12 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
         }
         // o = p v, rounded out (only dWproj reads it)
         if constexpr (WGRADS) {
-          float o[DH / 2];
+          float o[HP / 2];
 #pragma unroll
-          for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+          for (int i = 0; i < HP / 2; ++i) o[i] = 0.f;
           wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) wgmma_rs<DH, 1>(o, pf + 4 * kk, desc_mn(vh + kk * 16 * PITCH));
+          for (int kk = 0; kk < 4; ++kk) wgmma_rs<HP, 1>(o, pf + 4 * kk, desc_mn(vh + kk * 16 * PITCH));
           wgmma_commit();
           wgmma_wait_all();
           store_head(o, nullptr, a.os + h * DH, C);
@@ -521,18 +559,18 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
         named_bar_sync(wbar, 128);  // the previous head's dk product is done with sP
         store_p(pf);
         // dp = do v^T, dv = p^T do
-        float dp[32], dv[DH / 2];
+        float dp[32], dv[HP / 2];
 #pragma unroll
         for (int i = 0; i < 32; ++i) dp[i] = 0.f;
 #pragma unroll
-        for (int i = 0; i < DH / 2; ++i) dv[i] = 0.f;
+        for (int i = 0; i < HP / 2; ++i) dv[i] = 0.f;
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk)
+        for (int kk = 0; kk < HP / 16; ++kk)
           wgmma_ss<64, 0, 0>(dp, desc_k(doh + kk * 32), desc_k(vh + kk * 32));
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss<DH, 1, 1>(dv, mn_major_desc(smem_addr(sP + kk * 2048), 8192),
+          wgmma_ss<HP, 1, 1>(dv, mn_major_desc(smem_addr(sP + kk * 2048), 8192),
                              desc_mn(doh + kk * 16 * PITCH));
         wgmma_commit();
         wgmma_wait_all();
@@ -578,24 +616,24 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
           }
         store_p(lf);
         // dq = dlogits k (scaled), dk = dlogits^T q
-        float dq[DH / 2], dk[DH / 2];
+        float dq[HP / 2], dk[HP / 2];
 #pragma unroll
-        for (int i = 0; i < DH / 2; ++i) dq[i] = dk[i] = 0.f;
+        for (int i = 0; i < HP / 2; ++i) dq[i] = dk[i] = 0.f;
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk) {
           const uint32_t* f = lf + 4 * kk;
-          wgmma_rs<DH, 1>(dq, f, desc_mn(kh + kk * 16 * PITCH));
+          wgmma_rs<HP, 1>(dq, f, desc_mn(kh + kk * 16 * PITCH));
         }
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss<DH, 1, 1>(dk, mn_major_desc(smem_addr(sP + kk * 2048), 8192),
+          wgmma_ss<HP, 1, 1>(dk, mn_major_desc(smem_addr(sP + kk * 2048), 8192),
                              desc_mn(qh + kk * 16 * PITCH));
         wgmma_commit();
         wgmma_wait_all();
         named_bar_sync(wbar, 128);  // q and k are no longer read
 #pragma unroll
-        for (int i = 0; i < DH / 2; ++i) dq[i] *= scale;
+        for (int i = 0; i < HP / 2; ++i) dq[i] *= scale;
         if constexpr (WGRADS) {
           colsum(dq, colp + 2 * C + h * DH);
           colsum(dk, colp + 3 * C + h * DH);
@@ -608,7 +646,9 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
     }
 
     // --- dy = dq Wq + dk Wk + dv Wv: pieces of 64 columns, K over the 3C
-    // rows of [Wq; Wkv], the A operand from the head tiles ---
+    // rows of [Wq; Wkv], the A operand from the head tiles (at head size 8
+    // K over the 6C rows of the padded [Wq; Wkv], one padded head a k16
+    // step) ---
     if constexpr (DXCHAIN) {
       float yacc[32];
 #pragma unroll
@@ -620,7 +660,7 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
             wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < 2; ++kk) {
-              const int j0 = kBoxRows * kb + 16 * kk, c = j0 % C;
+              const int j0 = (kBoxRows * kb + 16 * kk) / PAD, c = j0 % C;
               const uint8_t* src = j0 < C ? sQ : j0 < 2 * C ? sK : sV;
               if constexpr (!CORE) src = sDo;  // K11 nocore: dq = dk = dv = do
               wgmma_ss<64, 0, 1>(yacc, desc_k(src + (c / DH) * HT + (c % DH) * 2),
@@ -697,30 +737,42 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
 }
 
 template <int DH, int NWG, int SKIP>
-cudaError_t launch_wgmma(const CUtensorMap& m3, const CUtensorMap& mp, const AbArgs& a,
-                         unsigned grid, int smem, cudaStream_t s) {
+cudaError_t launch_wgmma(const CUtensorMap& m3, const CUtensorMap& mp, const CUtensorMap& m3p,
+                         const AbArgs& a, unsigned grid, int smem, cudaStream_t s) {
   const cudaError_t e = cudaFuncSetAttribute(attention_bwd_wgmma_kernel<DH, NWG, SKIP>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  attention_bwd_wgmma_kernel<DH, NWG, SKIP><<<grid, NWG * 128, smem, s>>>(m3, mp, a);
+  attention_bwd_wgmma_kernel<DH, NWG, SKIP><<<grid, NWG * 128, smem, s>>>(m3, mp, m3p, a);
   return cudaGetLastError();
 }
 
 // Launch the instantiation <head size, NWG, SKIP> on `a` (w3 = [Wq; Wkv]
-// [3C, C]); the caller has checked the shape with bwd_wgmma_smem.
+// [3C, C]); the caller has checked the shape with bwd_wgmma_smem. K3
+// (SKIP = 0) is built at head sizes 8, 16, 32 and 64, K11 at 16 and 64.
 template <int NWG, int SKIP>
 int launch_nwg(const void* w3, const void* wproj, const AbArgs& a, void* stream) {
   const int C = a.geom.C, dh = C / a.heads;
-  const AbLayout L(C, NWG);
-  CUtensorMap m3, mp;
+  if (SKIP != 0 && dh != 16 && dh != 64) return (int)cudaErrorInvalidValue;
+  const AbLayout L(C, a.heads, NWG);
+  CUtensorMap m3, mp, m3p;
   cudaError_t e = make_tma_map_bf16(&m3, w3, 3 * C, C, kBoxRows);
   if (e == cudaSuccess) e = make_tma_map_bf16(&mp, wproj, C, C, kBoxRows);
+  if (e == cudaSuccess) {
+    if (dh == 8)
+      e = make_tma_map_bf16_pad8(&m3p, w3, 3 * C, C);
+    else
+      m3p = m3;  // unread
+  }
   if (e != cudaSuccess) return (int)e;
   const unsigned grid = (unsigned)((a.windows + a.wpb - 1) / a.wpb);
   const int smem = (int)L.total;
   const cudaStream_t s = (cudaStream_t)stream;
-  e = dh == 16 ? launch_wgmma<16, NWG, SKIP>(m3, mp, a, grid, smem, s)
-               : launch_wgmma<64, NWG, SKIP>(m3, mp, a, grid, smem, s);
+  if constexpr (SKIP == 0) {
+    if (dh == 8) return (int)launch_wgmma<8, NWG, 0>(m3, mp, m3p, a, grid, smem, s);
+    if (dh == 32) return (int)launch_wgmma<32, NWG, 0>(m3, mp, m3p, a, grid, smem, s);
+  }
+  e = dh == 16 ? launch_wgmma<16, NWG, SKIP>(m3, mp, m3p, a, grid, smem, s)
+               : launch_wgmma<64, NWG, SKIP>(m3, mp, m3p, a, grid, smem, s);
   return (int)e;
 }
 

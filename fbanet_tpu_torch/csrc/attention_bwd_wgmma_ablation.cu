@@ -3,7 +3,9 @@
 // time (the SKIP bits of attention_bwd_wgmma.cuh, where the kernel and what
 // each bit removes are described). Its `full` variant is K3's windowed
 // entry itself (fbanet_window_attention_bwd_wgmma_windows). The five bits
-// are instantiated at both head sizes here for two warpgroups and in
+// are instantiated at head sizes 16 and 64 (8 and 32 stay on the first
+// kernel's bits: tools/measure_bwd.py::ablation_plan) here for two
+// warpgroups and in
 // attention_bwd_wgmma_ablation4.cu for four (every pair
 // ops/attention.py::_attention_bwd_plan can pick), files of their own so
 // that nvcc builds them in parallel with K3's and with each other. The

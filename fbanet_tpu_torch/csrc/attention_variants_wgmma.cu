@@ -45,7 +45,7 @@ int variant_smem(int n, int C, int heads, int core, int nwg, int staged) {
       core > kWgLanepack)
     return 0;
   if (!variant_triple(C / heads, nwg, staged) || (core == kWgLanepack && heads % 2)) return 0;
-  const size_t total = AfLayout(C, nwg, staged, core == kWgLanepack).total;
+  const size_t total = AfLayout(C, heads, nwg, staged, core == kWgLanepack).total;
   return total > (size_t)kSmemLimit ? 0 : (int)total;
 }
 

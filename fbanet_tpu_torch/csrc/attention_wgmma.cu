@@ -1,6 +1,6 @@
 // K1's wgmma form: fused norm1 + window attention (the forward of K3) in
-// bf16, for 8 x 8 windows (64 tokens), C = 64, 128 or 256 and head size 16
-// or 64, on the post-roll map [B, H, W, C] (K1) or on pre-partitioned
+// bf16, for 8 x 8 windows (64 tokens), C = 64, 128 or 256 and head size 8,
+// 16, 32 or 64, on the post-roll map [B, H, W, C] (K1) or on pre-partitioned
 // windows [G, 64, C] (K1b). It replaces the TPU kernels
 // fbanet_tpu/ops/attention_pallas.py::_attention2d_kernel and
 // _attention_kernel; the function, its outputs and its rounding points are
@@ -41,6 +41,13 @@
 //  - adds bproj and the residual to the projection's fragments in f32 and
 //    stores bf16 straight to the map through the window addressing.
 // Four block barriers per window (after LN, q | k | v, the heads, proj).
+// Head sizes 32 and 8 (embed 32, the configuration's default): a head of 32
+// is a tile of 64-byte rows (64-byte swizzle), q k^T two k16 steps and p v
+// m64n32; a head of 8 (16-byte rows have no swizzle mode) is held
+// zero-padded to 16 columns (common.cuh's head_pitch), the pad's zeros
+// written with q, k and v, so q k^T is one k16 step with a zero half and
+// p v an n16 product whose pad columns are dropped. o lies in y's atoms at
+// every head size, so the projection does not see the padding.
 //
 // The form's layout, kernel and launch are in attention_wgmma.cuh, shared
 // with K7's cores and K9's stages on this form (attention_variants_wgmma*.cu,
@@ -67,11 +74,14 @@ int launch_form(const void* w3, const void* wproj, AfArgs a, int nwg, int staged
   if (e == cudaSuccess) e = make_tma_map_bf16(&mp, wproj, C, C, kBoxRows);
   if (e != cudaSuccess) return (int)e;
   const unsigned grid = (unsigned)((a.windows + a.wpb - 1) / a.wpb);
-  const int smem = (int)AfLayout(C, nwg, staged).total;
+  const int smem = (int)AfLayout(C, a.heads, nwg, staged).total;
   const cudaStream_t s = (cudaStream_t)stream;
-  e = dh == 16 ? launch_dh<16>(m3, mp, a, nwg, staged, grid, smem, s)
-               : launch_dh<64>(m3, mp, a, nwg, staged, grid, smem, s);
-  return (int)e;
+  switch (dh) {
+    case 8: return (int)launch_dh<8>(m3, mp, a, nwg, staged, grid, smem, s);
+    case 16: return (int)launch_dh<16>(m3, mp, a, nwg, staged, grid, smem, s);
+    case 32: return (int)launch_dh<32>(m3, mp, a, nwg, staged, grid, smem, s);
+    default: return (int)launch_dh<64>(m3, mp, a, nwg, staged, grid, smem, s);
+  }
 }
 
 }  // namespace
@@ -81,15 +91,17 @@ extern "C" {
 
 // Dynamic shared memory of K1's wgmma form with `nwg` warpgroups and the
 // weights staged (1) or streamed (0), or 0 for a shape it does not take:
-// 64-token windows, C 64, 128 or 256, head size 16 or 64, nwg 2 or 4, at
-// most 232,448 bytes (staged weights fit up to C = 128).
+// 64-token windows, C 64, 128 or 256, head size 8, 16, 32 or 64, nwg 2 or
+// 4, at most 232,448 bytes (staged weights fit up to C = 128; at head size 8
+// the padded head tiles leave them room only at C = 64).
 int fbanet_window_attention_wgmma_smem(int n, int C, int heads, int nwg, int staged) {
   using namespace fbanet;
   if (n != kWinTok || C % 64 || C > 256 || heads < 1 || C % heads) return 0;
   const int dh = C / heads;
-  if ((dh != 16 && dh != 64) || (nwg != 4 && nwg != 2) || (staged != 0 && staged != 1))
+  if ((dh != 8 && dh != 16 && dh != 32 && dh != 64) || (nwg != 4 && nwg != 2) ||
+      (staged != 0 && staged != 1))
     return 0;
-  const size_t total = AfLayout(C, nwg, staged).total;
+  const size_t total = AfLayout(C, heads, nwg, staged).total;
   return total > 232448 ? 0 : (int)total;
 }
 

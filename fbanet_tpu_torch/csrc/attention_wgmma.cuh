@@ -70,8 +70,9 @@ struct AfArgs {
 };
 
 // Shared-memory layout (byte offsets from a 1024-byte aligned base) for C
-// channels and NWG warpgroups: y, then o [64 rows] K-major in 64-channel
-// atoms; q, k, v, each 64 x C bf16 as per-head tiles; the window's f32 mask
+// channels, `heads` heads and NWG warpgroups: y, then o [64 rows] K-major
+// in 64-channel atoms; q, k, v, each 64 x C bf16 as per-head tiles (64 x
+// 2 C at head size 8, each head zero-padded to 16 columns); the window's f32 mask
 // [64][64] (8-float groups of row r XOR-ed with r % 8); the weights (staged:
 // [Wq; Wkv] then Wproj as 32-row x 64-column boxes, piece p's boxes
 // together; streamed: each warpgroup's ring of kSlots boxes); the barriers
@@ -79,13 +80,14 @@ struct AfArgs {
 // 1.5 tensors ([k_a, Z, k_b] per pair of heads) and no mask.
 struct AfLayout {
   size_t y, q, k, v, mk, w, bars, total;
-  __host__ __device__ AfLayout(int C, int nwg, int staged, bool lanepack = false) {
+  __host__ __device__ AfLayout(int C, int heads, int nwg, int staged, bool lanepack = false) {
     const size_t t = (size_t)128 * C;  // one 64 x C bf16 tensor
+    const size_t ht = (size_t)128 * heads * head_pitch(C / heads);  // one as head tiles
     y = 0;
     q = t;
-    k = 2 * t;
-    v = lanepack ? 2 * t + 3 * t / 2 : 3 * t;
-    mk = lanepack ? 5 * t : 4 * t;
+    k = t + ht;
+    v = lanepack ? 2 * t + 3 * t / 2 : t + 2 * ht;
+    mk = lanepack ? 5 * t : t + 3 * ht;
     w = mk + (lanepack ? 0 : sizeof(float) * kWinTok * kWinTok);
     bars = w + (staged ? (size_t)8 * C * C : (size_t)nwg * kSlots * kBoxBytes);
     total = bars + (size_t)(staged ? 1 : nwg * kSlots) * sizeof(uint64_t) +
@@ -314,14 +316,17 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
     attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_w3,
                            const __grid_constant__ CUtensorMap map_wproj, AfArgs a) {
   constexpr int NT = NWG * 128, NW = NT / 32;
-  constexpr int PITCH = 2 * DH;        // bytes per row of a head tile
+  constexpr int HP = head_pitch(DH);   // columns of a head tile (DH, or 16 at DH 8)
+  constexpr int PITCH = 2 * HP;        // bytes per row of a head tile
   constexpr uint32_t HT = 64 * PITCH;  // bytes of a head tile
-  static_assert(DH == 16 || DH == 64, "the head sizes instantiated here");
+  static_assert(DH == 8 || DH == 16 || DH == 32 || DH == 64, "the head sizes instantiated here");
+  static_assert(CORE == kWgLoopLn || DH == 16 || DH == 64,
+                "K7's and K9's cores are built at head sizes 16 and 64");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const int C = a.geom.C, heads = a.heads;
-  const AfLayout L(C, NWG, STAGED, CORE == kWgLanepack);
+  const AfLayout L(C, heads, NWG, STAGED, CORE == kWgLanepack);
   uint8_t* sY = sm + L.y;  // y, then o
   uint8_t* sQ = sm + L.q;
   uint8_t* sK = sm + L.k;
@@ -339,14 +344,18 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
   const int w0 = blockIdx.x * a.wpb, nwin = min(a.wpb, a.windows - w0);
 
   auto desc_k = [](const uint8_t* p) {  // a head tile, K-major
-    return smem_desc(smem_addr(p), 16, 16 * DH, sw_layout(2 * DH));
+    return smem_desc(smem_addr(p), 16, 16 * HP, sw_layout(PITCH));
   };
   auto desc_mn = [](const uint8_t* p) {  // a head tile, MN-major
-    return smem_desc(smem_addr(p), 128 * DH, 16 * DH, sw_layout(2 * DH));
+    return smem_desc(smem_addr(p), HT, 16 * HP, sw_layout(PITCH));
   };
-  // (row, column c) of the tensor held as per-head tiles from `base`
+  // (row, column c) of the tensor held as per-head tiles from `base`; at
+  // head size 8 column c of head c / 8 has its pad column c + 8 in the tile
   auto tile_at = [&](uint8_t* base, int row, int c) {
     return base + (c / DH) * HT + swz_at(row, (c % DH) * 2, PITCH);
+  };
+  auto pad_at = [&](uint8_t* base, int row, int c) {
+    return base + (c / DH) * HT + swz_at(row, (c % DH + DH) * 2, PITCH);
   };
   // the same for k and v under lanepack: head h's tile is 3 (h / 2) + 2 (h % 2)
   auto pair_tile_at = [&](uint8_t* base, int row, int c) {
@@ -530,6 +539,8 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
                 pack_bf2(v0, v1);
           else
             *reinterpret_cast<uint32_t*>(tile_at(dst, arow + 8 * h, c)) = pack_bf2(v0, v1);
+          if constexpr (HP > DH)  // the pad's zeros, which q k^T reads
+            *reinterpret_cast<uint32_t*>(pad_at(dst, arow + 8 * h, c)) = 0u;
         }
     }
     fence_proxy_async();
@@ -559,7 +570,7 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
         const uint8_t* vh = sV + h * HT;
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk)
+        for (int kk = 0; kk < HP / 16; ++kk)
           wgmma_ss<64, 0, 0>(s, desc_k(qh + kk * 32), desc_k(kh + kk * 32));
         wgmma_commit();
         wgmma_wait_all();
@@ -599,13 +610,14 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
           rinv[h2] = 1.0f / sum[h2];
         }
         if (h + NWG < heads) load_bias(h + NWG);  // s is free
-        // o = (p v) (1 / sum), rounded into o's atoms
-        float o[DH / 2];
+        // o = (p v) (1 / sum), rounded into o's atoms (at head size 8 an
+        // n16 product whose pad columns are dropped)
+        float o[HP / 2];
 #pragma unroll
-        for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+        for (int i = 0; i < HP / 2; ++i) o[i] = 0.f;
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk) wgmma_rs<DH, 1>(o, pf + 4 * kk, desc_mn(vh + kk * 16 * PITCH));
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs<HP, 1>(o, pf + 4 * kk, desc_mn(vh + kk * 16 * PITCH));
         wgmma_commit();
         wgmma_wait_all();
 #pragma unroll
@@ -693,7 +705,7 @@ int launch_one(const void* w3, const void* wproj, const AfArgs& a, void* stream)
   if (e == cudaSuccess) e = make_tma_map_bf16(&mp, wproj, C, C, kBoxRows);
   if (e != cudaSuccess) return (int)e;
   const unsigned grid = (unsigned)((a.windows + a.wpb - 1) / a.wpb);
-  const int smem = (int)AfLayout(C, NWG, STAGED, CORE == kWgLanepack).total;
+  const int smem = (int)AfLayout(C, a.heads, NWG, STAGED, CORE == kWgLanepack).total;
   return (int)launch_k<DH, NWG, STAGED, CORE>(m3, mp, a, grid, smem, (cudaStream_t)stream);
 }
 

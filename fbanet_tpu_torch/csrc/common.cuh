@@ -167,12 +167,13 @@ struct WinBlock {
   }
 };
 
-// Columns one head takes in the first kernels' bf16 q, k, v (and K3's do)
-// tiles: its size rounded up to the 16 of a WMMA tile. A head of 8 is
-// zero-padded to 16, so q k^T adds 8 exact zero products and p v computes 8
-// columns more, which are dropped (those kernels take head sizes in
-// multiples of 8, as the TPU kernel does: attention_pallas.py::_supported).
-__host__ __device__ inline int head_pitch(int dh) { return (dh + 15) & ~15; }
+// Columns one head takes in the bf16 q, k, v (and K3's do) tiles of the
+// first kernels and of the wgmma forms: its size rounded up to the 16 of a
+// tensor-core k step. A head of 8 is zero-padded to 16, so q k^T adds 8
+// exact zero products and p v computes 8 columns more, which are dropped
+// (the kernels take head sizes in multiples of 8, as the TPU kernel does:
+// attention_pallas.py::_supported).
+__host__ __device__ constexpr int head_pitch(int dh) { return (dh + 15) & ~15; }
 
 // Shared-memory carving: each array starts on a 128-byte boundary (WMMA
 // loads and stores need 32-byte aligned tiles).

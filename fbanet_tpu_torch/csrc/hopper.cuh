@@ -91,6 +91,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// one 3-D box of `map` at (c0, c1, c2), as tma_load_2d
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
                : "memory");
@@ -423,12 +433,9 @@ __device__ __forceinline__ void tile_column_sums(int C, int n, float* red, F f, 
 }
 
 
-// Host: a [rows, cols] row-major bf16 tensor in global memory as TMA boxes
-// of 64 columns x `box_rows` rows, 128-byte swizzled (the atoms above);
-// rows past the end read as zeros. cuTensorMapEncodeTiled is looked up
-// once through the CUDA runtime (no link against libcuda).
-inline cudaError_t make_tma_map_bf16(CUtensorMap* map, const void* ptr, int rows, int cols,
-                                     int box_rows) {
+// Host: cuTensorMapEncodeTiled, looked up once through the CUDA runtime (no
+// link against libcuda), or null.
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = [] {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult q{};
@@ -442,16 +449,50 @@ inline cudaError_t make_tma_map_bf16(CUtensorMap* map, const void* ptr, int rows
                ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn)
                : nullptr;
   }();
+  return encode;
+}
+
+// Host: a row-major bf16 tensor of `rank` dimensions (dims and boxes
+// innermost first, strides in bytes of dimensions 1..) as 128-byte swizzled
+// TMA boxes; elements past the tensor's end read as zeros.
+inline cudaError_t encode_tma_map_bf16(CUtensorMap* map, const void* ptr, int rank,
+                                       const cuuint64_t* dims, const cuuint64_t* strides,
+                                       const cuuint32_t* box) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (!encode) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Host: a [rows, cols] row-major bf16 tensor in global memory as TMA boxes
+// of 64 columns x `box_rows` rows, 128-byte swizzled (the atoms above);
+// rows past the end read as zeros.
+inline cudaError_t make_tma_map_bf16(CUtensorMap* map, const void* ptr, int rows, int cols,
+                                     int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  return encode_tma_map_bf16(map, ptr, 2, dims, strides, box);
+}
+
+// Host: the same tensor (rows a multiple of 8) with each group of 8 rows
+// followed by 8 zero rows, as boxes of 64 columns x 32 rows: the 3-D view
+// [rows / 8][8][cols] in boxes of 2 groups x 16 rows x 64 columns, whose
+// rows 8..15 of each group lie past the middle dimension's end and arrive
+// as TMA's zero fill. The box at (column, 0, g) holds tensor rows 8 g ..
+// 8 g + 7, 8 zero rows, rows 8 g + 8 .. 8 g + 15, 8 zero rows: a B operand
+// with K over rows against A tiles whose heads of 8 are zero-padded to 16
+// columns, one k16 step a head.
+inline cudaError_t make_tma_map_bf16_pad8(CUtensorMap* map, const void* ptr, int rows,
+                                          int cols) {
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, 8, (cuuint64_t)rows / 8};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)cols * 16};
+  const cuuint32_t box[3] = {64, 16, 2};
+  return encode_tma_map_bf16(map, ptr, 3, dims, strides, box);
 }
 
 }  // namespace fbanet

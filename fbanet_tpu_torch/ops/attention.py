@@ -53,9 +53,11 @@ SwinLayer's too (models/layers.py).
 `fused_window_attention_2d.launches` counts K1 launches,
 `fused_window_attention.launches` K1b launches and
 `window_attention_bwd.launches` K3 launches (both entries);
-`fused_window_attention_2d.wgmma` / `.base` count the launches of K1's two
-forms (K1b's and explicit plans' included), `_attention_bwd_launch.wgmma` /
-`.base` K3's.
+`fused_window_attention_2d.wgmma` / `.narrow` / `.base` count the launches
+of K1's wgmma form at head sizes 16 and 64, of its instantiations at head
+sizes 8 and 32 (embed 32's) and of its first kernel (K1b's and explicit
+plans' included), `_attention_bwd_launch.wgmma` / `.narrow` / `.base`
+K3's.
 """
 
 from __future__ import annotations
@@ -377,18 +379,28 @@ def _kernel_forward(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
 
 # K1's plans: (warpgroups per block, windows per block, weights staged).
 # The wgmma form (csrc/attention_wgmma.cu) takes bf16 8 x 8 windows, C 64,
-# 128 or 256 and head size 16 or 64, with two or four warpgroups and the
-# weights staged once per block (where all 4 C^2 fit) or streamed per
+# 128 or 256 and head size 8, 16, 32 or 64, with two or four warpgroups and
+# the weights staged once per block (where all 4 C^2 fit) or streamed per
 # window; warpgroups 0 is the first kernel (csrc/attention.cu: f32, every
-# other shape, FBANet-32's head sizes 8 and 32 among them), one window per
+# other shape, FBANet-32's enc0 at C = 32 among them), one window per
 # block. K7's cores and K9's stages follow the plan onto either form.
 _K1_BASE_PLAN = (0, 1, 0)
-# head sizes of the wgmma forms of K1 and K3; every other head size (8 and
-# 32 at embed 32) runs on their first kernels
-_WGMMA_HEAD_SIZES = (16, 64)
+# head sizes of the wgmma forms of K1 and K3; every other head size runs on
+# their first kernels
+_WGMMA_HEAD_SIZES = (8, 16, 32, 64)
+# the head sizes of embed 32 (each head of 8 zero-padded to 16 columns in
+# the forms' tiles), counted apart from 16 and 64 in the forms' counts
+_NARROW_HEAD_SIZES = (8, 32)
 # (warpgroups, staged) of the wgmma form, in the order the plan tries them
 _K1_FORMS = ((2, 1), (4, 1), (4, 0))
 _K1_SLOTS = 4  # TMA ring slots per warpgroup when the weights stream
+
+
+def _head_tiles_bytes(c: int, heads: int) -> int:
+    """Bytes of one 64-token tensor held as the wgmma forms' per-head
+    tiles: 64 x C bf16, or 64 x 2 C at head size 8, whose heads are
+    zero-padded to 16 columns (csrc/common.cuh's `head_pitch`)."""
+    return 128 * heads * (-(-(c // heads) // 16) * 16)
 
 
 def _attention_smem(n: int, c: int, heads: int, nwg: int,
@@ -397,16 +409,19 @@ def _attention_smem(n: int, c: int, heads: int, nwg: int,
     the weights staged (1) or streamed (0), for windows of n tokens, C
     channels and `heads` heads, or 0 for a shape it does not take: a model
     of the kernel's `fbanet_window_attention_wgmma_smem` (the layout of
-    `AfLayout` in csrc/attention_wgmma.cu, byte for byte) that plans
-    without the card, as the CPU tests do; on the card K1 plans with the
-    kernel's own, and chip_smoke.py holds the two equal."""
+    `AfLayout` in csrc/attention_wgmma.cuh, byte for byte: y, q, k, v as
+    head tiles, the mask, the weights, the barriers, the alignment) that
+    plans without the card, as the CPU tests do; on the card K1 plans with
+    the kernel's own, and chip_smoke.py holds the two equal."""
     if n != 64 or c % 64 or c > 256 or heads < 1 or c % heads:
         return 0
-    if c // heads not in (16, 64) or nwg not in (2, 4) or staged not in (0, 1):
+    if c // heads not in _WGMMA_HEAD_SIZES or nwg not in (2, 4) or \
+            staged not in (0, 1):
         return 0
     weights = 8 * c * c if staged else nwg * _K1_SLOTS * 4096
     barriers = 8 * (1 if staged else nwg * _K1_SLOTS)
-    total = 4 * 128 * c + 4 * 64 * 64 + weights + barriers + 1024
+    total = (128 * c + 3 * _head_tiles_bytes(c, heads) + 4 * 64 * 64
+             + weights + barriers + 1024)
     return total if total <= _SMEM_LIMIT else 0
 
 
@@ -431,12 +446,16 @@ def _attention_plan(b: int, h: int, w: int, c: int, heads: int, ws: int = 8,
     `_attention_smem`) lets 4 // warpgroups blocks share an SM (the
     kernel's launch bounds): the weights staged with two warpgroups at
     C = 64 (two blocks per SM) and four at C = 128 (one), streamed by four
-    at C = 256; the windows dealt in order to as many blocks as the card
-    holds at once, each taking `wpb` consecutive windows (`_window_blocks`).
-    Measured at the five groups at B=2, 4 and 8 (tools/measure_attention.py
-    `plans`, NVIDIA H100 80GB HBM3 at 700 W): the fastest plan, or within
-    7 % of it, at every group (PERF.md §6). Else `_K1_BASE_PLAN`, the
-    first kernel: f32, and head sizes other than `_WGMMA_HEAD_SIZES`."""
+    at C = 256 and at C = 128 with head size 8 (its padded head tiles leave
+    the staged weights no room); the windows dealt in order to as many
+    blocks as the card holds at once, each taking `wpb` consecutive windows
+    (`_window_blocks`). Measured at the five groups at B=2, 4 and 8
+    (tools/measure_attention.py `plans`, NVIDIA H100 80GB HBM3 at 700 W):
+    the fastest plan, or within 7 % of it, at every group (PERF.md §6); at
+    embed 32's four groups on the form (`--embed 32`) within 6.3 % of the
+    fastest. Else `_K1_BASE_PLAN`, the first kernel: f32, head sizes other
+    than `_WGMMA_HEAD_SIZES`, and C other than 64, 128 and 256 (embed 32's
+    enc0, C = 32)."""
     if bf16 and h % ws == 0 and w % ws == 0 and \
             c % heads == 0 and c // heads in _WGMMA_HEAD_SIZES:
         for nwg, staged in _K1_FORMS:
@@ -451,8 +470,9 @@ def _attention_plan(b: int, h: int, w: int, c: int, heads: int, ws: int = 8,
 def _attention_launch(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
                       bias, mask, heads, ws, residual, plan):
     """Launch K1 on the map with `plan` (see `_attention_plan`): the wgmma
-    form, counted in `fused_window_attention_2d.wgmma`, or the first kernel,
-    in `fused_window_attention_2d.base`."""
+    form, counted in `fused_window_attention_2d.wgmma` (`.narrow` at head
+    sizes 8 and 32), or the first kernel, in `fused_window_attention_2d.
+    base`."""
     _check_kernel_shape(x4, heads, ws, mask)
     b, h, w, c = x4.shape
     lib = _build.library()
@@ -466,15 +486,24 @@ def _attention_launch(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
         err = lib.fbanet_window_attention_wgmma(
             x4.data_ptr(), out.data_ptr(), *ptrs, b, h, w, c, heads, ws,
             int(residual), nwg, wpb, staged, _build.stream(x4))
-        form = fused_window_attention_2d.wgmma
     else:
         err = lib.fbanet_window_attention(
             x4.data_ptr(), out.data_ptr(), *ptrs, b, h, w, c, heads, ws,
             int(residual), bf16, _build.stream(x4))
-        form = fused_window_attention_2d.base
     _build.check(err, "fused_window_attention_2d")
-    form.launches += 1
+    _form_count(fused_window_attention_2d, nwg, c, heads).launches += 1
     return out
+
+
+def _form_count(counted, nwg: int, c: int, heads: int):
+    """The count of `counted` (K1's `fused_window_attention_2d` or K3's
+    `_attention_bwd_launch`) for a launch on `nwg` warpgroups (0: the first
+    kernel, `.base`) at C channels and `heads` heads: `.narrow` for the
+    wgmma form at `_NARROW_HEAD_SIZES`, else `.wgmma`."""
+    if not nwg:
+        return counted.base
+    return counted.narrow if c // heads in _NARROW_HEAD_SIZES \
+        else counted.wgmma
 
 
 def _check_plan(lib, x, n: int, c: int, heads: int, plan, fail) -> int:
@@ -488,7 +517,7 @@ def _check_plan(lib, x, n: int, c: int, heads: int, plan, fail) -> int:
                 n, c, heads, nwg, staged) == 0:
             fail(f"the wgmma form takes no plan {plan} of this shape "
                  f"(bfloat16, 64-token windows, C 64, 128 or 256, head size "
-                 f"16 or 64)")
+                 f"8, 16, 32 or 64, within shared memory)")
         return bf16
     smem = lib.fbanet_window_attention_smem(n, c, heads, bf16)
     if smem == 0:
@@ -519,9 +548,10 @@ def _forward_operands(x, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
 
 # K3's plans: (warpgroups per block, windows per block). The wgmma form
 # (csrc/attention_bwd_wgmma.cuh) takes bf16 8 x 8 windows, C 64, 128 or 256
-# and head size 16 or 64; warpgroups 0 is the first kernel
-# (csrc/attention_bwd.cuh: f32, every other shape), one window per block.
-# K11's flags follow the plan onto either form.
+# and head size 8, 16, 32 or 64; warpgroups 0 is the first kernel
+# (csrc/attention_bwd.cuh: f32, every other shape, embed 32's enc0 at
+# C = 32 among them), one window per block. K11's flags follow the plan
+# onto either form at head sizes 16 and 64.
 _K3_BASE_PLAN = (0, 1)
 
 
@@ -530,22 +560,25 @@ def _attention_bwd_smem(n: int, c: int, heads: int, nwg: int) -> int:
     windows of n tokens, C channels and `heads` heads, or 0 for a shape it
     does not take: a model of the kernel's
     `fbanet_window_attention_bwd_wgmma_smem` (the layout of `AbLayout` in
-    csrc/attention_bwd_wgmma.cu, byte for byte) that plans without the
-    card, as the CPU tests do; on the card K3 plans with the kernel's own,
-    and chip_smoke.py holds the two equal."""
+    csrc/attention_bwd_wgmma.cuh, byte for byte: y | g, then do, q, k, v
+    as head tiles) that plans without the card, as the CPU tests do; on
+    the card K3 plans with the kernel's own, and chip_smoke.py holds the
+    two equal."""
     if n != 64 or c % 64 or c > 256 or heads < 1 or c % heads:
         return 0
-    if c // heads not in (16, 64) or nwg not in (2, 4) or c > 64 * nwg:
+    if c // heads not in _WGMMA_HEAD_SIZES or nwg not in (2, 4) or \
+            c > 64 * nwg:
         return 0
     t = 128 * c  # one 64 x C bf16 tensor
-    ring = 5 * t
+    ring = t + 4 * _head_tiles_bytes(c, heads)
     cs = ring + nwg * 2 * 4096 + (nwg * 8192 if t < nwg * 8192 else 0)
     # dy [64][C + 4] f32 and the column sums' scratch must end before the
     # rings
     if _cdiv(256 * (c + 4), 128) * 128 + 3 * nwg * 128 * 4 > ring:
         return 0
     colp = cs + nwg * 1024  # the block's running column partials
-    return colp + _cdiv(24 * c, 128) * 128 + 2 * 256 + nwg * 16 + 1024
+    total = colp + _cdiv(24 * c, 128) * 128 + 2 * 256 + nwg * 16 + 1024
+    return total if total <= _SMEM_LIMIT else 0
 
 
 def _kernel_bwd_smem(n: int, c: int, heads: int, nwg: int) -> int:
@@ -572,9 +605,15 @@ def _attention_bwd_plan(b: int, h: int, w: int, c: int, heads: int,
     `plans`, NVIDIA H100 80GB HBM3 at 700 W): two warpgroups took 6-20 %
     less device time than four where both fit; one window per block (a
     partial row per window) ran 0-6 % faster per call, sums included, than
-    this plan, whose partial at dec1 is 13x smaller (PERF.md §6). Else
-    `_K3_BASE_PLAN`, the first kernel: f32, and head sizes other than
-    `_WGMMA_HEAD_SIZES`."""
+    this plan, whose partial at dec1 is 13x smaller (PERF.md §6). At embed
+    32's four groups on the form (head sizes 32 and 8, `--embed 32`) the
+    plan's call, sums included, was the fastest or within 0.6 % of it at
+    enc1, bott and dec0; at dec1 one window per block ran 9 % faster with
+    a partial 13x larger (424 MB against 33 MB at B=8), so the rule stays
+    one for all head sizes. Else
+    `_K3_BASE_PLAN`, the first kernel: f32, head sizes other than
+    `_WGMMA_HEAD_SIZES`, and C other than 64, 128 and 256 (embed 32's
+    enc0, C = 32)."""
     if bf16 and h % ws == 0 and w % ws == 0 and \
             c % heads == 0 and c // heads in _WGMMA_HEAD_SIZES:
         for nwg in (2, 4):
@@ -624,8 +663,9 @@ def window_attention_bwd(x4, g4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
 def _attention_bwd_launch(x4, g4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
                           bias, mask, heads, ws, residual, plan):
     """Launch K3 on the map with `plan` (see `_attention_bwd_plan`), then
-    the sums: the wgmma form counts in `_attention_bwd_launch.wgmma`, the
-    first kernel in `_attention_bwd_launch.base`."""
+    the sums: the wgmma form counts in `_attention_bwd_launch.wgmma`
+    (`.narrow` at head sizes 8 and 32), the first kernel in
+    `_attention_bwd_launch.base`."""
     _check_kernel_shape(x4, heads, ws, mask)
     b, h, w, c = x4.shape
     n = ws * ws
@@ -640,7 +680,6 @@ def _attention_bwd_launch(x4, g4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
     if nwg:
         err = lib.fbanet_window_attention_bwd_wgmma(
             *ptrs, *geom, nwg, wpb, _build.stream(x4))
-        _attention_bwd_launch.wgmma.launches += 1
     else:
         bf16 = int(x4.dtype == torch.bfloat16)
         if lib.fbanet_window_attention_bwd_group(n, c, heads, bf16, 0) == 0:
@@ -651,13 +690,14 @@ def _attention_bwd_launch(x4, g4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
                          heads, ws)
         err = lib.fbanet_window_attention_bwd(*ptrs, *geom, bf16,
                                               _build.stream(x4))
-        _attention_bwd_launch.base.launches += 1
     _build.check(err, "window_attention_bwd")
+    _form_count(_attention_bwd_launch, nwg, c, heads).launches += 1
     return (scratch[0], *_bwd_sums(g4, *scratch[1:], heads, n))
 
 
 # launch counts per form, kept as the wrappers keep theirs
 _attention_bwd_launch.wgmma = SimpleNamespace(launches=0)
+_attention_bwd_launch.narrow = SimpleNamespace(launches=0)
 _attention_bwd_launch.base = SimpleNamespace(launches=0)
 window_attention_bwd.launches = 0
 
@@ -783,14 +823,12 @@ def _launch_windows(x, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
         err = lib.fbanet_window_attention_wgmma_windows(
             x.data_ptr(), out.data_ptr(), *ptrs, g, n, c, heads, nw, nwg,
             wpb, staged, _build.stream(x))
-        form = fused_window_attention_2d.wgmma
     else:
         err = lib.fbanet_window_attention_windows(
             x.data_ptr(), out.data_ptr(), *ptrs, g, n, c, heads, nw, bf16,
             _build.stream(x))
-        form = fused_window_attention_2d.base
     _build.check(err, "fused_window_attention")
-    form.launches += 1
+    _form_count(fused_window_attention_2d, nwg, c, heads).launches += 1
     return out
 
 
@@ -873,9 +911,7 @@ def window_attention_bwd_windows(x, g, ln_scale, ln_bias, wq, bq, wkv, bkv,
     out = launch_bwd_windows(x, g, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj,
                              bias, mask, heads=heads,
                              windows_per_image=windows_per_image, plan=plan)
-    form = _attention_bwd_launch.wgmma if plan[0] else \
-        _attention_bwd_launch.base
-    form.launches += 1
+    _form_count(_attention_bwd_launch, plan[0], c, heads).launches += 1
     window_attention_bwd.launches += 1
     return out
 
@@ -947,6 +983,7 @@ fused_window_attention_2d.launches = 0
 # launch counts per form, kept as the wrappers keep theirs, and the composed
 # branch's calls
 fused_window_attention_2d.wgmma = SimpleNamespace(launches=0)
+fused_window_attention_2d.narrow = SimpleNamespace(launches=0)
 fused_window_attention_2d.base = SimpleNamespace(launches=0)
 fused_window_attention_2d.composed = SimpleNamespace(launches=0)
 

@@ -1,8 +1,9 @@
 """K1 (`fused_window_attention_2d`'s forward, the fused window attention)
-at the five SwinGroup shapes of the published model, on the card.
+at the five SwinGroup shapes of the published model (`--embed
+32`: of the configuration's default width), on the card.
 
     python fbanet_tpu_torch/tools/measure_attention.py [shapes] [plans]
-        [--batch 8]
+        [--batch 8] [--embed 64]
 
 - shapes: per group, bf16, shift mask and residual on: K1's ms (CUDA
   events around 10 back-to-back calls), its device ms (every kernel of the
@@ -39,6 +40,7 @@ from fbanet_tpu_torch.tools.measure_attention_bwd import (  # noqa: E402
     case,
     work,
 )
+from fbanet_tpu_torch.tools import measure_reduce  # noqa: E402
 from fbanet_tpu_torch.tools.measure_reduce import (  # noqa: E402
     GROUPS,
     WS,
@@ -134,14 +136,14 @@ def candidates(batch: int, h: int, c: int, heads: int, sms: int,
     return out
 
 
-def plans(batch: int = 8) -> list[dict]:
+def plans(batch: int = 8, groups: tuple = GROUPS) -> list[dict]:
     """K1's device ms and error per group under every plan of
     `candidates`."""
     from fbanet_tpu_torch.ops import attention
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out, bad = [], []
-    for i, (name, h, c, heads) in enumerate(GROUPS):
+    for i, (name, h, c, heads) in enumerate(groups):
         x, p = _inputs(batch, h, c, heads, 720 + i)
         chosen = attention._attention_plan(
             batch, h, h, c, heads, sms=sms,
@@ -180,15 +182,20 @@ def main(argv=None) -> dict:
     ap.add_argument("modes", nargs="*", default=["shapes"],
                     choices=["shapes", "plans"])
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--embed", type=int, default=64,
+                    help="the model width whose five groups are measured "
+                         "(measure_reduce.groups: 64 published, 32 the "
+                         "configuration's default)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("measure_attention: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False  # full-f32 plain products
     res = {}
+    groups = measure_reduce.groups(args.embed)
     if "shapes" in args.modes:
-        res["shapes"] = shapes(args.batch)
+        res["shapes"] = shapes(args.batch, groups)
     if "plans" in args.modes:
-        res["plans"] = plans(args.batch)
+        res["plans"] = plans(args.batch, groups)
     res["device"] = torch.cuda.get_device_name(0)
     log(json.dumps(res))
     return res

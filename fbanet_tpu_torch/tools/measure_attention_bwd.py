@@ -1,8 +1,9 @@
 """K3 (`window_attention_bwd`, the attention backward with its fixed-order
-sums) at the five SwinGroup shapes of the published model, on the card.
+sums) at the five SwinGroup shapes of the published model (`--embed
+32`: of the configuration's default width), on the card.
 
     python fbanet_tpu_torch/tools/measure_attention_bwd.py [shapes] [plans]
-        [--batch 8]
+        [--batch 8] [--embed 64]
 
 - shapes: per group, bf16, shift mask and residual on: K3's ms (CUDA
   events around 10 back-to-back calls, the sums included), its device ms
@@ -11,10 +12,12 @@ sums) at the five SwinGroup shapes of the published model, on the card.
   the share of it the device time reaches, the plan, every gradient
   against the plain backward (3e-2, relative as chip_smoke.py holds it)
   and a bitwise repeat. Raises if one is off.
-- plans: K3's device ms (the K3 kernel alone) at each group under the
-  first kernel and under the wgmma form with each number of warpgroups its
-  shared memory takes and three numbers of windows per block (the plan's,
-  half of it, and one); the plan `window_attention_bwd` picks is marked.
+- plans: K3's device ms (the K3 kernel alone, and the whole call: K3 with
+  the sums of its partial rows and scratch) at each group under the first
+  kernel and under the wgmma form with each number of warpgroups its
+  shared memory takes and four numbers of windows per block (the plan's,
+  a half and a quarter of it, and one); the plan `window_attention_bwd`
+  picks is marked.
   Each plan's gradients are held against the plain backward as in shapes
   (raises if one is off). `measure_bwd.py blocks` runs this mode.
 
@@ -35,6 +38,7 @@ import torch
 if "fbanet_tpu_torch" not in sys.modules:  # run by its path
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
+from fbanet_tpu_torch.tools import measure_reduce  # noqa: E402
 from fbanet_tpu_torch.tools.measure_reduce import (  # noqa: E402
     GROUPS,
     WS,
@@ -144,8 +148,8 @@ def candidates(batch: int, h: int, c: int, heads: int, sms: int,
                smem=None) -> list:
     """The plans `plans` times: the first kernel, then per number of
     warpgroups the kernel's shared memory (`smem`, default the kernel's
-    own) takes, the plan's windows per block (as many blocks as the card
-    holds at once), half of it and one."""
+    own) takes, the windows per block that give as many blocks as the card
+    holds at once, a half and a quarter of it, and one."""
     from fbanet_tpu_torch.ops import attention
 
     smem_fn = smem or attention._kernel_bwd_smem
@@ -155,19 +159,19 @@ def candidates(batch: int, h: int, c: int, heads: int, sms: int,
         if not 0 < smem_fn(WS * WS, c, heads, nwg) <= attention._SMEM_LIMIT:
             continue
         fill = -(-windows // ((4 // nwg) * sms))
-        out += [(nwg, wpb) for wpb in sorted({fill, max(1, fill // 2), 1},
-                                             reverse=True)]
+        out += [(nwg, wpb) for wpb in sorted(
+            {fill, max(1, fill // 2), max(1, fill // 4), 1}, reverse=True)]
     return out
 
 
-def plans(batch: int = 8) -> list[dict]:
+def plans(batch: int = 8, groups: tuple = GROUPS) -> list[dict]:
     """K3's device ms and error per group under every plan of
     `candidates`."""
     from fbanet_tpu_torch.ops import attention
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out, bad = [], []
-    for i, (name, h, c, heads) in enumerate(GROUPS):
+    for i, (name, h, c, heads) in enumerate(groups):
         x, g, p = case(batch, h, c, heads, "cuda", 700 + i)
         chosen = attention._attention_bwd_plan(
             batch, h, h, c, heads, sms=sms, smem=attention._kernel_bwd_smem)
@@ -182,7 +186,8 @@ def plans(batch: int = 8) -> list[dict]:
                        max_rel_err=max(rel_errors(got, ref)),
                        bitwise_repeat=all(torch.equal(a, b)
                                           for a, b in zip(got, again)),
-                       device_ms=device_ms(run, keys=K3_KEYS))
+                       device_ms=device_ms(run, keys=K3_KEYS),
+                       call_device_ms=device_ms(run))
             if not (row["max_rel_err"] <= TOL and row["bitwise_repeat"]):
                 bad.append((name, plan))
             rows.append(row)
@@ -191,7 +196,8 @@ def plans(batch: int = 8) -> list[dict]:
         out.append(dict(group=name, plans=rows))
         log(f"K3 plans {name} B={batch}: " + "; ".join(
             f"{r['plan']}{'*' if r['chosen'] else ''} {r['device_ms']:.4f} "
-            f"(err {r['max_rel_err']:.2e}, repeat {r['bitwise_repeat']})"
+            f"(call {r['call_device_ms']:.4f}, err {r['max_rel_err']:.2e}, "
+            f"repeat {r['bitwise_repeat']})"
             for r in rows))
         del x, g, p, ref
     if bad:
@@ -205,15 +211,20 @@ def main(argv=None) -> dict:
     ap.add_argument("modes", nargs="*", default=["shapes"],
                     choices=["shapes", "plans"])
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--embed", type=int, default=64,
+                    help="the model width whose five groups are measured "
+                         "(measure_reduce.groups: 64 published, 32 the "
+                         "configuration's default)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("measure_attention_bwd: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False  # full-f32 plain products
     res = {}
+    groups = measure_reduce.groups(args.embed)
     if "shapes" in args.modes:
-        res["shapes"] = shapes(args.batch)
+        res["shapes"] = shapes(args.batch, groups)
     if "plans" in args.modes:
-        res["plans"] = plans(args.batch)
+        res["plans"] = plans(args.batch, groups)
     res["device"] = torch.cuda.get_device_name(0)
     log(json.dumps(res))
     return res

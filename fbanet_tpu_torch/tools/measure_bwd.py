@@ -154,14 +154,23 @@ def grad_wrapper(fn, n_args: int):
 _SKIP = {"recompute": 1, "dsoftmax": 2, "wgrads": 4, "dxchain": 8, "core": 16}
 
 
+# head sizes K11's wgmma form is built at (csrc/attention_bwd_wgmma_
+# ablation*.cu); K3's form also takes 8 and 32, where K11 keeps the first
+# kernel
+_K11_HEAD_SIZES = (16, 64)
+
+
 def ablation_plan(x, heads: int, smem=_kernel_bwd_smem):
     """K11's form for bf16 windows x [G, N, C]: K3's own plan for them
     (`_attention_bwd_plan`, as `window_attention_bwd_windows` asks it, with
     the kernel's shared memory or `smem`, its Python model), so that each
-    variant runs on the form K3 runs on at that shape."""
+    variant runs on the form K3 runs on at that shape; K3's first kernel,
+    `_K3_BASE_PLAN`, at head sizes K11's wgmma form is not built for
+    (`_K11_HEAD_SIZES`)."""
     gsz, n, c = x.shape
     ws = math.isqrt(n)
-    if ws * ws != n:
+    if ws * ws != n or heads < 1 or c % heads or \
+            c // heads not in _K11_HEAD_SIZES:
         return _K3_BASE_PLAN
     return _attention_bwd_plan(gsz, ws, ws, c, heads, ws, True, smem=smem)
 
@@ -261,8 +270,8 @@ def _rel_errs(got, ref) -> list[float]:
 
 def run_check(device: str) -> None:
     """K11's full variant against K3's windowed entry under the first
-    kernel (the form K3's plan keeps for this head size, 32) on the
-    script's shape, every output."""
+    kernel (the form K11 keeps for this head size, 32: `ablation_plan`) on
+    the script's shape, every output."""
     c, res, heads = 64, 16, 2
     x, g, *params = _win_args(c, res, heads, device=device)
     mine = abl_backward(c, res, heads)(x, g, *params)

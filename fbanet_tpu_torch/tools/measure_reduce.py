@@ -2,7 +2,7 @@
 step, and that step itself, on the card.
 
     python fbanet_tpu_torch/tools/measure_reduce.py [shapes] [plans] [step]
-        [--batch 8] [--size 160] [--tree DIR] [--device cpu]
+        [--batch 8] [--size 160] [--embed 64] [--tree DIR] [--device cpu]
 
 - shapes: R1 at the 25 (group, product) shapes of a train step (per
   SwinLayer, K3's dWq (C, C), dWkv (2C, C), dWproj (C, C) and K4's dW1
@@ -20,10 +20,12 @@ step, and that step itself, on the card.
   candidate plan (64/128-wide tiles x three slice counts), the one
   `token_matmul` picks marked, beside the library call's.
 - step: the chip_smoke train configuration (FBANet-64, 14 frames, 160 px,
-  bf16, drop_path 0.1, AdamW) at B=`--batch`: ms per step (host clock
-  around synchronised steps, median of the last 4 of 5), the device ms of
-  R1 and R2 and of the whole step in a torch.profiler trace of one step,
-  and the serving forward's ms (no gradient, median of 5 after one).
+  bf16, drop_path 0.1, AdamW; `--embed 32`: FBANet-32) at B=`--batch`:
+  ms per step (host clock around synchronised steps, median of the last 4
+  of 5), the device ms of the whole step in a torch.profiler trace of one
+  step and of the port's kernels in it by form (K1-K4's wgmma forms and
+  first kernels, R1, R2) and of the rest, and the serving forward's ms
+  (no gradient, median of 5 after one).
 
 `--tree DIR` imports `fbanet_tpu_torch` from the checkout at DIR (its
 kernels build there), so that one call can alternate two trees: run this
@@ -327,16 +329,27 @@ def plans(batch: int = 8, size: int = 160) -> list[dict]:
     return out
 
 
-def step(batch: int = 8, device: str = "cuda") -> dict:
+# kernel names in a step's trace, by the port's kernels and their forms
+STEP_KERNELS = (("K1", "attention_wgmma_kernel"),
+                ("K1-base", "window_attention_bf16"),
+                ("K2", "leff_wgmma"), ("K2-base", "leff_bf16"),
+                ("K3", "attention_bwd_wgmma"),
+                ("K3-base", "window_attention_bwd"),
+                ("K4", "leff_bwd"), ("K4", "leff_ln_bwd"),
+                ("R1", "token_matmul"), ("R2", "column_sum"))
+
+
+def step(batch: int = 8, device: str = "cuda", embed: int = 64) -> dict:
     """The B=`batch` train step and serving forward of chip_smoke's
-    configuration: {step_ms, step_device_ms, r1_device_ms, r2_device_ms,
-    forward_ms}."""
+    configuration at width `embed`: {step_ms, step_device_ms,
+    r1_device_ms, r2_device_ms, kernels_device_ms (by `STEP_KERNELS`,
+    "other" for the rest), forward_ms}."""
     from fbanet_tpu_torch.config import TrainConfig
     from fbanet_tpu_torch.models import ModelConfig, create_model
     from fbanet_tpu_torch.train import make_optimizer, make_train_step
     from fbanet_tpu_torch.utils.weights import random_state_dict
 
-    cfg = ModelConfig(num_frames=14, img_size=160, embed_dim=64,
+    cfg = ModelConfig(num_frames=14, img_size=160, embed_dim=embed,
                       window_size=8, dtype="bfloat16", drop_path_rate=0.1)
     tcfg = TrainConfig(batch_size=batch, lr_initial=1e-4, optimizer="adamw")
     model = create_model(cfg, device=device, seed=0)
@@ -365,6 +378,7 @@ def step(batch: int = 8, device: str = "cuda") -> dict:
                                  ProfilerActivity.CUDA]) as prof:
             float(train_step(lr, hr, gen, tcfg.lr_initial))
         total = r1 = r2 = 0.0
+        kernels = {}
         for e in prof.key_averages():
             # kernels only: a user annotation's span (torch's
             # `Optimizer.step#AdamW.step`) covers kernels counted apart
@@ -376,8 +390,11 @@ def step(batch: int = 8, device: str = "cuda") -> dict:
             total += us
             r1 += us * ("token_matmul" in e.key)
             r2 += us * ("column_sum" in e.key)
+            name = next((k for k, key in STEP_KERNELS if key in e.key),
+                        "other")
+            kernels[name] = kernels.get(name, 0.0) + us / 1e3
         out.update(step_device_ms=total / 1e3, r1_device_ms=r1 / 1e3,
-                   r2_device_ms=r2 / 1e3)
+                   r2_device_ms=r2 / 1e3, kernels_device_ms=kernels)
     fwd = []
     with torch.no_grad():
         for _ in range(6):
@@ -399,6 +416,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--size", type=int, default=160,
                     help="image size the group resolutions scale with "
                          "(shapes only)")
+    ap.add_argument("--embed", type=int, default=64,
+                    help="model width of the step (64 published, 32 the "
+                         "configuration's default)")
     ap.add_argument("--tree", default=None,
                     help="import fbanet_tpu_torch from this checkout "
                          "(default: the one holding this file)")
@@ -420,7 +440,7 @@ def main(argv=None) -> dict:
     if "plans" in args.modes:
         res["plans"] = plans(args.batch, args.size)
     if "step" in args.modes:
-        res["step"] = step(args.batch, args.device)
+        res["step"] = step(args.batch, args.device, args.embed)
     if args.device == "cuda":
         res["device"] = torch.cuda.get_device_name(0)
     log(json.dumps({k: v for k, v in res.items()}))

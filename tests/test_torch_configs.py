@@ -27,8 +27,9 @@
   the JAX package's `flax_to_torch_state_dict`, loading strictly; the
   composed route (`--att_se --token_projection conv`) and window 10's
   composed branch also in bf16, within the bf16 limits above.
-- Plans, on the CPU: K1's and K3's plans keep FBANet-32's head sizes (8 and
-  32) on the first kernels, R1's plan covers its 32-wide weight gradients,
+- Plans, on the CPU: K1's and K3's plans send FBANet-32's head sizes (8 and
+  32) to the wgmma forms in bf16 and keep enc0 (C = 32) and f32 on the
+  first kernels, R1's plan covers its 32-wide weight gradients,
   and R1's check refuses a 32-wide meta tensor for its device, not for its
   width.
 
@@ -285,17 +286,25 @@ def test_flag_model_matches_jax(flag, dtype):
 
 
 def test_first_kernel_plans_at_embed32():
-    """K1's and K3's plans keep FBANet-32's five groups (head size 32 at
-    enc0 / enc1, 8 at the others) on the first kernels, in bf16 as in f32,
-    at B=2 and B=8; the wgmma forms keep FBANet-64's."""
+    """K1's and K3's plans keep FBANet-32's enc0 (C = 32, which no wgmma
+    form takes) and every group in f32 on the first kernels, and send its
+    other four groups (head size 32 at enc1, 8 at the others) to the wgmma
+    forms in bf16, at B=2 and B=8; the wgmma forms keep FBANet-64's."""
     for batch in (2, 8):
         for (_name, h, c, heads), (_n, h64, c64, heads64) in zip(
                 groups(32), groups(64)):
-            for bf16 in (True, False):
-                assert attention._attention_plan(
-                    batch, h, h, c, heads, 8, bf16) == attention._K1_BASE_PLAN
-                assert attention._attention_bwd_plan(
-                    batch, h, h, c, heads, 8, bf16) == attention._K3_BASE_PLAN
+            assert attention._attention_plan(
+                batch, h, h, c, heads, 8, False) == attention._K1_BASE_PLAN
+            assert attention._attention_bwd_plan(
+                batch, h, h, c, heads, 8, False) == attention._K3_BASE_PLAN
+            k1 = attention._attention_plan(batch, h, h, c, heads, 8, True)
+            k3 = attention._attention_bwd_plan(batch, h, h, c, heads, 8,
+                                               True)
+            if c == 32:
+                assert (k1, k3) == (attention._K1_BASE_PLAN,
+                                    attention._K3_BASE_PLAN)
+            else:
+                assert k1[0] > 0 and k3[0] > 0
             assert attention._attention_plan(batch, h64, h64, c64,
                                              heads64)[0] > 0
             assert attention._attention_bwd_plan(batch, h64, h64, c64,

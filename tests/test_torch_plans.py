@@ -1,10 +1,13 @@
 """The plans of K1's, K2's and K3's wgmma forms on the CPU, without JAX:
-which form and blocks each shape gets, the shared memory each plan needs
+which form and blocks each shape gets (FBANet-64's five groups, and
+FBANet-32's: K1 and K3 at head sizes 8 and 32), the shared memory each plan
+needs
 (from the Python models of the kernels' own `*_smem` functions, which
 chip_smoke.py holds equal to the kernels'), the window-to-block assignment
 of K1's and K3's forms, the order of K3's per-block bias partial's sums,
-the forms K11, K8, K10, K7 and K9 take (K3's, K2's and K1's own plans), and
-what the new wrappers refuse.
+the forms K11, K8, K10, K7 and K9 take (K3's, K2's and K1's own plans, the
+first kernels where their wgmma forms are not built), which count each
+launch lands in, and what the new wrappers refuse.
 
 The kernels run only on the card, where chip_smoke.py and
 tools/measure_attention.py / tools/measure_leff.py /
@@ -79,7 +82,7 @@ def test_plans_keep_the_first_kernels_for_what_the_wgmma_forms_refuse():
     assert leff._leff_plan(2, 24, 16, 64, 256) == (8, 8, 64)  # H % 16 != 0
     assert attention._attention_bwd_plan(2, 80, 80, 128, 2,
                                          bf16=False) == base3
-    assert attention._attention_bwd_plan(2, 16, 16, 128, 4) == base3  # dh 32
+    assert attention._attention_bwd_plan(2, 16, 16, 192, 8) == base3  # dh 24
     assert attention._attention_bwd_plan(2, 16, 16, 96, 6) == base3  # C 96
     assert attention._attention_bwd_plan(2, 28, 28, 64, 1, ws=7) == base3
     assert attention._attention_bwd_plan(2, 12, 16, 64, 1) == base3  # H % 8
@@ -114,8 +117,8 @@ def test_plans_size_with_the_given_smem():
 def test_smem_models_refuse_what_the_kernels_do_not_take():
     """The layouts' limits: K2 at most four 64 x 64 output pieces a tile
     (16 x 8 tiles at C = 256 need 8), only the instantiated forms; K3 only
-    64-token windows, head size 16 or 64, two warpgroups only up to
-    C = 128 (one 64-column piece of dy each)."""
+    64-token windows, C 64, 128 or 256, head size 8, 16, 32 or 64, two
+    warpgroups only up to C = 128 (one 64-column piece of dy each)."""
     assert leff._leff_smem(256, 16, 8, 64) == 0
     assert leff._leff_smem(128, 16, 16, 64) == 0  # not a form
     assert leff._leff_smem(128, 8, 8, 16) == 0  # not a form
@@ -128,7 +131,8 @@ def test_smem_models_refuse_what_the_kernels_do_not_take():
                 assert attention._attention_bwd_smem(64, c, heads,
                                                      nwg) <= SMEM_LIMIT
     assert attention._attention_bwd_smem(49, 64, 1, 4) == 0
-    assert attention._attention_bwd_smem(64, 128, 4, 4) == 0  # dh 32
+    assert attention._attention_bwd_smem(64, 192, 8, 4) == 0  # dh 24
+    assert attention._attention_bwd_smem(64, 32, 1, 4) == 0  # C 32
     assert attention._attention_bwd_smem(64, 256, 16, 2) == 0
     assert attention._attention_bwd_smem(64, 256, 16, 3) == 0
 
@@ -220,7 +224,7 @@ def test_attention_plan_at_the_group_shapes(h, c, heads, batch):
 
 @pytest.mark.parametrize("args,kw", [
     ((2, 80, 80, 128, 2), dict(bf16=False)),  # f32
-    ((2, 16, 16, 128, 4), {}),  # head size 32
+    ((2, 16, 16, 32, 1), {}),  # head size 32 at C = 32 (embed 32's enc0)
     ((2, 16, 16, 96, 6), {}),  # C not a multiple of 64
     ((2, 28, 28, 64, 1), dict(ws=7)),  # 49-token windows
     ((2, 12, 16, 64, 1), {}),  # H not a multiple of the window
@@ -254,12 +258,14 @@ def test_attention_plan_sizes_with_the_given_smem():
 
 def test_attention_smem_refuses_what_the_kernel_does_not_take():
     """K1's wgmma form: only 64-token windows, C 64, 128 or 256, head size
-    16 or 64, two or four warpgroups, weights staged or streamed, and at
-    most the H100's 227 KB a block (staged weights fit up to C = 128)."""
+    8, 16, 32 or 64, two or four warpgroups, weights staged or streamed,
+    and at most the H100's 227 KB a block (staged weights fit up to
+    C = 128)."""
     assert attention._attention_smem(49, 64, 1, 2, 0) == 0
     assert attention._attention_smem(64, 96, 6, 2, 0) == 0
     assert attention._attention_smem(64, 320, 20, 4, 0) == 0
-    assert attention._attention_smem(64, 128, 4, 2, 0) == 0  # dh 32
+    assert attention._attention_smem(64, 32, 1, 2, 0) == 0  # C 32
+    assert attention._attention_smem(64, 192, 8, 2, 0) == 0  # dh 24
     assert attention._attention_smem(64, 128, 2, 3, 0) == 0
     assert attention._attention_smem(64, 128, 2, 2, 2) == 0
     assert attention._attention_smem(64, 256, 16, 4, 1) == 0  # 512 KB
@@ -275,6 +281,121 @@ def test_attention_smem_refuses_what_the_kernel_does_not_take():
         4 * 8192 + 16384 + 8 * 64 * 64 + 8 + 1024
     assert attention._attention_smem(64, 256, 16, 4, 0) == \
         4 * 32768 + 16384 + 4 * 4 * 4096 + 16 * 8 + 1024
+
+
+# FBANet-32 (embed 32, the configuration's default): (H, C, heads) of its
+# five groups at 160 px, head sizes 32, 32, 8, 8 and 8
+GROUPS32 = [(160, 32, 1), (80, 64, 2), (40, 128, 16), (80, 128, 16),
+            (160, 64, 8)]
+
+
+@pytest.mark.parametrize("batch", [2, 8])
+@pytest.mark.parametrize("h,c,heads", GROUPS32, ids=IDS)
+def test_attention_plans_at_embed32(h, c, heads, batch):
+    """K1's and K3's plans at FBANet-32's groups: in bf16 the wgmma forms at
+    enc1 to dec1 (head sizes 32 and 8; K1 staged by two warpgroups at
+    C = 64, streamed by four at C = 128, where head size 8's padded tiles
+    leave the staged weights no room; K3 on two warpgroups at C = 64, four
+    at C = 128), within the H100's shared memory at their residency, the
+    windows dealt to at most as many blocks as the card holds at once; the
+    first kernels at enc0 (C = 32) and in f32."""
+    base1, base3 = attention._K1_BASE_PLAN, attention._K3_BASE_PLAN
+    assert attention._attention_plan(batch, h, h, c, heads,
+                                     bf16=False) == base1
+    assert attention._attention_bwd_plan(batch, h, h, c, heads,
+                                         bf16=False) == base3
+    k1 = attention._attention_plan(batch, h, h, c, heads)
+    k3 = attention._attention_bwd_plan(batch, h, h, c, heads)
+    if c == 32:
+        assert (k1, k3) == (base1, base3)
+        return
+    assert (k1[0], k1[2]) == {64: (2, 1), 128: (4, 0)}[c]
+    assert k3[0] == {64: 2, 128: 4}[c]
+    windows = batch * (h // WS) ** 2
+    for (nwg, wpb), size in (
+            (k1[:2], attention._attention_smem(WS * WS, c, heads, k1[0],
+                                               k1[2])),
+            (k3, attention._attention_bwd_smem(WS * WS, c, heads, k3[0]))):
+        resident = 4 // nwg
+        assert 0 < size <= SMEM_LIMIT
+        assert resident * (size + 1024) <= attention._SM_SMEM
+        assert len(attention._window_blocks(windows, wpb)) <= resident * SMS
+        assert wpb == 1 or -(-windows // (wpb - 1)) > resident * SMS
+
+
+def test_form_counts_split_the_head_sizes():
+    """A launch counts in its form's count: the first kernel in `.base`,
+    the wgmma form at head sizes 8 and 32 (embed 32's) in `.narrow`, at 16
+    and 64 in `.wgmma`, for K1 and K3 alike."""
+    for counted in (attention.fused_window_attention_2d,
+                    attention._attention_bwd_launch):
+        for nwg, c, heads, want in ((0, 64, 2, "base"), (0, 64, 1, "base"),
+                                    (2, 64, 2, "narrow"),
+                                    (4, 128, 16, "narrow"),
+                                    (2, 64, 8, "narrow"), (2, 64, 1, "wgmma"),
+                                    (4, 256, 16, "wgmma")):
+            assert attention._form_count(counted, nwg, c, heads) is \
+                getattr(counted, want)
+
+
+def test_smem_models_at_head_sizes_8_and_32():
+    """The layouts of K1's and K3's wgmma forms at embed 32's head sizes,
+    byte for byte: head size 32 holds q, k, v (and K3's do) as C columns,
+    as 16 and 64 do; head size 8 as 2 C, each head zero-padded to 16
+    columns, so K1's staged weights fit at C = 64 only. Every size within
+    the H100's 227 KB a block, or refused."""
+    for c in (64, 128, 256):
+        for heads in (c // 8, c // 32):
+            for nwg in (2, 4):
+                for staged in (0, 1):
+                    assert attention._attention_smem(
+                        64, c, heads, nwg, staged) <= SMEM_LIMIT
+                assert attention._attention_bwd_smem(64, c, heads,
+                                                     nwg) <= SMEM_LIMIT
+    for nwg in (2, 4):
+        assert attention._attention_smem(64, 64, 2, nwg, 1) == \
+            attention._attention_smem(64, 64, 1, nwg, 1)
+        assert attention._attention_bwd_smem(64, 64, 2, nwg) == \
+            attention._attention_bwd_smem(64, 64, 1, nwg)
+    # K1: y, q, k, v (2 C each), the mask, weights, barriers, alignment
+    assert attention._attention_smem(64, 64, 8, 2, 1) == \
+        8192 + 3 * 16384 + 16384 + 8 * 64 * 64 + 8 + 1024
+    assert attention._attention_smem(64, 128, 16, 4, 0) == \
+        16384 + 3 * 32768 + 16384 + 4 * 4 * 4096 + 16 * 8 + 1024
+    assert attention._attention_smem(64, 128, 16, 4, 1) == 0  # 278 KB
+    # K3: y | g, do, q, k, v (2 C each), the rings, the p tiles (over
+    # y | g where it holds them), column scratch and partials, LN
+    # statistics, barriers, alignment
+    assert attention._attention_bwd_smem(64, 128, 16, 4) == \
+        16384 + 4 * 32768 + 4 * 2 * 4096 + 4 * 8192 + 4 * 1024 + 3072 \
+        + 2 * 256 + 4 * 16 + 1024
+    assert attention._attention_bwd_smem(64, 64, 8, 2) == \
+        8192 + 4 * 16384 + 2 * 2 * 4096 + 2 * 8192 + 2 * 1024 + 1536 \
+        + 2 * 256 + 2 * 16 + 1024
+
+
+@pytest.mark.parametrize("h,c,heads", GROUPS32, ids=IDS)
+def test_measurement_forms_at_embed32(h, c, heads):
+    """K7, K9 and K11 at FBANet-32's groups name no instantiation their
+    wgmma forms are not built for: head sizes 8 and 32 (and enc0's C = 32)
+    keep the first kernels there, while K1 and K3 themselves take their
+    wgmma forms at enc1 to dec1."""
+    x = torch.empty(8, h, h, c, device="meta", dtype=torch.bfloat16)
+    xw = torch.empty(8 * (h // WS) ** 2, WS * WS, c, device="meta",
+                     dtype=torch.bfloat16)
+    assert (attention._attention_plan(8, h, h, c, heads)[0] > 0) == (c > 32)
+    assert (attention._attention_bwd_plan(8, h, h, c, heads)[0] > 0) == \
+        (c > 32)
+    for core in measure_swin_variants.CORES:
+        assert _k7_plan(x, heads, core) == attention._K1_BASE_PLAN
+    assert _k9_plan(x, heads) == attention._K1_BASE_PLAN
+    assert measure_bwd.ablation_plan(
+        xw, heads, smem=attention._attention_bwd_smem) == \
+        attention._K3_BASE_PLAN
+    for triples in (measure_swin_variants._K7_TRIPLES,
+                    measure_swin_rates._K9_TRIPLES):
+        assert all(dh in (16, 64) for dh, _nwg, _staged in triples)
+    assert c // heads not in measure_bwd._K11_HEAD_SIZES
 
 
 def test_attention_wrappers_refuse_off_the_card():
@@ -340,8 +461,9 @@ def test_k11_takes_k3s_form(h, c, heads, batch):
 
 
 def test_k11_keeps_the_first_kernel_where_k3_does():
-    """The tool's `check` shape (C 64, 2 heads: head size 32) and windows
-    of 49 tokens stay on K3's first kernel, as K3's plan keeps them."""
+    """The tool's `check` shape (C 64, 2 heads: head size 32, which K11's
+    wgmma form is not built for, though K3's own takes it) and windows of
+    49 tokens stay on K3's first kernel."""
     smem = attention._attention_bwd_smem
     for n, c, heads in ((64, 64, 2), (49, 64, 1), (64, 96, 6)):
         xw = torch.empty(16, n, c, device="meta", dtype=torch.bfloat16)
@@ -455,9 +577,10 @@ def test_k7_lanepack_layout_adds_half_a_tensor_to_k_and_v():
 
 
 def test_k7_keeps_the_first_kernel_where_k1_does():
-    """Head size 32, C = 96 and 49-token windows stay on K1's first kernel
-    (K1's plan keeps them there; K7's wgmma form builds none of them), and
-    a triple K7 does not build (head size 16, two warpgroups) too."""
+    """Head size 32 (which K1's plan sends to the wgmma form), C = 96 and
+    49-token windows stay on K1's first kernel (K7's wgmma form builds
+    none of them), and a triple K7 does not build (head size 16, two
+    warpgroups) too."""
     mv = measure_swin_variants
     for c, heads in ((64, 2), (96, 6), (96, 3)):
         x = torch.empty(8, 80, 80, c, device="meta", dtype=torch.bfloat16)
@@ -540,9 +663,10 @@ def test_k9_takes_k1s_form(h, c, heads, batch):
 
 
 def test_k9_keeps_the_first_kernel_where_k1_does():
-    """Head size 32 and C = 96 stay on K1's first kernel (K1's plan keeps
-    them there), and so does a triple K9's wgmma form is not built for
-    (head size 16 with two warpgroups), where K1 itself takes the form."""
+    """Head size 32 and C = 96 stay on K1's first kernel (K9's wgmma form
+    is built for neither; K1 itself takes head size 32 there), and so does
+    a triple K9's wgmma form is not built for (head size 16 with two
+    warpgroups), where K1 itself takes the form."""
     for c, heads in ((64, 2), (96, 6), (96, 3)):
         x = torch.empty(8, 80, 80, c, device="meta", dtype=torch.bfloat16)
         assert _k9_plan(x, heads) == attention._K1_BASE_PLAN
