@@ -405,11 +405,12 @@ def attention_case(h, c, heads, dtype, masked, gen_seed, batch=2):
     return x, args
 
 
-def leff_case(h, c, dtype, gen_seed):
-    """Inputs of one K2 call at a main-path shape, B=2, on the card."""
+def leff_case(h, c, dtype, gen_seed, batch=2):
+    """Inputs of one K2 call at a main-path shape, B=`batch`, on the
+    card."""
     nrm = _normal_fn(gen_seed)
     ch = 4 * c
-    x = nrm((2, h, h, c), 1.0).to(dtype)
+    x = nrm((batch, h, h, c), 1.0).to(dtype)
     args = dict(ln_scale=1 + nrm((c,), 0.1), ln_bias=nrm((c,), 0.1),
                 w1=nrm((ch, c), c ** -0.5), b1=nrm((ch,), 0.1),
                 wdw=nrm((ch, 1, 3, 3), 1 / 3), bdw=nrm((ch,), 0.1),
@@ -606,15 +607,17 @@ def phase_backward(shapes) -> dict:
     """K3 and K4 (each followed by the fixed-order sums of ops.reduce)
     against their plain backwards on the card at the five SwinGroup shapes,
     B=2, f32 and bf16, K3 masked and unmasked, residual on and off, K4 in
-    bf16 under its plan and under the WMMA form; every gradient, plus
-    bitwise repeatability (two kernel runs on the same inputs). Returns per-kernel {max_abs_err, ms, plain_ms} (times summed
-    over the shapes: bf16, K3 masked, residual on)."""
+    bf16 under its plan (the wgmma form, "K4") and under the WMMA form
+    ("K4-base"); every gradient, plus bitwise repeatability (two kernel
+    runs on the same inputs). Returns per-kernel {max_abs_err, ms,
+    plain_ms} (times summed over the shapes: bf16, K3 masked, residual
+    on)."""
     import torch
 
     from fbanet_tpu_torch.ops import attention, leff
 
     res = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
-           for k in ("K3", "K3-base", "K4")}
+           for k in ("K3", "K3-base", "K4", "K4-base")}
     bounds = {k: Bound() for k in res}
     failures = []
     for c in (64, 128, 256):
@@ -628,7 +631,7 @@ def phase_backward(shapes) -> dict:
                                     f"plan {ours}")
     # K4 plans on the card with the kernel's shared-memory function; the
     # CPU tests plan with its Python model, which must agree with it
-    for c in (64, 128, 256):
+    for c in (32, 64, 128, 256):
         for th, tw, kc in leff._K4_FORMS:
             ours = leff._leff_bwd_smem(c, th, tw, kc)
             theirs = leff._kernel_smem(c, th, tw, kc)
@@ -726,9 +729,10 @@ def phase_backward(shapes) -> dict:
 
                 got, again, ref = k4(), k4(), k4_plain()
                 torch.cuda.synchronize()
-                line = check("K4", f"K4 leff bwd H={h} C={c} Ch={4 * c} "
-                             f"{dname} residual={residual} plan {plan}",
-                             got, again, ref, dname)
+                line = check("K4" if plan[0] else "K4-base",
+                             f"K4 leff bwd H={h} C={c} Ch={4 * c} {dname} "
+                             f"residual={residual} plan {plan}", got, again,
+                             ref, dname)
                 if dname == "bfloat16" and residual:
                     ms, pms = time_ms(k4), time_ms(k4_plain)
                     res["K4"]["ms"] += ms
@@ -745,10 +749,18 @@ def phase_backward(shapes) -> dict:
 
                     got, again = k4_wmma(), k4_wmma()
                     torch.cuda.synchronize()
-                    log(check("K4", f"K4 leff bwd H={h} C={c} Ch={4 * c} "
-                              f"{dname} residual={residual} plan "
-                              f"{leff._WMMA_PLAN} (WMMA form)", got, again,
-                              ref, dname))
+                    line = check("K4-base", f"K4 leff bwd H={h} C={c} "
+                                 f"Ch={4 * c} {dname} residual={residual} "
+                                 f"plan {leff._WMMA_PLAN} (WMMA form)", got,
+                                 again, ref, dname)
+                    if residual:
+                        ms = time_ms(k4_wmma)
+                        res["K4-base"]["ms"] += ms
+                        res["K4-base"]["plain_ms"] += pms
+                        bounds["K4-base"].add(*leff_work(h, c,
+                                                         backward=True))
+                        line += f" kernel_ms={ms:.4f}"
+                    log(line)
     if failures:
         raise AssertionError("backward kernel disagrees with its plain "
                              "version or does not repeat:\n"
@@ -1885,7 +1897,8 @@ def _counters():
             "K3": attention._attention_bwd_launch.wgmma,
             "K3-narrow": attention._attention_bwd_launch.narrow,
             "K3-base": attention._attention_bwd_launch.base,
-            "K4": leff.leff_bwd, "R1": reduce.token_matmul,
+            "K4": leff._leff_bwd_launch.wgmma,
+            "K4-base": leff._leff_bwd_launch.base, "R1": reduce.token_matmul,
             "R2": reduce.column_sum,
             "K5": warp_kernels.warp_burst_bilinear,
             "K6": warp_kernels.warp_burst_coords,
@@ -1975,9 +1988,9 @@ def phase_train(card: str) -> tuple[dict, float]:
         f"launches {launches}, peak {peak:.2f} GiB")
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"non-finite training loss: {losses}")
-    for name in ("K1", "K2", "K3", "K4", "K1-base"):
+    for name in ("K1", "K2", "K3", "K4", "K1-base", "K4-base"):
         counts = [s[name] for s in per_step]
-        per = 0 if name == "K1-base" else layers
+        per = 0 if name.endswith("-base") else layers
         if counts != [per * (i + 1) for i in range(5)]:
             raise AssertionError(f"{name}: cumulative launches {counts} over "
                                  f"5 steps, expected {per} per step")
@@ -2005,7 +2018,7 @@ def phase_train(card: str) -> tuple[dict, float]:
                       if p.grad is not None})
     f32_launches = {k: c.launches for k, c in counters.items()}
     log(f"train f32 B=2 step: launches {f32_launches}")
-    for name in ("K1-base", "K2-base", "K3-base", "K4"):
+    for name in ("K1-base", "K2-base", "K3-base", "K4-base"):
         if f32_launches[name] != layers:
             raise AssertionError(f"{name}: {f32_launches[name]} launches in "
                                  f"the f32 step, expected {layers}")
@@ -2182,7 +2195,7 @@ def phase_trainer(card: str) -> tuple[dict, Path]:
     def check_launches(what, got, steps, forwards):
         want = {"K1": layers * (steps + forwards),
                 "K2": layers * (steps + forwards), "K3": layers * steps,
-                "K4": layers * steps, "K1-base": 0}
+                "K4": layers * steps, "K1-base": 0, "K4-base": 0}
         bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
         if bad:
             raise AssertionError(f"trainer {what}: launches (got, expected) "
@@ -2425,7 +2438,7 @@ def phase_ddp(card: str, tree_dir: Path) -> dict:
                     if wrapped:
                         got = {k: c.launches for k, c in counters.items()}
                         want = {"K1": 20, "K2": 20, "K3": 20, "K4": 20,
-                                "K1-base": 0}
+                                "K1-base": 0, "K4-base": 0}
                         bad = {k: (got[k], v) for k, v in want.items()
                                if got[k] != v}
                         if bad:
@@ -2583,31 +2596,35 @@ def phase_ranks(card: str, work: Path) -> None:
 
 # the configs phase: every configuration the JAX model builds. FBANet-32
 # (embed 32, the configuration's default) has head size 32 at enc0 and
-# enc1 and 8 at the bottleneck, dec0 and dec1: K1's and K3's wgmma forms
-# take enc1 to dec1 in bf16 (`.narrow` counts), their first kernels enc0
-# (C = 32) and f32; weight gradients 32 wide, which R1 takes as half a
-# 64-wide tile; window 10 (N = 100) and the options of JAX's composed
-# SwinLayer run composed PyTorch ops.
+# enc1 and 8 at the bottleneck, dec0 and dec1: K1's wgmma form takes enc1
+# to dec1 in bf16 (`.narrow` counts), K3's and K4's all five groups (enc0,
+# C = 32, on their C = 32 instantiations), the first kernels of K1 and K2
+# enc0, and every first kernel f32; weight gradients 32 wide, which R1
+# takes as half a 64-wide tile; window 10 (N = 100) and the options of
+# JAX's composed SwinLayer run composed PyTorch ops.
 CONFIG_SHAPES = [(160, 32, 1), (80, 64, 2), (40, 128, 16), (80, 128, 16),
                  (160, 64, 8)]
 
 
 def configs_kernels() -> dict:
-    """K1, K1b and K3 at FBANet-32's five group shapes against their plain
-    versions, each with a bitwise repeat: under their plans (the wgmma
-    forms at enc1 to dec1 in bf16, the first kernels at enc0 and in f32)
-    at B=2 in f32 and at B=2 and B=8 in bf16, masked and not, K3's dx and
-    every parameter gradient with its sums; in bf16 the first kernels too
-    through `_K1_BASE_PLAN` / `_K3_BASE_PLAN`; K1b and K3's windowed entry
-    in bf16 at B=2, masked and not; the layout models against the kernels'
-    own sizes at head sizes 8 and 32. Then K1-K4 per group at B=8 under
-    their plans and R1 / R2 at every shape of FBANet-32's B=8 train step
+    """K1, K1b, K3 and K4 at FBANet-32's five group shapes against their
+    plain versions, each with a bitwise repeat: under their plans (in bf16
+    the wgmma forms of K1 at enc1 to dec1, of K3 and K4 at every group,
+    enc0 included; the first kernels of K1 and K2 at enc0 and of all four
+    in f32) at B=2 in f32 and at B=2 and B=8 in bf16, masked and not, K3's
+    and K4's dx and every parameter gradient with its sums; in bf16 the
+    first kernels too through `_K1_BASE_PLAN` / `_K3_BASE_PLAN` /
+    `_WMMA_PLAN`; K1b and K3's windowed entry in bf16 at B=2, masked and
+    not; the layout models against the kernels' own sizes at head sizes 8
+    and 32 and at C = 32. Then K1-K4 per group at B=8 under their plans
+    and R1 / R2 at every shape of FBANet-32's B=8 train step
     (tools/measure_*.py with `groups(32)`). Returns {kernel: {max_abs_err,
     b8 / shapes}}, with ms, plain ms and bound at B=2 (bf16, masked,
-    residual, summed over enc1 to dec1) for the wgmma forms' entries."""
+    residual, summed over K1's wgmma groups, enc1 to dec1, and K3's, enc0
+    to dec1) for the wgmma forms' entries."""
     import torch
 
-    from fbanet_tpu_torch.ops import attention
+    from fbanet_tpu_torch.ops import attention, leff
     from fbanet_tpu_torch.tools import (
         measure_attention,
         measure_attention_bwd,
@@ -2616,7 +2633,8 @@ def configs_kernels() -> dict:
         measure_reduce,
     )
 
-    res = {k: dict(max_abs_err=0.0) for k in ("K1-base", "K1b", "K3-base")}
+    res = {k: dict(max_abs_err=0.0) for k in ("K1-base", "K1b", "K3-base",
+                                              "K4", "K4-base")}
     for k in ("K1-narrow", "K3-narrow"):
         res[k] = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
                       library_ms=None)
@@ -2660,6 +2678,18 @@ def configs_kernels() -> dict:
                         failures.append(f"{what} shared memory C={c} heads="
                                         f"{heads}: kernel {theirs}, plan "
                                         f"{ours}")
+    # and at C = 32 (enc0): K3's one-head instantiation, K4's forms
+    pairs = [(f"K3 C=32 heads {heads} warpgroups {nwg}",
+              attention._attention_bwd_smem(WS * WS, 32, heads, nwg),
+              attention._kernel_bwd_smem(WS * WS, 32, heads, nwg))
+             for heads in (1, 2, 4) for nwg in (1, 2, 4)]
+    pairs += [(f"K4 C=32 form {form}", leff._leff_bwd_smem(32, *form),
+               leff._kernel_smem(32, *form)) for form in leff._K4_FORMS]
+    for what, ours, theirs in pairs:
+        log(f"configs {what}: shared memory kernel {theirs}, plan {ours}")
+        if ours != theirs:
+            failures.append(f"{what} shared memory: kernel {theirs}, plan "
+                            f"{ours}")
     for i, (h, c, heads) in enumerate(CONFIG_SHAPES):
         for dname in ("float32", "bfloat16"):
             dtype = getattr(torch, dname)
@@ -2674,12 +2704,14 @@ def configs_kernels() -> dict:
                     bplan = attention._attention_bwd_plan(
                         batch, h, h, c, heads, WS, bf16,
                         smem=attention._kernel_bwd_smem)
-                    wgmma = bf16 and c > 32  # enc1 to dec1 in bf16
-                    if (plan[0] > 0) != wgmma or (bplan[0] > 0) != wgmma:
+                    # K1 (and K2) on the wgmma forms at enc1 to dec1 in
+                    # bf16, K3 (and K4) at every group in bf16
+                    wgmma = bf16 and c > 32
+                    if (plan[0] > 0) != wgmma or (bplan[0] > 0) != bf16:
                         failures.append(
                             f"B={batch} H={h} C={c} heads={heads} {dname}: "
-                            f"plans {plan} {bplan}, not the "
-                            f"{'wgmma forms' if wgmma else 'first kernels'}")
+                            f"plans K1 {plan} K3 {bplan}, not the wgmma "
+                            f"forms of K1 {wgmma} and K3 {bf16}")
                     k1_name = "K1-narrow" if plan[0] else "K1-base"
                     k3_name = "K3-narrow" if bplan[0] else "K3-base"
 
@@ -2736,12 +2768,12 @@ def configs_kernels() -> dict:
                     record_bwd(k3_name, f"configs K3 B={batch} H={h} C={c} "
                                f"heads={heads} {dname} masked={masked} plan "
                                f"{bplan}", got, again, ref, dname)
-                    if timed:
+                    if bf16 and masked and batch == 2:
                         res[k3_name]["ms"] += time_ms(k3)
                         res[k3_name]["plain_ms"] += time_ms(k3_plain)
                         bounds[k3_name].add(*attention_work(
                             h, c, heads, masked, backward=True))
-                    if wgmma:
+                    if bf16:
                         def k3_base(x=x, g=g, p=p, heads=heads):
                             return attention._attention_bwd_launch(
                                 x, g, *p.values(), heads, WS, True,
@@ -2754,6 +2786,9 @@ def configs_kernels() -> dict:
                                    f"{masked} plan {attention._K3_BASE_PLAN} "
                                    f"(first kernel)", got, again, ref,
                                    dname)
+                    if not masked:
+                        configs_k4(h, c, batch, dtype, 960 + i + 20 * batch,
+                                   record_bwd)
                     if not (bf16 and batch == 2):
                         continue
                     # K1b and K3's windowed entry: the same windows,
@@ -2790,21 +2825,22 @@ def configs_kernels() -> dict:
                 del x, a
     for k, bound in bounds.items():
         res[k].update(bound.fields())
-        log(f"configs {k} B=2 over enc1-dec1 (bf16, masked, residual): "
-            f"{res[k]}")
+        log(f"configs {k} B=2 over its wgmma groups (bf16, masked, "
+            f"residual): {res[k]}")
     if failures:
         raise AssertionError("configs: kernel disagrees with its plain "
                              "version or does not repeat:\n"
                              + "\n".join(failures))
     # every kernel of FBANet-32's step at B=8 per group, under its plan:
-    # K1's and K3's groups on the wgmma form under "-narrow", enc0 under
+    # the groups on the wgmma forms under "-narrow" (K1, K3) or the plain
+    # name (K2, K4), those on the first kernels (K1's and K2's enc0) under
     # "-base"
     groups32 = measure_reduce.groups(32)
     for (wgmma, base), tool in ((("K1-narrow", "K1-base"), measure_attention),
-                                (("K2", "K2"), measure_leff),
+                                (("K2", "K2-base"), measure_leff),
                                 (("K3-narrow", "K3-base"),
                                  measure_attention_bwd),
-                                (("K4", "K4"), measure_leff_bwd)):
+                                (("K4", "K4-base"), measure_leff_bwd)):
         b8 = tool.shapes(batch=8, groups=groups32)
         for name in dict.fromkeys((wgmma, base)):
             rows = [r for r in b8["rows"]
@@ -2844,6 +2880,42 @@ def configs_kernels() -> dict:
     return res
 
 
+def configs_k4(h, c, batch, dtype, seed, record_bwd) -> None:
+    """K4 at one of FBANet-32's group shapes against its plain backward
+    (`record_bwd`: every gradient with its sums, a bitwise repeat): under
+    its plan (in bf16 the wgmma form at every group, enc0 included; f32 the
+    WMMA form) and in bf16 under `_WMMA_PLAN` too; the K2 forward's plan
+    stays on the first kernel at enc0. Failures go where `record_bwd`
+    puts them."""
+    import torch
+
+    from fbanet_tpu_torch.ops import leff
+
+    bf16 = dtype == torch.bfloat16
+    dname = "bfloat16" if bf16 else "float32"
+    x, a = leff_case(h, c, dtype, seed, batch)
+    g = _normal_fn(seed + 1)((batch, h, h, c), 1.0).to(dtype)
+    p = {k: v for k, v in a.items() if k != "b2"}
+    plan = leff._leff_bwd_plan(batch, h, h, c, 4 * c, bf16,
+                               smem=leff._kernel_smem)
+    fwd = leff._leff_plan(batch, h, h, c, 4 * c, bf16)
+    if (plan[0] > 0) != bf16 or (fwd[0] > 0) != (bf16 and c > 32):
+        raise AssertionError(f"configs B={batch} H={h} C={c} {dname}: K4 "
+                             f"plan {plan}, K2 plan {fwd}")
+
+    def k4(plan=plan):
+        return leff._leff_bwd_launch(x, g, *p.values(), True, plan)
+
+    dx, *rest = leff.leff_bwd_reference(x, g, **p)
+    ref = (dx + g, *rest)
+    for name, use in (("K4" if plan[0] else "K4-base", plan),
+                      *((("K4-base", leff._WMMA_PLAN),) if bf16 else ())):
+        got, again = k4(use), k4(use)
+        torch.cuda.synchronize()
+        record_bwd(name, f"configs K4 B={batch} H={h} C={c} Ch={4 * c} "
+                   f"{dname} plan {use}", got, again, ref, dname)
+
+
 def _config_counters() -> dict:
     """`_counters()` of K1-K4's forms, R1 and R2, with K2's calls on either
     form ("K2-all") and the composed branch of K1's entry ("composed")."""
@@ -2852,7 +2924,8 @@ def _config_counters() -> dict:
     kernels = _counters()
     return {**{k: kernels[k] for k in ("K1", "K1-narrow", "K1-base", "K2",
                                        "K2-base", "K3", "K3-narrow",
-                                       "K3-base", "K4", "R1", "R2")},
+                                       "K3-base", "K4", "K4-base", "R1",
+                                       "R2")},
             "K2-all": leff.fused_leff,
             "composed": attention.fused_window_attention_2d.composed}
 
@@ -2914,12 +2987,13 @@ def configs_fbanet32(card: str) -> tuple[dict, dict]:
     heads), 14 frames, 160 px, bf16: 3 batches of 4 served through
     `eval_step` (ECC, forward, clamp, PSNR/SSIM) against the plain path,
     then 5 AdamW steps at B=8 with drop_path 0.1; 20 launches a forward of
-    K1 and of K2, 20 a step of each of K1-K4: K1 and K3 16 on their wgmma
-    forms at head sizes 8 and 32 (enc1 to dec1, `-narrow`) and 4 on their
-    first kernels (enc0, C = 32), none at head sizes 16 and 64 and no
-    composed branch; one f32 B=2 step's gradients against the plain
-    versions (K1 and K3 20 on their first kernels). Returns (launches on
-    these runs, times)."""
+    K1 and of K2, 20 a step of each of K1-K4: K1 and K2 16 on their wgmma
+    forms (K1's at head sizes 8 and 32, `-narrow`; enc1 to dec1) and 4 on
+    their first kernels (enc0, C = 32), K3 all 20 on its wgmma form
+    (`-narrow`, enc0's one-warpgroup instantiation among them) and K4 all
+    20 on its, none at head sizes 16 and 64 and no composed branch; one
+    f32 B=2 step's gradients against the plain versions (K1-K4 20 each on
+    their first kernels). Returns (launches on these runs, times)."""
     import torch
 
     from fbanet_tpu_torch.evaluate import eval_step
@@ -2946,7 +3020,8 @@ def configs_fbanet32(card: str) -> tuple[dict, dict]:
     n = layers * len(served)
     _expect("FBANet-32 serving", launches, {
         "K1": 0, "K1-narrow": n - first * len(served),
-        "K1-base": first * len(served), "K2-all": n, "composed": 0})
+        "K1-base": first * len(served), "K2": n - first * len(served),
+        "K2-base": first * len(served), "K2-all": n, "composed": 0})
     for pred, *_ in served:
         if tuple(pred.shape) != (4, 640, 640, 3) or \
                 not torch.isfinite(pred).all():
@@ -2982,8 +3057,9 @@ def configs_fbanet32(card: str) -> tuple[dict, dict]:
     for i, got in enumerate(per_step):
         _expect(f"FBANet-32 train step {i}", got, {
             "K1": 0, "K1-narrow": layers - first, "K1-base": first,
-            "K2-all": layers, "K3": 0, "K3-narrow": layers - first,
-            "K3-base": first, "K4": layers, "composed": 0})
+            "K2": layers - first, "K2-base": first, "K2-all": layers,
+            "K3": 0, "K3-narrow": layers, "K3-base": 0, "K4": layers,
+            "K4-base": 0, "composed": 0})
     step_ms = statistics.median(times[1:])
     log(f"configs FBANet-32 B=8 on {card}: forward {fwd_ms:.2f} ms (plain "
         f"versions {plain_fwd_ms:.2f}), train step {step_ms:.2f} ms "
@@ -3023,7 +3099,7 @@ def configs_fbanet32(card: str) -> tuple[dict, dict]:
     f32_launches = {k: c.launches for k, c in counters.items()}
     _expect("FBANet-32 f32 step", f32_launches, {
         "K1-narrow": 0, "K1-base": layers, "K2-base": layers,
-        "K3-narrow": 0, "K3-base": layers, "K4": layers})
+        "K3-narrow": 0, "K3-base": layers, "K4": 0, "K4-base": layers})
     worst, worst_name = 0.0, ""
     for k, ref in grads[1].items():
         scale = float(ref.abs().max())
@@ -3086,7 +3162,7 @@ def configs_window10(card: str) -> dict:
     for i, got in enumerate(per_step):
         _expect(f"window 10 train step {i}", got, {
             "composed": layers, "K1": 0, "K1-base": 0, "K2-all": layers,
-            "K3": 0, "K3-base": 0, "K4": layers})
+            "K3": 0, "K3-base": 0, "K4": layers, "K4-base": 0})
     log(f"configs window 10 B=8 on {card}: forward {fwd_ms:.2f} ms, losses "
         f"{losses}, step ms {times}, per step {per_step[-1]}")
     return {k: launches[k] + sum(s[k] for s in per_step) for k in launches}
@@ -3293,7 +3369,7 @@ def raw_training(card: str) -> tuple[dict, dict]:
     f32_launches = {k: c.launches for k, c in counters.items()}
     _expect("RAW f32 step", f32_launches, {
         "K1-base": layers, "K2-base": layers, "K3-base": layers,
-        "K4": layers})
+        "K4-base": layers, "K4": 0})
     worst, worst_name = 0.0, ""
     for k, ref in grads[1].items():
         scale = float(ref.abs().max())
@@ -3359,7 +3435,7 @@ def raw_entry_points(card: str) -> dict:
     steps = sum(h["steps"] for h in res["history"])
     _expect("RAW train.main", lt, {"K1": 20 * (steps + 1), "K1-base": 0,
                                    "K2": 20 * (steps + 1), "K3": 20 * steps,
-                                   "K4": 20 * steps})
+                                   "K4": 20 * steps, "K4-base": 0})
     trace = tmp / "prof" / "trace.json"
     text = trace.read_text() if trace.exists() else ""
     log(f"raw train.main: {steps} step(s) + eval in {secs:.2f} s, loss "
@@ -3616,8 +3692,11 @@ def main() -> None:
         ("K3-base", "K3 fused window attention backward (first kernel: "
          "f32, FBANet-32's enc0, K11-base base)", "attention_bwd.cu",
          "fbanet_tpu/ops/attention_pallas.py:334"),
-        ("K4", "K4 fused LeFF backward (and K4b)", "leff_bwd.cu",
+        ("K4", "K4 fused LeFF backward (and K4b; wgmma form, FBANet-32's "
+         "enc0 at C = 32 too)", "leff_bwd.cu",
          "fbanet_tpu/ops/leff_pallas.py:278 and :528"),
+        ("K4-base", "K4 fused LeFF backward (and K4b; WMMA form: f32)",
+         "leff_bwd.cu", "fbanet_tpu/ops/leff_pallas.py:278 and :528"),
         ("R1", "K3/K4 weight-gradient sums (token_matmul)", "reduce.cu",
          "fbanet_tpu/ops/attention_pallas.py:465 and leff_pallas.py:394"),
         ("R2", "K3/K4 partial sums (column_sum)", "reduce.cu",

@@ -7,8 +7,9 @@ namespace fbanet {
 namespace {
 
 int launch_k3(const void* w3, const void* wproj, const AbArgs& a, int nwg, void* stream) {
-  return nwg == 4 ? launch_nwg<4, 0>(w3, wproj, a, stream)
-                  : launch_nwg<2, 0>(w3, wproj, a, stream);
+  return nwg == 4   ? launch_nwg<4, 0>(w3, wproj, a, stream)
+         : nwg == 2 ? launch_nwg<2, 0>(w3, wproj, a, stream)
+                    : launch_nwg<1, 0>(w3, wproj, a, stream);
 }
 
 }  // namespace
@@ -19,7 +20,8 @@ extern "C" {
 // Dynamic shared memory of K3's wgmma form with `nwg` warpgroups, or 0 for
 // a shape it does not take: 64-token windows, C 64, 128 or 256, head size
 // 8, 16, 32 or 64, nwg 4 (or 2 at C <= 128: each warpgroup holds at most one
-// 64-column piece of dy), within 232,448 bytes.
+// 64-column piece of dy), or C = 32 with one head and nwg 1, within
+// 232,448 bytes.
 int fbanet_window_attention_bwd_wgmma_smem(int n, int C, int heads, int nwg) {
   return fbanet::bwd_wgmma_smem(n, C, heads, nwg);
 }

@@ -1,6 +1,7 @@
 // K3's wgmma form: the backward of K1 (fused norm1 + window attention) in
 // bf16, for 8 x 8 windows (64 tokens), C = 64, 128 or 256 and head size 8,
-// 16, 32 or 64, on the post-roll map [B, H, W, C] or on pre-partitioned windows
+// 16, 32 or 64, or C = 32 with one head of 32 (FBANet-32's enc0), on the
+// post-roll map [B, H, W, C] or on pre-partitioned windows
 // [G, 64, C] (K1b's backward). The function, its outputs and its rounding
 // points are those of the first kernel (attention_bwd.cuh, kept for f32
 // and for the shapes ops/attention.py::_attention_bwd_plan does not send
@@ -56,6 +57,19 @@
 // a TMA map that inserts 8 zero rows after each 8 (hopper.cuh's
 // make_tma_map_bf16_pad8): twice the boxes of the other head sizes.
 //
+// C = 32 (YP = 64): the y | g tile has 64-byte rows (64-byte swizzle, the
+// head-32 tile), the weight boxes are 32 columns wide (64-byte swizzled
+// TMA), do and dy are one 64 x 32 piece each (n32, K 32 and 96), q | k | v
+// three pieces of 32 columns with K = 32. With a single head a second
+// warpgroup would idle through the core, so the form runs one warpgroup a
+// block (NWG = 1), four blocks an SM (~40 KB of shared memory each), each
+// walking its consecutive windows as at C >= 64. Measured against two
+// warpgroups a block, each walking every other window of the block's list
+// with a layout, ring and barrier of its own and the two partials added
+// into the block's row: 0.3458 against 0.3813 device ms at FBANet-32's
+// enc0, B=8 (H100), and the second design raised the spills of the other
+// instantiations.
+//
 // K11 is this kernel with the stages in SKIP (common.cuh's kNo* bits, one
 // at a time) removed at compile time, each bit as the first kernel's and
 // ops/attention.py::attention_bwd_math's: norecompute (no LayerNorm and no
@@ -81,7 +95,7 @@ namespace {
 
 constexpr int kWinTok = 64;        // tokens of an 8 x 8 window
 constexpr int kBoxRows = 32;       // weight rows of one TMA box (64 columns wide)
-constexpr int kBoxBytes = 64 * kBoxRows * 2;
+constexpr int kBoxBytes = 64 * kBoxRows * 2;  // a ring slot (a box of 32 columns fills half)
 
 struct AbArgs {
   const bf16 *x, *g;
@@ -131,20 +145,21 @@ struct AbLayout {
 // Dynamic shared memory of the form with `nwg` warpgroups, or 0 for a
 // shape it does not take: 64-token windows, C 64, 128 or 256, head size 8,
 // 16, 32 or 64, nwg 4 (or 2 at C <= 128: each warpgroup holds at most one
-// 64-column piece of dy), within 232,448 bytes (head size 8's padded tiles
-// exceed it at C = 256).
+// 64-column piece of dy), or C = 32 with one head on one warpgroup, within
+// 232,448 bytes (head size 8's padded tiles exceed it at C = 256).
 inline int bwd_wgmma_smem(int n, int C, int heads, int nwg) {
-  if (n != kWinTok || C % 64 || C > 256 || heads < 1 || C % heads) return 0;
+  if (n != kWinTok || (C % 64 && C != 32) || C > 256 || heads < 1 || C % heads) return 0;
   const int dh = C / heads;
-  if ((dh != 8 && dh != 16 && dh != 32 && dh != 64) || (nwg != 4 && nwg != 2) ||
-      C > 64 * nwg)
+  if (C == 32 ? heads != 1 || nwg != 1
+              : (dh != 8 && dh != 16 && dh != 32 && dh != 64) || (nwg != 4 && nwg != 2) ||
+                    C > 64 * nwg)
     return 0;
   const AbLayout L(C, heads, nwg);
   if (L.red_end > L.ring || L.total > 232448) return 0;  // at most the H100's 227 KB a block
   return (int)L.total;
 }
 
-template <int DH, int NWG, int SKIP>
+template <int DH, int NWG, int SKIP, int YP>
 __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
     attention_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_w3,
                                const __grid_constant__ CUtensorMap map_wproj,
@@ -160,6 +175,12 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
   constexpr uint32_t HT = 64 * PITCH;      // bytes of a head tile
   static_assert(DH == 8 || DH == 16 || DH == 32 || DH == 64, "the head sizes instantiated here");
   static_assert(SKIP == 0 || DH == 16 || DH == 64, "K11 is built at head sizes 16 and 64");
+  // YP: bytes of a row of the y | g tile and of a weight box, 128 (C >= 64)
+  // or 64 (C = 32); BW: the box's columns, the width of a do or dy piece
+  static_assert(YP == 128 || (YP == 64 && DH == 32 && NWG == 1 && SKIP == 0),
+                "C = 32 is built for one head of 32 on one warpgroup");
+  constexpr int BW = YP / 2;
+  constexpr uint32_t kBoxBytesC = kBoxRows * YP;  // bytes of one 2-D box
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -192,6 +213,12 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
   auto desc_mn = [](const uint8_t* p) {  // a head tile, MN-major
     return smem_desc(smem_addr(p), HT, 16 * HP, sw_layout(PITCH));
   };
+  // byte offset of 16-byte chunk c8 (channels 8 c8 .. 8 c8 + 7) of token t
+  // in the y | g tile: atoms of 64-channel rows, or at C = 32 one tile of
+  // 64-byte rows
+  auto yg_off = [](int t, int c8) -> uint32_t {
+    return (uint32_t)(c8 / (YP / 16)) * 64 * YP + swz_at(t, 16 * (c8 % (YP / 16)), YP);
+  };
   // (row, column c) of the tensor held as per-head tiles from `base`
   auto tile_at = [&](uint8_t* base, int row, int c) {
     return base + (c / DH) * HT + swz_at(row, (c % DH) * 2, PITCH);
@@ -208,10 +235,10 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
   // --- the warpgroup's weight boxes, in the order it consumes them: per
   // window its do pieces (K over Wproj rows), its q | k | v pieces (32 rows
   // of [Wq; Wkv], K over columns), its dy pieces (K over [Wq; Wkv] rows) ---
-  const int kD = C / kBoxRows, kQ = C / 64, kY = PAD * 3 * C / kBoxRows;  // boxes per piece
+  const int kD = C / kBoxRows, kQ = C / BW, kY = PAD * 3 * C / kBoxRows;  // boxes per piece
   auto owned = [&](int pieces) { return pieces > wg ? (pieces - wg + NWG - 1) / NWG : 0; };
-  const int nD = owned(C / 64) * kD, nQ = QKV ? owned(3 * C / kBoxRows) * kQ : 0,
-            nY = DXCHAIN ? owned(C / 64) * kY : 0, per_win = nD + nQ + nY;
+  const int nD = owned(C / BW) * kD, nQ = QKV ? owned(3 * C / kBoxRows) * kQ : 0,
+            nY = DXCHAIN ? owned(C / BW) * kY : 0, per_win = nD + nQ + nY;
   const int w0 = blockIdx.x * a.wpb, nwin = min(a.wpb, a.windows - w0);
   const int total_boxes = nwin * per_win;
   auto issue = [&](int it) {  // TMA of box `it` into slot it & 1
@@ -220,14 +247,14 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
     int col, row;
     if (idx < nD) {
       map = &map_wproj;
-      col = 64 * (wg + (idx / kD) * NWG);
+      col = BW * (wg + (idx / kD) * NWG);
       row = kBoxRows * (idx % kD);
     } else if ((idx -= nD) < nQ) {
-      col = 64 * (idx % kQ);
+      col = BW * (idx % kQ);
       row = kBoxRows * (wg + (idx / kQ) * NWG);
     } else {
       idx -= nQ;
-      col = 64 * (wg + (idx / kY) * NWG);
+      col = BW * (wg + (idx / kY) * NWG);
       row = kBoxRows * (idx % kY);
       if constexpr (PAD > 1) {  // [Wq; Wkv] with 8 zero rows after each 8
         mbar_expect_tx(&bars[it & 1], kBoxBytes);
@@ -236,7 +263,7 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
         return;
       }
     }
-    mbar_expect_tx(&bars[it & 1], kBoxBytes);
+    mbar_expect_tx(&bars[it & 1], kBoxBytesC);
     tma_load_2d(ring + (it & 1) * kBoxBytes, map, col, row, &bars[it & 1]);
   };
   int it = 0;  // boxes consumed by this warpgroup
@@ -277,35 +304,35 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
     // --- g into y | g, K-major ---
     for (int e = threadIdx.x; e < kWinTok * seg; e += NT) {
       const int t = e / seg, c8 = e % seg;
-      *reinterpret_cast<uint4*>(sYG + (size_t)(c8 / 8) * 8192 + swz(t, c8 % 8)) =
+      *reinterpret_cast<uint4*>(sYG + yg_off(t, c8)) =
           __ldg(reinterpret_cast<const uint4*>(a.g + tok(t) * C + 8 * c8));
     }
     fence_proxy_async();
     __syncthreads();
 
-    // --- do = g Wproj: pieces of 64 columns, rounded into the do tiles ---
-    for (int p = wg; p < C / 64; p += NWG) {
-      float acc[32];
+    // --- do = g Wproj: pieces of BW columns, rounded into the do tiles ---
+    for (int p = wg; p < C / BW; p += NWG) {
+      float acc[BW / 2];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+      for (int i = 0; i < BW / 2; ++i) acc[i] = 0.f;
       for (int kb = 0; kb < kD; ++kb)
         consume([&](const uint8_t* slot) {
           wgmma_fence();
 #pragma unroll
           for (int kk = 0; kk < 2; ++kk) {
             const int o = kBoxRows * kb + 16 * kk;
-            wgmma_ss<64, 0, 1>(acc,
-                               k_major_desc(smem_addr(sYG + (o / 64) * 8192 + ((o % 64) / 16) * 32)),
-                               mn_major_desc(smem_addr(slot + kk * 2048), kBoxBytes));
+            wgmma_ss<BW, 0, 1>(
+                acc, k_desc_at(smem_addr(sYG + (o / BW) * 64 * YP + ((o % BW) / 16) * 32), YP),
+                mn_desc_at(smem_addr(slot + kk * 16 * YP), kBoxBytes, YP));
           }
           wgmma_commit();
           wgmma_wait_all();
         });
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < BW / 8; ++j)
 #pragma unroll
         for (int h = 0; h < 2; ++h)
-          put_pair(sDo, arow + 8 * h, 64 * p + 8 * j + acol,
+          put_pair(sDo, arow + 8 * h, BW * p + 8 * j + acol,
                    pack_bf2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
       if constexpr (!CORE && WGRADS) {
         // K11 nocore: dq = dk = dv = do in f32 (unscaled) and o = do rounded:
@@ -366,8 +393,7 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
           yv[i] = (v[i] - mu) * inv * __ldg(a.ln_s + 8 * sl + i) + __ldg(a.ln_b + 8 * sl + i);
         const uint4 y = make_uint4(pack_bf2(yv[0], yv[1]), pack_bf2(yv[2], yv[3]),
                                    pack_bf2(yv[4], yv[5]), pack_bf2(yv[6], yv[7]));
-        if constexpr (QKV)
-          *reinterpret_cast<uint4*>(sYG + (size_t)(sl / 8) * 8192 + swz(t, sl % 8)) = y;
+        if constexpr (QKV) *reinterpret_cast<uint4*>(sYG + yg_off(t, sl)) = y;
         if constexpr (WGRADS) *reinterpret_cast<uint4*>(a.ys + tok(t) * C + 8 * sl) = y;
         if (sl == 0) {
           sMu[t] = mu;
@@ -400,9 +426,9 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
           consume([&](const uint8_t* slot) {
             wgmma_fence();
 #pragma unroll
-            for (int kk = 0; kk < 4; ++kk)
-              wgmma_ss<32, 0, 0>(acc, k_major_desc(smem_addr(sYG + kb * 8192 + kk * 32)),
-                                 k_major_desc(smem_addr(slot + kk * 32)));
+            for (int kk = 0; kk < YP / 32; ++kk)
+              wgmma_ss<32, 0, 0>(acc, k_desc_at(smem_addr(sYG + kb * 64 * YP + kk * 32), YP),
+                                 k_desc_at(smem_addr(slot + kk * 32), YP));
             wgmma_commit();
             wgmma_wait_all();
           });
@@ -645,16 +671,16 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
       __syncthreads();
     }
 
-    // --- dy = dq Wq + dk Wk + dv Wv: pieces of 64 columns, K over the 3C
+    // --- dy = dq Wq + dk Wk + dv Wv: pieces of BW columns, K over the 3C
     // rows of [Wq; Wkv], the A operand from the head tiles (at head size 8
     // K over the 6C rows of the padded [Wq; Wkv], one padded head a k16
     // step) ---
     if constexpr (DXCHAIN) {
-      float yacc[32];
+      float yacc[BW / 2];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) yacc[i] = 0.f;
-      const int yp = wg;  // this warpgroup's piece (at most one: C <= 64 NWG)
-      if (yp < C / 64)
+      for (int i = 0; i < BW / 2; ++i) yacc[i] = 0.f;
+      const int yp = wg;  // this warpgroup's piece (at most one: C <= BW NWG)
+      if (yp < C / BW)
         for (int kb = 0; kb < kY; ++kb)
           consume([&](const uint8_t* slot) {
             wgmma_fence();
@@ -663,21 +689,21 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
               const int j0 = (kBoxRows * kb + 16 * kk) / PAD, c = j0 % C;
               const uint8_t* src = j0 < C ? sQ : j0 < 2 * C ? sK : sV;
               if constexpr (!CORE) src = sDo;  // K11 nocore: dq = dk = dv = do
-              wgmma_ss<64, 0, 1>(yacc, desc_k(src + (c / DH) * HT + (c % DH) * 2),
-                                 mn_major_desc(smem_addr(slot + kk * 2048), kBoxBytes));
+              wgmma_ss<BW, 0, 1>(yacc, desc_k(src + (c / DH) * HT + (c % DH) * 2),
+                                 mn_desc_at(smem_addr(slot + kk * 16 * YP), kBoxBytes, YP));
             }
             wgmma_commit();
             wgmma_wait_all();
           });
       __syncthreads();  // every dy product is done: dy may take the space from 0
-      if (yp < C / 64) {
+      if (yp < C / BW) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < BW / 8; ++j)
 #pragma unroll
           for (int h = 0; h < 2; ++h)
 #pragma unroll
             for (int e = 0; e < 2; ++e)
-              sDy[(arow + 8 * h) * ldy + 64 * yp + 8 * j + acol + e] = yacc[4 * j + 2 * h + e];
+              sDy[(arow + 8 * h) * ldy + BW * yp + 8 * j + acol + e] = yacc[4 * j + 2 * h + e];
       }
       __syncthreads();
     }
@@ -736,27 +762,30 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
   }
 }
 
-template <int DH, int NWG, int SKIP>
+template <int DH, int NWG, int SKIP, int YP = 128>
 cudaError_t launch_wgmma(const CUtensorMap& m3, const CUtensorMap& mp, const CUtensorMap& m3p,
                          const AbArgs& a, unsigned grid, int smem, cudaStream_t s) {
-  const cudaError_t e = cudaFuncSetAttribute(attention_bwd_wgmma_kernel<DH, NWG, SKIP>,
+  const cudaError_t e = cudaFuncSetAttribute(attention_bwd_wgmma_kernel<DH, NWG, SKIP, YP>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  attention_bwd_wgmma_kernel<DH, NWG, SKIP><<<grid, NWG * 128, smem, s>>>(m3, mp, m3p, a);
+  attention_bwd_wgmma_kernel<DH, NWG, SKIP, YP><<<grid, NWG * 128, smem, s>>>(m3, mp, m3p, a);
   return cudaGetLastError();
 }
 
 // Launch the instantiation <head size, NWG, SKIP> on `a` (w3 = [Wq; Wkv]
 // [3C, C]); the caller has checked the shape with bwd_wgmma_smem. K3
-// (SKIP = 0) is built at head sizes 8, 16, 32 and 64, K11 at 16 and 64.
+// (SKIP = 0) is built at head sizes 8, 16, 32 and 64 (NWG 2, 4) and at
+// C = 32 with one head (NWG 1), K11 at 16 and 64.
 template <int NWG, int SKIP>
 int launch_nwg(const void* w3, const void* wproj, const AbArgs& a, void* stream) {
   const int C = a.geom.C, dh = C / a.heads;
   if (SKIP != 0 && dh != 16 && dh != 64) return (int)cudaErrorInvalidValue;
+  if ((NWG == 1) != (C == 32)) return (int)cudaErrorInvalidValue;
   const AbLayout L(C, a.heads, NWG);
+  const int box_cols = C == 32 ? 32 : 64;
   CUtensorMap m3, mp, m3p;
-  cudaError_t e = make_tma_map_bf16(&m3, w3, 3 * C, C, kBoxRows);
-  if (e == cudaSuccess) e = make_tma_map_bf16(&mp, wproj, C, C, kBoxRows);
+  cudaError_t e = make_tma_map_bf16(&m3, w3, 3 * C, C, kBoxRows, box_cols);
+  if (e == cudaSuccess) e = make_tma_map_bf16(&mp, wproj, C, C, kBoxRows, box_cols);
   if (e == cudaSuccess) {
     if (dh == 8)
       e = make_tma_map_bf16_pad8(&m3p, w3, 3 * C, C);
@@ -767,13 +796,18 @@ int launch_nwg(const void* w3, const void* wproj, const AbArgs& a, void* stream)
   const unsigned grid = (unsigned)((a.windows + a.wpb - 1) / a.wpb);
   const int smem = (int)L.total;
   const cudaStream_t s = (cudaStream_t)stream;
-  if constexpr (SKIP == 0) {
-    if (dh == 8) return (int)launch_wgmma<8, NWG, 0>(m3, mp, m3p, a, grid, smem, s);
-    if (dh == 32) return (int)launch_wgmma<32, NWG, 0>(m3, mp, m3p, a, grid, smem, s);
+  if constexpr (NWG == 1) {  // C = 32, one head of 32
+    return SKIP == 0 ? (int)launch_wgmma<32, 1, 0, 64>(m3, mp, m3p, a, grid, smem, s)
+                     : (int)cudaErrorInvalidValue;
+  } else {
+    if constexpr (SKIP == 0) {
+      if (dh == 8) return (int)launch_wgmma<8, NWG, 0>(m3, mp, m3p, a, grid, smem, s);
+      if (dh == 32) return (int)launch_wgmma<32, NWG, 0>(m3, mp, m3p, a, grid, smem, s);
+    }
+    e = dh == 16 ? launch_wgmma<16, NWG, SKIP>(m3, mp, m3p, a, grid, smem, s)
+                 : launch_wgmma<64, NWG, SKIP>(m3, mp, m3p, a, grid, smem, s);
+    return (int)e;
   }
-  e = dh == 16 ? launch_wgmma<16, NWG, SKIP>(m3, mp, m3p, a, grid, smem, s)
-               : launch_wgmma<64, NWG, SKIP>(m3, mp, m3p, a, grid, smem, s);
-  return (int)e;
 }
 
 // K11 on the form with NWG warpgroups: the windowed entry's pointers

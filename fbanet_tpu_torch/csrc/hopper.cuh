@@ -176,6 +176,20 @@ __device__ __forceinline__ uint32_t swz_at(int row, int col, int pitch) {
   return o ^ (((o >> 7) & (uint32_t)(pitch / 16 - 1)) << 4);
 }
 
+// wgmma descriptor of a K-major operand in a swizzled tile of `pitch`-byte
+// rows (k_major_desc at pitch 128): 8 pitch bytes between groups of 8 rows
+__device__ __forceinline__ uint64_t k_desc_at(uint32_t addr, int pitch) {
+  return smem_desc(addr, 16, 8 * pitch, sw_layout(pitch));
+}
+
+// wgmma descriptor of an MN-major operand in a swizzled tile of `pitch`-
+// byte rows along MN: 8 pitch bytes between groups of 8 rows along K, a
+// k16 step 16 pitch bytes on, `atom_stride` between the tiles along MN
+// (mn_major_desc at pitch 128)
+__device__ __forceinline__ uint64_t mn_desc_at(uint32_t addr, uint32_t atom_stride, int pitch) {
+  return smem_desc(addr, atom_stride, 8 * pitch, sw_layout(pitch));
+}
+
 // barrier `id` (1..15) among the `count` threads of one or more warps
 __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
@@ -453,30 +467,37 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
 }
 
 // Host: a row-major bf16 tensor of `rank` dimensions (dims and boxes
-// innermost first, strides in bytes of dimensions 1..) as 128-byte swizzled
-// TMA boxes; elements past the tensor's end read as zeros.
+// innermost first, strides in bytes of dimensions 1..) as swizzled TMA
+// boxes (128-byte swizzle, or `swizzle`); elements past the tensor's end
+// read as zeros.
 inline cudaError_t encode_tma_map_bf16(CUtensorMap* map, const void* ptr, int rank,
                                        const cuuint64_t* dims, const cuuint64_t* strides,
-                                       const cuuint32_t* box) {
+                                       const cuuint32_t* box,
+                                       CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
   if (!encode) return cudaErrorNotSupported;
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
-                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // Host: a [rows, cols] row-major bf16 tensor in global memory as TMA boxes
-// of 64 columns x `box_rows` rows, 128-byte swizzled (the atoms above);
-// rows past the end read as zeros.
+// of 64 columns x `box_rows` rows, 128-byte swizzled (the atoms above), or
+// with box_cols = 32 as boxes of 32 columns, 64-byte swizzled (tiles of
+// 64-byte rows, as the wgmma forms hold C = 32); rows past the end read as
+// zeros.
 inline cudaError_t make_tma_map_bf16(CUtensorMap* map, const void* ptr, int rows, int cols,
-                                     int box_rows) {
+                                     int box_rows, int box_cols = 64) {
+  if (box_cols != 64 && box_cols != 32) return cudaErrorInvalidValue;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  return encode_tma_map_bf16(map, ptr, 2, dims, strides, box);
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  return encode_tma_map_bf16(map, ptr, 2, dims, strides, box,
+                             box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                            : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 // Host: the same tensor (rows a multiple of 8) with each group of 8 rows

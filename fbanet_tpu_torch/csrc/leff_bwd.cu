@@ -55,7 +55,9 @@
 //  - 16 warps (four warpgroups) per block: those stages are bound by
 //    latency, and with 8 warps on the SM the same body ran 24 % slower;
 //  - 16 x 8 tiles where C <= 128 cut the halo recompute from 2.25x to
-//    1.88x (16 x 16 fits only with 16-wide chunks and ran slower);
+//    1.88x (16 x 16 fits only with 16-wide chunks and ran slower); at
+//    C = 32 (FBANet-32's enc0) 16 x 16 fits with 32-wide chunks, 1.56x:
+//    0.6019 against 0.6968 device ms a call at B=8 on the H100;
 //  - below half a block per SM (the bottleneck at B=2), `splits` blocks
 //    share a tile's hidden chunks; each writes an f32 dy partial and
 //    leff_ln_bwd_kernel adds them in split order and runs the LayerNorm
@@ -365,9 +367,19 @@ __global__ void __launch_bounds__(kThreads) leff_bwd_wmma_kernel(Args a) {
 // A block owns a TH x TW output tile and a slice of the hidden chunks of
 // width KC (`splits` blocks per tile); 16 warps, four warpgroups. The tile
 // and chunk are template parameters (the forms ops/leff.py::_K4_FORMS
-// lists: 16 x 8 and 8 x 8, each with 32-wide chunks), so the halo
-// index arithmetic divides by constants; _leff_bwd_plan fixes the form and
-// the split per shape, and the kernel takes them as given.
+// lists: 16 x 16 at C = 32, 16 x 8 and 8 x 8 at C >= 64, each with
+// 32-wide chunks), so the halo index arithmetic divides by constants;
+// _leff_bwd_plan fixes the form and the split per shape, and the kernel
+// takes them as given.
+//
+// YP, the bytes of a row of the y, g and weight tiles: 128 (C 64, 128 or
+// 256: atoms of 64 channels) or 64 (C = 32, FBANet-32's enc0: one tile of
+// 64-byte rows in the 64-byte swizzle, weight boxes 32 columns wide). At
+// C = 32 the dy product dy^T = W1^T dz1^T would have M = C, below wgmma's
+// 64 rows, so it runs the other way round: dy = dz1 W1, the tile's tokens
+// as M in 64-row pieces (one a warpgroup), N = C, K = the chunk, dz1 held
+// token-major (K-major) and the W1 chunk read MN-major; the accumulators
+// stay in registers over the chunks as at YP = 128.
 
 constexpr int kRed = 22;  // per channel pair: 9 tap, 1 bdw, 1 b1 partials, x 2
 // threads of a block: four warpgroups. Measured against two (the same
@@ -395,11 +407,14 @@ struct WgGeom {
 };
 
 // Shared-memory layout (byte offsets from a 1024-byte aligned base). bf16
-// operands of wgmma in 128-byte swizzle atoms of 64 channels (hopper.cuh):
-// y [NX rows] and g [NG rows] K-major; the W1 chunk (two slots, a ring one
-// chunk ahead) and the W2^T chunk as TMA lands them, [kc rows] of C; dz1^T
-// [kc rows] of NI tokens, MN-major. A 64-row wgmma block of y or g that
-// runs past NX or NG reads the next array's bytes into rows it discards.
+// operands of wgmma in 128-byte swizzle atoms of 64 channels (hopper.cuh),
+// or at C = 32 tiles of 64-byte rows (64-byte swizzle): 2 C bytes a row in
+// either case. y [NX rows] and g [NG rows] K-major; the W1 chunk (two
+// slots, a ring one chunk ahead) and the W2^T chunk as TMA lands them,
+// [kc rows] of C; dz1^T [kc rows] of NI tokens, MN-major (at C = 32 dz1
+// [NI rows] of kc, K-major: the same bytes). A 64-row wgmma block of y or g
+// that runs past NX or NG reads the next array's bytes into rows it
+// discards.
 // f32 arrays of the chunk with a row stride of kc + 4: h1 on the x halo,
 // gelu'(z1) on the interior, z2 (then dz2) on the g halo; the chunk's taps,
 // b1 and bdw. After the chunk loop dy [NI][C + 4] f32 reuses the space from
@@ -410,14 +425,14 @@ struct WgLayout {
   int kcp;
   size_t y, g, w1, w2, dz1t, h1, gz1, z2, taps, b1, bdw, mu, inv, bars, total;
   __host__ __device__ WgLayout(int C, int kc, const WgGeom& q) {
-    const size_t atoms = C / 64;
+    const size_t row = 2 * (size_t)C;  // bytes of a row of C bf16 channels
     kcp = kc + 4;
     y = 0;
-    g = y + atoms * q.NXr * 128;
-    w1 = (g + atoms * q.NGr * 128 + 1023) & ~size_t(1023);
-    w2 = w1 + 2 * atoms * kc * 128;
-    dz1t = w2 + atoms * kc * 128;
-    h1 = dz1t + (q.NI / 64) * kc * 128;
+    g = y + q.NXr * row;
+    w1 = (g + q.NGr * row + 1023) & ~size_t(1023);
+    w2 = w1 + 2 * kc * row;
+    dz1t = w2 + kc * row;
+    h1 = dz1t + (size_t)q.NI * kc * 2;
     gz1 = h1 + align128(sizeof(float) * q.NX * kcp);
     z2 = gz1 + align128(sizeof(float) * q.NI * kcp);
     taps = z2 + align128(sizeof(float) * q.NGr * kcp);
@@ -471,7 +486,7 @@ __device__ __forceinline__ void ln_backward_tile(const WgArgs& a, int NI, Pix ip
       });
 }
 
-template <int KC, int TH, int TW>
+template <int KC, int TH, int TW, int YP>
 __global__ void __launch_bounds__(kWgThreads, 1)
     leff_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_w1,
                           const __grid_constant__ CUtensorMap map_w2t, WgArgs a) {
@@ -483,18 +498,20 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   constexpr int LP = P < 16 ? P : 16, GPW = 32 / LP, PB = P / LP, QH = NW / PB;
   constexpr int Q = GPW * QH;
   static_assert(KC == 32, "the chunk width instantiated here");
+  static_assert(YP == 128 || YP == 64, "row pitches of the operand tiles");
   static_assert(NT % P == 0, "the z2 stage keeps one channel pair per thread");
+  constexpr int KS = YP / 32;  // k16 steps along a row of the y, g and weight tiles
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   constexpr WgGeom q(TH, TW);
-  const int C = a.C, Ch = a.Ch, atomsC = C / 64;
+  const int C = a.C, Ch = a.Ch, atomsC = 2 * C / YP;  // tiles of YP-byte rows across C
   const WgLayout L(C, KC, q);
   const int kcp = L.kcp;
   uint8_t* sY = sm + L.y;
   uint8_t* sG = sm + L.g;
   uint8_t* sW2 = sm + L.w2;
-  uint8_t* sDz1t = sm + L.dz1t;
+  uint8_t* sDz1t = sm + L.dz1t;  // dz1^T, or at YP = 64 dz1
   float* sH1 = reinterpret_cast<float*>(sm + L.h1);
   float* sGz1 = reinterpret_cast<float*>(sm + L.gz1);
   float* sZ2 = reinterpret_cast<float*>(sm + L.z2);
@@ -527,9 +544,19 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   auto load_w = [&](const CUtensorMap* map, uint8_t* dst, int ck, uint64_t* bar) {
     mbar_expect_tx(bar, wbytes);
     for (int at = 0; at < atomsC; ++at)
-      tma_load_2d(dst + at * KC * 128, map, at * 64, ck * KC, bar);
+      tma_load_2d(dst + at * KC * YP, map, at * (YP / 2), ck * KC, bar);
   };
-  auto w1_slot = [&](int i) { return sm + L.w1 + (size_t)(i & 1) * atomsC * KC * 128; };
+  auto w1_slot = [&](int i) { return sm + L.w1 + (size_t)(i & 1) * atomsC * KC * YP; };
+  // byte offset of 16-byte chunk c8 (channels 8 c8 .. 8 c8 + 7) of token t
+  // in a K-major y or g tile of `rows` rows
+  auto tile_off = [](int rows, int t, int c8) -> uint32_t {
+    return (uint32_t)(c8 / (YP / 16)) * rows * YP + swz_at(t, 16 * (c8 % (YP / 16)), YP);
+  };
+  // K-major descriptor of k16 step k of 64-row block mb of such a tile
+  auto k_step = [](const uint8_t* base, int rows, int mb, int k) {
+    return k_desc_at(smem_addr(base + (size_t)(k / KS) * rows * YP + mb * 64 * YP + (k % KS) * 32),
+                     YP);
+  };
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < 3; ++i) mbar_init(&bars[i], 1);
@@ -552,7 +579,6 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       s8[i] = __ldg(a.ln_s + 8 * sl + i);
       b8[i] = __ldg(a.ln_b + 8 * sl + i);
     }
-    uint8_t* ydst = sY + (size_t)(sl / 8) * q.NXr * 128;
     for (int t0 = warp * tpw; t0 < q.NX; t0 += NW * tpw) {  // warp-uniform
       const int t = t0 + sub, hr = t / q.XW, hc = t % q.XW;
       const bool ok = t < q.NX && inside(hr, hc);
@@ -570,7 +596,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         y = make_uint4(pack_bf2(yv[0], yv[1]), pack_bf2(yv[2], yv[3]), pack_bf2(yv[4], yv[5]),
                        pack_bf2(yv[6], yv[7]));
       }
-      *reinterpret_cast<uint4*>(ydst + swz(t, sl % 8)) = y;
+      *reinterpret_cast<uint4*>(sY + tile_off(q.NXr, t, sl)) = y;
       if (hr >= 2 && hr < q.th + 2 && hc >= 2 && hc < q.tw + 2) {
         const int i = (hr - 2) * q.tw + hc - 2;
         *reinterpret_cast<uint4*>(a.ys + pix(hr, hc) * C + 8 * sl) = y;
@@ -585,7 +611,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       uint4 v = make_uint4(0, 0, 0, 0);
       if (u < q.NG && inside(ur + 1, uc + 1))
         v = __ldg(reinterpret_cast<const uint4*>(a.g + pix(ur + 1, uc + 1) * C + 8 * c8));
-      *reinterpret_cast<uint4*>(sG + (size_t)(c8 / 8) * q.NGr * 128 + swz(u, c8 % 8)) = v;
+      *reinterpret_cast<uint4*>(sG + tile_off(q.NGr, u, c8)) = v;
     }
   }
   fence_proxy_async();
@@ -595,20 +621,22 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         C, q.NI, red,
         [&](int t, int c, float* v) {
           const int u = (t / q.tw + 1) * q.GW + t % q.tw + 1;
-          v[0] = __bfloat162float(*reinterpret_cast<const bf16*>(
-              sG + (size_t)(c / 64) * q.NGr * 128 + swz(u, (c % 64) / 8) + (c % 8) * 2));
+          v[0] = __bfloat162float(
+              *reinterpret_cast<const bf16*>(sG + tile_off(q.NGr, u, c / 8) + (c % 8) * 2));
         },
         [&](int c, const float* s) { part[2 * C + 11 * Ch + c] = s[0]; });
   }
 
   // dy^T in 64 x 64 pieces (C block, token block), at most 4: warpgroup
-  // wg holds piece wg in its registers over the chunks
-  const int npieces = atomsC * (q.NI / 64);
+  // wg holds piece wg in its registers over the chunks. At YP = 64: dy in
+  // 64 x C pieces (token block wg)
+  constexpr int DYN = YP == 128 ? 64 : 32;  // accumulator columns of a piece
+  const int npieces = YP == 128 ? atomsC * (q.NI / 64) : q.NI / 64;
   const bool has_piece = wg < npieces;
-  const int cb = wg / (q.NI / 64), tb = wg % (q.NI / 64);
-  float dyacc[32];
+  const int cb = YP == 128 ? wg / (q.NI / 64) : 0, tb = YP == 128 ? wg % (q.NI / 64) : wg;
+  float dyacc[DYN / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dyacc[i] = 0.f;
+  for (int i = 0; i < DYN / 2; ++i) dyacc[i] = 0.f;
   // this thread's rows and columns in a wgmma accumulator
   const int arow = 16 * (warp % 4) + lane / 4, acol = 2 * (lane % 4);
 
@@ -634,10 +662,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       for (int j = 0; j < KC / 2; ++j) acc[j] = 0.f;
       wgmma_fence();
       for (int k = 0; k < C / 16; ++k)
-        wgmma_ss<32, 0, 0>(
-            acc,
-            k_major_desc(smem_addr(sY + (size_t)(k / 4) * q.NXr * 128 + mb * 8192 + (k % 4) * 32)),
-            k_major_desc(smem_addr(w1s + (k / 4) * KC * 128 + (k % 4) * 32)));
+        wgmma_ss<32, 0, 0>(acc, k_step(sY, q.NXr, mb, k), k_step(w1s, KC, 0, k));
       wgmma_commit();
       wgmma_wait_all();
 #pragma unroll
@@ -709,10 +734,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       for (int j = 0; j < KC / 2; ++j) acc[j] = 0.f;
       wgmma_fence();
       for (int k = 0; k < C / 16; ++k)
-        wgmma_ss<32, 0, 0>(
-            acc,
-            k_major_desc(smem_addr(sG + (size_t)(k / 4) * q.NGr * 128 + mb * 8192 + (k % 4) * 32)),
-            k_major_desc(smem_addr(sW2 + (k / 4) * KC * 128 + (k % 4) * 32)));
+        wgmma_ss<32, 0, 0>(acc, k_step(sG, q.NGr, mb, k), k_step(sW2, KC, 0, k));
       wgmma_commit();
       wgmma_wait_all();
 #pragma unroll
@@ -768,11 +790,16 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         const float dza = gz.x * dh1.x, dzb = gz.y * dh1.y;
         sum[20] += dza;
         sum[21] += dzb;
-        // the rounded dz1: dz1^T tile (rows j, j + 1, column t) and dz1s
+        // the rounded dz1: dz1^T tile (rows j, j + 1, column t), or at
+        // YP = 64 the dz1 tile (row t, columns j, j + 1), and dz1s
         const uint32_t w = pack_bf2(dza, dzb);
-        uint8_t* col = sDz1t + (size_t)(t / 64) * KC * 128 + (t % 8) * 2;
-        *reinterpret_cast<uint16_t*>(col + swz(j, (t % 64) / 8)) = (uint16_t)(w & 0xffffu);
-        *reinterpret_cast<uint16_t*>(col + swz(j + 1, (t % 64) / 8)) = (uint16_t)(w >> 16);
+        if constexpr (YP == 128) {
+          uint8_t* col = sDz1t + (size_t)(t / 64) * KC * 128 + (t % 8) * 2;
+          *reinterpret_cast<uint16_t*>(col + swz(j, (t % 64) / 8)) = (uint16_t)(w & 0xffffu);
+          *reinterpret_cast<uint16_t*>(col + swz(j + 1, (t % 64) / 8)) = (uint16_t)(w >> 16);
+        } else {
+          *reinterpret_cast<uint32_t*>(sDz1t + swz_at(t, 2 * j, 2 * KC)) = w;
+        }
         *reinterpret_cast<uint32_t*>(a.dz1s + ipix(t) * Ch + k0 + j) = w;
       }
       // the GPW token groups of a warp in a fixed xor tree, then (below)
@@ -790,14 +817,23 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       __syncthreads();
     }
 
-    // dy^T += W1_chunk^T dz1^T on this warpgroup's piece
+    // dy^T += W1_chunk^T dz1^T on this warpgroup's piece (at YP = 64:
+    // dy += dz1 W1_chunk, dz1 K-major as A, the W1 chunk MN-major as B)
     wgmma_fence();
     if (has_piece) {
+      if constexpr (YP == 128) {
 #pragma unroll
-      for (int k = 0; k < KC / 16; ++k)
-        wgmma_ss<64, 1, 1>(dyacc,
-                           mn_major_desc(smem_addr(w1s + cb * KC * 128 + k * 2048), KC * 128),
-                           mn_major_desc(smem_addr(sDz1t + tb * KC * 128 + k * 2048), KC * 128));
+        for (int k = 0; k < KC / 16; ++k)
+          wgmma_ss<64, 1, 1>(dyacc,
+                             mn_major_desc(smem_addr(w1s + cb * KC * 128 + k * 2048), KC * 128),
+                             mn_major_desc(smem_addr(sDz1t + tb * KC * 128 + k * 2048), KC * 128));
+      } else {
+#pragma unroll
+        for (int k = 0; k < KC / 16; ++k)
+          wgmma_ss<DYN, 0, 1>(dyacc,
+                              k_desc_at(smem_addr(sDz1t + tb * 64 * 2 * KC + k * 32), 2 * KC),
+                              mn_desc_at(smem_addr(w1s + k * 16 * YP), KC * YP, YP));
+      }
     }
     wgmma_commit();
     // meanwhile: the chunk's partials, summed over the warps in order
@@ -819,13 +855,17 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   float* sDy = reinterpret_cast<float*>(sm);
   if (has_piece) {
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj)
+    for (int jj = 0; jj < DYN / 8; ++jj)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int e = 0; e < 2; ++e)
-          sDy[(tb * 64 + 8 * jj + acol + e) * ldy + cb * 64 + arow + 8 * h] =
-              dyacc[4 * jj + 2 * h + e];
+        for (int e = 0; e < 2; ++e) {
+          const float v = dyacc[4 * jj + 2 * h + e];
+          if constexpr (YP == 128)  // dy^T: row = channel, column = token
+            sDy[(tb * 64 + 8 * jj + acol + e) * ldy + cb * 64 + arow + 8 * h] = v;
+          else  // dy: row = token, column = channel
+            sDy[(tb * 64 + arow + 8 * h) * ldy + 8 * jj + acol + e] = v;
+        }
   }
   __syncthreads();
   if (a.splits > 1) {
@@ -888,14 +928,22 @@ __global__ void __launch_bounds__(kThreads) leff_ln_bwd_kernel(WgArgs a) {
                              a.part + (size_t)tile * (3 * C + 11 * a.Ch), red);
 }
 
-template <int KC, int TH, int TW>
+template <int KC, int TH, int TW, int YP>
 cudaError_t launch_wgmma(const CUtensorMap& map_w1, const CUtensorMap& map_w2t, const WgArgs& a,
                          unsigned grid, int smem, cudaStream_t s) {
-  const cudaError_t e = cudaFuncSetAttribute(leff_bwd_wgmma_kernel<KC, TH, TW>,
+  const cudaError_t e = cudaFuncSetAttribute(leff_bwd_wgmma_kernel<KC, TH, TW, YP>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  leff_bwd_wgmma_kernel<KC, TH, TW><<<grid, kWgThreads, smem, s>>>(map_w1, map_w2t, a);
+  leff_bwd_wgmma_kernel<KC, TH, TW, YP><<<grid, kWgThreads, smem, s>>>(map_w1, map_w2t, a);
   return cudaGetLastError();
+}
+
+// the forms: (th, tw, kc) = (16, 16, 32) at C = 32, (16, 8, 32) at every C,
+// (8, 8, 32) at C >= 64
+inline bool wgmma_form(int C, int th, int tw, int kc) {
+  if (kc != 32) return false;
+  if (th == 16 && tw == 16) return C == 32;
+  return tw == 8 && (th == 16 || (th == 8 && C >= 64));
 }
 
 }  // namespace
@@ -911,14 +959,14 @@ int fbanet_leff_bwd_chunk(int C, int Ch, int bf16) {
 }
 
 // Dynamic shared memory of the wgmma form for tile th x tw and chunk kc, or
-// 0 for one it does not take (C 64, 128 or 256; the forms (th, tw, kc) =
-// (16, 8, 32), (8, 8, 32); at most four 64 x 64 pieces of dy per tile).
+// 0 for one it does not take (C 32, 64, 128 or 256; the forms of
+// wgmma_form; at most four 64-row pieces of dy per tile: 64 x 64 at
+// C >= 64, 64 x C at C = 32).
 int fbanet_leff_bwd_smem(int C, int th, int tw, int kc) {
   using namespace fbanet;
-  const bool form = (th == 16 || th == 8) && tw == 8 && kc == 32;
-  if (C % 64 || C > 256 || kThreads % C || !form) return 0;
+  if ((C % 64 && C != 32) || C > 256 || kThreads % C || !wgmma_form(C, th, tw, kc)) return 0;
   const WgGeom q(th, tw);
-  if ((C / 64) * (q.NI / 64) > 4) return 0;
+  if ((C >= 64 ? C / 64 : 1) * (q.NI / 64) > 4) return 0;
   const WgLayout L(C, kc, q);
   if ((size_t)q.NI * (C + 4) * sizeof(float) > L.h1 ||
       sizeof(float) * (kWgThreads / 32) * 16 * kRed > L.taps - L.h1)
@@ -955,16 +1003,21 @@ int fbanet_leff_bwd(const void* x, const void* g, void* dx, void* ys, void* h2s,
       Ch % (kc * splits))
     return (int)cudaErrorInvalidValue;
   CUtensorMap map_w1, map_w2t;
-  cudaError_t e = make_tma_map_bf16(&map_w1, w1, Ch, C, kc);
-  if (e == cudaSuccess) e = make_tma_map_bf16(&map_w2t, w2t, Ch, C, kc);
+  const int box_cols = C == 32 ? 32 : 64;
+  cudaError_t e = make_tma_map_bf16(&map_w1, w1, Ch, C, kc, box_cols);
+  if (e == cudaSuccess) e = make_tma_map_bf16(&map_w2t, w2t, Ch, C, kc, box_cols);
   if (e != cudaSuccess) return (int)e;
   WgArgs a{(const fbanet::bf16*)x, (const fbanet::bf16*)g, (fbanet::bf16*)dx,
            (fbanet::bf16*)ys, (fbanet::bf16*)h2s, (fbanet::bf16*)dz1s, (float*)part,
            (float*)dyp, (const float*)ln_s, (const float*)ln_b, (const float*)b1,
            (const float*)wdw, (const float*)bdw, H, W, C, Ch, residual, th, tw, splits};
   const unsigned tiles = (unsigned)B * (H / th) * (W / tw), grid = tiles * splits;
-  e = th == 16 ? launch_wgmma<32, 16, 8>(map_w1, map_w2t, a, grid, smem, s)
-               : launch_wgmma<32, 8, 8>(map_w1, map_w2t, a, grid, smem, s);
+  if (C == 32)
+    e = tw == 16 ? launch_wgmma<32, 16, 16, 64>(map_w1, map_w2t, a, grid, smem, s)
+                 : launch_wgmma<32, 16, 8, 64>(map_w1, map_w2t, a, grid, smem, s);
+  else
+    e = th == 16 ? launch_wgmma<32, 16, 8, 128>(map_w1, map_w2t, a, grid, smem, s)
+                 : launch_wgmma<32, 8, 8, 128>(map_w1, map_w2t, a, grid, smem, s);
   if (splits == 1 || e != cudaSuccess) return (int)e;
   const WgGeom q(th, tw);
   const int smem2 = (int)(sizeof(float) * (q.NI * (C + 4) + 2 * q.NI + 2 * kThreads));

@@ -548,10 +548,10 @@ def _forward_operands(x, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
 
 # K3's plans: (warpgroups per block, windows per block). The wgmma form
 # (csrc/attention_bwd_wgmma.cuh) takes bf16 8 x 8 windows, C 64, 128 or 256
-# and head size 8, 16, 32 or 64; warpgroups 0 is the first kernel
-# (csrc/attention_bwd.cuh: f32, every other shape, embed 32's enc0 at
-# C = 32 among them), one window per block. K11's flags follow the plan
-# onto either form at head sizes 16 and 64.
+# and head size 8, 16, 32 or 64 on two or four warpgroups, and C = 32 with
+# one head (embed 32's enc0) on one; warpgroups 0 is the first kernel
+# (csrc/attention_bwd.cuh: f32, every other shape), one window per block.
+# K11's flags follow the plan onto either form at head sizes 16 and 64.
 _K3_BASE_PLAN = (0, 1)
 
 
@@ -563,10 +563,14 @@ def _attention_bwd_smem(n: int, c: int, heads: int, nwg: int) -> int:
     csrc/attention_bwd_wgmma.cuh, byte for byte: y | g, then do, q, k, v
     as head tiles) that plans without the card, as the CPU tests do; on
     the card K3 plans with the kernel's own, and chip_smoke.py holds the
-    two equal."""
-    if n != 64 or c % 64 or c > 256 or heads < 1 or c % heads:
+    two equal. C >= 64 takes two or four warpgroups, C = 32 one head on
+    one warpgroup."""
+    if n != 64 or (c % 64 and c != 32) or c > 256 or heads < 1 or c % heads:
         return 0
-    if c // heads not in _WGMMA_HEAD_SIZES or nwg not in (2, 4) or \
+    if c == 32:
+        if heads != 1 or nwg != 1:
+            return 0
+    elif c // heads not in _WGMMA_HEAD_SIZES or nwg not in (2, 4) or \
             c > 64 * nwg:
         return 0
     t = 128 * c  # one 64 x C bf16 tensor
@@ -597,10 +601,11 @@ def _attention_bwd_plan(b: int, h: int, w: int, c: int, heads: int,
 
     bf16: the wgmma form where its shared memory (`smem`: the kernel's
     `_kernel_bwd_smem` or its model `_attention_bwd_smem`) takes the shape:
-    two warpgroups where two such blocks share an SM's shared memory (C <=
-    128), else four (one block per SM); the windows dealt in order to as
-    many blocks as the card holds at once, each taking `wpb` consecutive
-    windows (`_window_blocks`), so each block writes one partial row.
+    one warpgroup at C = 32 (four such blocks an SM), two where two such
+    blocks share an SM's shared memory (C <= 128), else four (one block
+    per SM); the windows dealt in order to as many blocks as the card
+    holds at once, each taking `wpb` consecutive windows
+    (`_window_blocks`), so each block writes one partial row.
     Measured at the five groups at B=8 (tools/measure_attention_bwd.py
     `plans`, NVIDIA H100 80GB HBM3 at 700 W): two warpgroups took 6-20 %
     less device time than four where both fit; one window per block (a
@@ -612,11 +617,11 @@ def _attention_bwd_plan(b: int, h: int, w: int, c: int, heads: int,
     a partial 13x larger (424 MB against 33 MB at B=8), so the rule stays
     one for all head sizes. Else
     `_K3_BASE_PLAN`, the first kernel: f32, head sizes other than
-    `_WGMMA_HEAD_SIZES`, and C other than 64, 128 and 256 (embed 32's
-    enc0, C = 32)."""
+    `_WGMMA_HEAD_SIZES`, C other than 32, 64, 128 and 256, and C = 32
+    with more than one head."""
     if bf16 and h % ws == 0 and w % ws == 0 and \
             c % heads == 0 and c // heads in _WGMMA_HEAD_SIZES:
-        for nwg in (2, 4):
+        for nwg in (1, 2, 4):
             size = smem(ws * ws, c, heads, nwg)
             per_sm = _SM_SMEM // (size + 1024) if size else 0
             if 0 < size <= _SMEM_LIMIT and per_sm >= 4 // nwg:

@@ -315,9 +315,23 @@ _leff_launch.base = SimpleNamespace(launches=0)
 # with 32-wide chunks led wherever they fit (C 64, 128) by 6-23 % over 8 x 8
 # with 64-wide chunks, which no group then took; in an earlier build,
 # 16 x 16 tiles (which fit only with 16-wide chunks) and 16-wide chunks
-# trailed by 15-40 %.
-_K4_FORMS = ((16, 8, 32), (8, 8, 32))
+# trailed by 15-40 %. At C = 32 (FBANet-32's enc0, tiles of 64-byte rows)
+# 16 x 16 tiles fit with 32-wide chunks (halo recompute 1.56x, not 1.88x):
+# 0.6019 device ms a call at B=8 against 0.6968 for 16 x 8 and 1.5200 for
+# the WMMA form (H100, 700 W). (8, 8, 32) is built for C >= 64 only,
+# (16, 16, 32) for C = 32 only (`_k4_form`).
+_K4_FORMS = ((16, 16, 32), (16, 8, 32), (8, 8, 32))
 _WMMA_PLAN = (0, 0, 0, 1)  # the WMMA form: 8 x 8 tiles, its own chunk
+
+
+def _k4_form(c: int, th: int, tw: int, kc: int) -> bool:
+    """Whether csrc/leff_bwd.cu builds the wgmma form (th, tw, kc) for C
+    channels (its `wgmma_form`)."""
+    if (th, tw, kc) not in _K4_FORMS:
+        return False
+    if (th, tw) == (16, 16):
+        return c == 32
+    return th == 16 or c >= 64
 
 
 def _leff_bwd_smem(c: int, th: int, tw: int, kc: int) -> int:
@@ -327,18 +341,19 @@ def _leff_bwd_smem(c: int, th: int, tw: int, kc: int) -> int:
     csrc/leff_bwd.cu, byte for byte) that plans without the card, as the
     CPU tests do; on the card `leff_bwd` plans with the kernel's own, and
     chip_smoke.py holds the two equal."""
-    if (c % 64 or c > 256 or 256 % c or (th, tw, kc) not in _K4_FORMS
-            or (c // 64) * (th * tw // 64) > 4):
+    if ((c % 64 and c != 32) or c > 256 or 256 % c
+            or not _k4_form(c, th, tw, kc)
+            or max(c // 64, 1) * (th * tw // 64) > 4):
         return 0
 
     def a128(n):
         return _cdiv(n, 128) * 128
 
-    atoms, kcp = c // 64, kc + 4
+    row, kcp = 2 * c, kc + 4  # bytes of a row of C bf16 channels
     nx, ng, ni = (th + 4) * (tw + 4), (th + 2) * (tw + 2), th * tw
     nxr, ngr = _cdiv(nx, 8) * 8, _cdiv(ng, 8) * 8
-    w1 = _cdiv(atoms * (nxr + ngr) * 128, 1024) * 1024
-    h1 = w1 + 3 * atoms * kc * 128 + ni // 64 * kc * 128
+    w1 = _cdiv((nxr + ngr) * row, 1024) * 1024
+    h1 = w1 + 3 * kc * row + ni * kc * 2
     taps = h1 + a128(4 * nx * kcp) + a128(4 * ni * kcp) + a128(4 * ngr * kcp)
     mu = taps + a128(36 * kc) + 2 * a128(4 * kc)
     # dy after the chunk loop must end before h1; the partial sums' scratch
@@ -364,7 +379,8 @@ def _leff_bwd_plan(b: int, h: int, w: int, c: int, ch: int, bf16: bool = True,
 
     bf16: the first form of `_K4_FORMS` whose tile divides the map, whose
     chunk divides ch and that fits shared memory (`smem`: `_kernel_smem`,
-    the kernel's, or `_leff_bwd_smem`, its model). With fewer
+    the kernel's, or `_leff_bwd_smem`, its model), at C 32 (FBANet-32's
+    enc0), 64, 128 or 256. With fewer
     tiles than half the card's `sms` (one block per SM), `_k4_splits`
     blocks share each tile's hidden chunks."""
     if bf16:
@@ -419,8 +435,11 @@ def leff_bwd(x, g, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, *,
 
 def _leff_bwd_launch(x, g, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, residual,
                      plan):
-    """Launch K4 with `plan` (see `_leff_bwd_plan`), then the sums."""
+    """Launch K4 with `plan` (see `_leff_bwd_plan`), then the sums: the
+    wgmma form counts in `_leff_bwd_launch.wgmma`, the WMMA form in
+    `_leff_bwd_launch.base`."""
     ch = w1.shape[0]
+    _check_kernel_shape(x, wdw, ch)
     b, h, w, c = x.shape
     th, tw, kc, splits = plan
     lib = _build.library()
@@ -452,6 +471,7 @@ def _leff_bwd_launch(x, g, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, residual,
         h, w, c, ch, int(residual), bf16, th, tw, kc, splits, _build.stream(x))
     _build.check(err, "leff_bwd")
     leff_bwd.launches += 1
+    (_leff_bwd_launch.wgmma if th else _leff_bwd_launch.base).launches += 1
     t = b * h * w
     sums = column_sum(part)
     dw1 = token_matmul(dz1s.view(t, ch), ys.view(t, c))
@@ -463,6 +483,8 @@ def _leff_bwd_launch(x, g, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, residual,
 
 
 leff_bwd.launches = 0
+_leff_bwd_launch.wgmma = SimpleNamespace(launches=0)
+_leff_bwd_launch.base = SimpleNamespace(launches=0)
 
 
 class _FusedLeFF(torch.autograd.Function):

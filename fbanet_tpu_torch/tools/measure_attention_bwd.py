@@ -155,7 +155,7 @@ def candidates(batch: int, h: int, c: int, heads: int, sms: int,
     smem_fn = smem or attention._kernel_bwd_smem
     out = [attention._K3_BASE_PLAN]
     windows = batch * (h // WS) ** 2
-    for nwg in (4, 2):
+    for nwg in (4, 2, 1):
         if not 0 < smem_fn(WS * WS, c, heads, nwg) <= attention._SMEM_LIMIT:
             continue
         fill = -(-windows // ((4 // nwg) * sms))

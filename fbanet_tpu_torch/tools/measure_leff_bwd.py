@@ -1,8 +1,9 @@
 """K4 (`leff_bwd`, the LeFF backward with its fixed-order sums) at the five
-SwinGroup shapes of the published model, on the card.
+SwinGroup shapes of the published model (`--embed 32`: of the
+configuration's default width), on the card.
 
     python fbanet_tpu_torch/tools/measure_leff_bwd.py [shapes] [plans]
-        [--batch 8]
+        [--batch 8] [--embed 64]
 
 - shapes: per group, bf16 with the residual: K4's ms (CUDA events around
   10 back-to-back calls, the sums included), its device ms (the kernels'
@@ -34,6 +35,7 @@ import torch
 if "fbanet_tpu_torch" not in sys.modules:  # run by its path
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
+from fbanet_tpu_torch.tools import measure_reduce  # noqa: E402
 from fbanet_tpu_torch.tools.measure_reduce import (  # noqa: E402
     GROUPS,
     bound_ms,
@@ -137,15 +139,15 @@ def _k4_device_ms(fn, iters: int = 10) -> float:
     return us / iters / 1e3
 
 
-def plans(batch: int = 8) -> list[dict]:
-    """K4's device ms and error per group under every plan the wgmma form
-    takes and under the WMMA form (`leff._WMMA_PLAN`)."""
+def plans(batch: int = 8, groups: tuple = GROUPS) -> list[dict]:
+    """K4's device ms and error per group of `groups` under every plan the
+    wgmma form takes and under the WMMA form (`leff._WMMA_PLAN`)."""
     from fbanet_tpu_torch.ops import leff
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     smem = leff._kernel_smem
     out, bad = [], []
-    for i, (name, h, c, _heads) in enumerate(GROUPS):
+    for i, (name, h, c, _heads) in enumerate(groups):
         x, g, p = case(batch, h, c, "cuda", 800 + i)
         ch = 4 * c
         chosen = leff._leff_bwd_plan(batch, h, h, c, ch, True, sms, smem)
@@ -191,15 +193,20 @@ def main(argv=None) -> dict:
     ap.add_argument("modes", nargs="*", default=["shapes"],
                     choices=["shapes", "plans"])
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--embed", type=int, default=64,
+                    help="the model width whose five groups are measured "
+                         "(measure_reduce.groups: 64 published, 32 the "
+                         "configuration's default)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("measure_leff_bwd: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False  # full-f32 plain products
     res = {}
+    groups = measure_reduce.groups(args.embed)
     if "shapes" in args.modes:
-        res["shapes"] = shapes(args.batch)
+        res["shapes"] = shapes(args.batch, groups)
     if "plans" in args.modes:
-        res["plans"] = plans(args.batch)
+        res["plans"] = plans(args.batch, groups)
     res["device"] = torch.cuda.get_device_name(0)
     log(json.dumps(res))
     return res

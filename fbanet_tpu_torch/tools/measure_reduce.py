@@ -335,7 +335,8 @@ STEP_KERNELS = (("K1", "attention_wgmma_kernel"),
                 ("K2", "leff_wgmma"), ("K2-base", "leff_bf16"),
                 ("K3", "attention_bwd_wgmma"),
                 ("K3-base", "window_attention_bwd"),
-                ("K4", "leff_bwd"), ("K4", "leff_ln_bwd"),
+                ("K4-base", "leff_bwd_wmma"), ("K4", "leff_bwd"),
+                ("K4", "leff_ln_bwd"),
                 ("R1", "token_matmul"), ("R2", "column_sum"))
 
 

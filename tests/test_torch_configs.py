@@ -286,10 +286,12 @@ def test_flag_model_matches_jax(flag, dtype):
 
 
 def test_first_kernel_plans_at_embed32():
-    """K1's and K3's plans keep FBANet-32's enc0 (C = 32, which no wgmma
-    form takes) and every group in f32 on the first kernels, and send its
-    other four groups (head size 32 at enc1, 8 at the others) to the wgmma
-    forms in bf16, at B=2 and B=8; the wgmma forms keep FBANet-64's."""
+    """K1's and K3's plans keep every group of FBANet-32 in f32 on the
+    first kernels; in bf16 at B=2 and B=8 K1's keeps enc0 (C = 32, which
+    its wgmma form does not take) on the first kernel and sends the other
+    four groups (head size 32 at enc1, 8 at the others) to the wgmma form,
+    and K3's sends all five, enc0 on one warpgroup; the wgmma forms keep
+    FBANet-64's."""
     for batch in (2, 8):
         for (_name, h, c, heads), (_n, h64, c64, heads64) in zip(
                 groups(32), groups(64)):
@@ -301,8 +303,7 @@ def test_first_kernel_plans_at_embed32():
             k3 = attention._attention_bwd_plan(batch, h, h, c, heads, 8,
                                                True)
             if c == 32:
-                assert (k1, k3) == (attention._K1_BASE_PLAN,
-                                    attention._K3_BASE_PLAN)
+                assert k1 == attention._K1_BASE_PLAN and k3[0] == 1
             else:
                 assert k1[0] > 0 and k3[0] > 0
             assert attention._attention_plan(batch, h64, h64, c64,

@@ -203,6 +203,63 @@ def test_leff_bwd_plan_sizes_with_the_given_smem():
             == leff_mod._WMMA_PLAN)
 
 
+def test_leff_bwd_smem_at_c32_byte_for_byte():
+    """The wgmma form's layout at C = 32 (FBANet-32's enc0), byte for byte:
+    y and g as 64-byte rows (2 C bytes a row, as the 128-byte atoms at
+    C >= 64), the W1 ring's two chunks and the W2^T chunk (kc rows of 2 C
+    bytes each), dz1 (NI rows of 2 kc bytes), then h1, gz1 and z2 (f32,
+    kc + 4 a row), the taps, b1, bdw, the token statistics, three
+    barriers and the base's alignment slack. 16 x 16 tiles exist at
+    C = 32 only, 8 x 8 ones at C >= 64 only."""
+    def a128(b):
+        return -(-b // 128) * 128
+
+    # 16 x 16: NX 400, NG 324 (328 rounded to 8 rows), NI 256
+    head = 400 * 64 + 328 * 64 + 512  # y, g, up to the 1024-byte boundary
+    ring = 2 * 32 * 64 + 32 * 64 + 256 * 32 * 2  # W1 x 2, W2^T, dz1
+    f32 = a128(4 * 400 * 36) + a128(4 * 256 * 36) + a128(4 * 328 * 36)
+    rest = a128(36 * 32) + 2 * a128(4 * 32) + 2 * a128(4 * 256) + 24 + 1024
+    assert leff_mod._leff_bwd_smem(32, 16, 16, 32) == \
+        head + ring + f32 + rest == 215832
+    # 16 x 8: NX 240, NG 180 (184), NI 128
+    head = 240 * 64 + 184 * 64 + 512
+    ring = 2 * 32 * 64 + 32 * 64 + 128 * 32 * 2
+    f32 = a128(4 * 240 * 36) + a128(4 * 128 * 36) + a128(4 * 184 * 36)
+    rest = a128(36 * 32) + 2 * a128(4 * 32) + 2 * a128(4 * 128) + 24 + 1024
+    assert leff_mod._leff_bwd_smem(32, 16, 8, 32) == \
+        head + ring + f32 + rest == 124952
+    assert leff_mod._leff_bwd_smem(32, 8, 8, 32) == 0  # built at C >= 64
+    for c in (64, 128, 256):
+        assert leff_mod._leff_bwd_smem(c, 16, 16, 32) == 0  # C = 32 only
+    assert leff_mod._leff_bwd_smem(48, 16, 8, 32) == 0
+    assert leff_mod._leff_bwd_smem(16, 16, 8, 32) == 0
+
+
+@pytest.mark.parametrize("batch", [2, 8])
+def test_leff_bwd_plan_at_embed32_enc0(batch):
+    """FBANet-32's enc0 (160 px, C = 32, hidden 128) takes the wgmma form
+    in bf16 with 16 x 16 tiles and no split (B * 100 tiles reach half a
+    block an SM); f32 keeps the WMMA form."""
+    plan = leff_mod._leff_bwd_plan(batch, 160, 160, 32, 128)
+    assert plan == (16, 16, 32, 1)
+    assert 2 * batch * 100 >= SMS
+    assert leff_mod._leff_bwd_plan(batch, 160, 160, 32, 128, False) == \
+        leff_mod._WMMA_PLAN
+
+
+def test_leff_bwd_launch_refuses_off_the_card_at_c32():
+    """K4's launch under an explicit plan takes CUDA tensors only, at
+    C = 32 as at every width: any other device gets an error naming the
+    shape, never the plain version."""
+    c, ch = 32, 128
+    x = torch.empty(1, 16, 16, c, device="meta", dtype=torch.bfloat16)
+    p = [torch.empty(s, device="meta") for s in (
+        (c,), (c,), (ch, c), (ch,), (ch, 1, 3, 3), (ch,), (c, ch))]
+    for plan in ((16, 16, 32, 1), (16, 8, 32, 1), leff_mod._WMMA_PLAN):
+        with pytest.raises(ValueError, match=r"\(1, 16, 16, 32\)"):
+            leff_mod._leff_bwd_launch(x, x, *p, True, plan)
+
+
 def _split_dy_sum(parts):
     """The split's second pass (`leff_ln_bwd_kernel`, csrc/leff_bwd.cu) in
     plain PyTorch: the f32 dy partials [splits, ..., C] added in split

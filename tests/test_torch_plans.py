@@ -118,7 +118,8 @@ def test_smem_models_refuse_what_the_kernels_do_not_take():
     """The layouts' limits: K2 at most four 64 x 64 output pieces a tile
     (16 x 8 tiles at C = 256 need 8), only the instantiated forms; K3 only
     64-token windows, C 64, 128 or 256, head size 8, 16, 32 or 64, two
-    warpgroups only up to C = 128 (one 64-column piece of dy each)."""
+    warpgroups only up to C = 128 (one 64-column piece of dy each), and
+    C = 32 only with one head on one or two warpgroups, never four."""
     assert leff._leff_smem(256, 16, 8, 64) == 0
     assert leff._leff_smem(128, 16, 16, 64) == 0  # not a form
     assert leff._leff_smem(128, 8, 8, 16) == 0  # not a form
@@ -283,6 +284,44 @@ def test_attention_smem_refuses_what_the_kernel_does_not_take():
         4 * 32768 + 16384 + 4 * 4 * 4096 + 16 * 8 + 1024
 
 
+def test_attention_bwd_smem_at_c32_byte_for_byte():
+    """K3's layout at C = 32 (FBANet-32's enc0, one head of 32), byte for
+    byte: one warpgroup holds y | g, do, q, k, v (64 x 32 bf16 each,
+    64-byte rows), its two-slot ring (4096 bytes a slot, a 32-column box
+    fills half), its p tile (y | g is too small to hold it), the column
+    scratch, the 6 C partials, the LN statistics, two barriers and the
+    alignment slack. C = 32 takes one head on one warpgroup only, and one
+    warpgroup serves C = 32 only."""
+    one = 4096 + 4 * 4096 + 2 * 4096 + 8192 + 1024 + 768 + 2 * 256 + 16
+    assert attention._attention_bwd_smem(64, 32, 1, 1) == one + 1024 == 40208
+    for nwg in (2, 4):
+        assert attention._attention_bwd_smem(64, 32, 1, nwg) == 0
+    for heads in (2, 4):  # head sizes 16, 8 at C = 32: not built
+        assert attention._attention_bwd_smem(64, 32, heads, 1) == 0
+    for c in (64, 128, 256):
+        assert attention._attention_bwd_smem(64, c, c // 32, 1) == 0
+
+
+def test_wrappers_refuse_off_the_card_at_c32():
+    """K3's launch under an explicit plan, and its windowed entry, take
+    CUDA tensors only at C = 32 too, under either design and the first
+    kernel: any other device gets an error naming the shape, never the
+    plain version."""
+    c = 32
+    x = torch.empty(1, 16, 16, c, device="meta", dtype=torch.bfloat16)
+    ap = [torch.empty(s, device="meta") for s in (
+        (c,), (c,), (c, c), (c,), (2 * c, c), (2 * c,), (c, c), (1, 64, 64))]
+    for plan in ((1, 1), (2, 1), attention._K3_BASE_PLAN):
+        with pytest.raises(ValueError, match=r"\(1, 16, 16, 32\)"):
+            attention._attention_bwd_launch(x, x, *ap, None, 1, WS, False,
+                                            plan)
+    xw = torch.empty(4, 64, c, device="meta", dtype=torch.bfloat16)
+    for plan in ((1, 1), (2, 2)):
+        with pytest.raises(ValueError, match=r"\(4, 64, 32\)"):
+            attention.launch_bwd_windows(xw, xw, *ap, None, heads=1,
+                                         windows_per_image=4, plan=plan)
+
+
 # FBANet-32 (embed 32, the configuration's default): (H, C, heads) of its
 # five groups at 160 px, head sizes 32, 32, 8, 8 and 8
 GROUPS32 = [(160, 32, 1), (80, 64, 2), (40, 128, 16), (80, 128, 16),
@@ -292,13 +331,14 @@ GROUPS32 = [(160, 32, 1), (80, 64, 2), (40, 128, 16), (80, 128, 16),
 @pytest.mark.parametrize("batch", [2, 8])
 @pytest.mark.parametrize("h,c,heads", GROUPS32, ids=IDS)
 def test_attention_plans_at_embed32(h, c, heads, batch):
-    """K1's and K3's plans at FBANet-32's groups: in bf16 the wgmma forms at
-    enc1 to dec1 (head sizes 32 and 8; K1 staged by two warpgroups at
+    """K1's and K3's plans at FBANet-32's groups: in bf16 K1's wgmma form
+    at enc1 to dec1 (head sizes 32 and 8; staged by two warpgroups at
     C = 64, streamed by four at C = 128, where head size 8's padded tiles
-    leave the staged weights no room; K3 on two warpgroups at C = 64, four
-    at C = 128), within the H100's shared memory at their residency, the
-    windows dealt to at most as many blocks as the card holds at once; the
-    first kernels at enc0 (C = 32) and in f32."""
+    leave the staged weights no room) and K3's at all five (one warpgroup
+    at enc0, C = 32; two at C = 64, four at C = 128), within the H100's
+    shared memory at their residency, the windows dealt to at most as many
+    blocks as the card holds at once; K1's first kernel at enc0, and both
+    first kernels in f32."""
     base1, base3 = attention._K1_BASE_PLAN, attention._K3_BASE_PLAN
     assert attention._attention_plan(batch, h, h, c, heads,
                                      bf16=False) == base1
@@ -306,16 +346,16 @@ def test_attention_plans_at_embed32(h, c, heads, batch):
                                          bf16=False) == base3
     k1 = attention._attention_plan(batch, h, h, c, heads)
     k3 = attention._attention_bwd_plan(batch, h, h, c, heads)
+    assert k3[0] == {32: 1, 64: 2, 128: 4}[c]
+    plans = [(k3, attention._attention_bwd_smem(WS * WS, c, heads, k3[0]))]
     if c == 32:
-        assert (k1, k3) == (base1, base3)
-        return
-    assert (k1[0], k1[2]) == {64: (2, 1), 128: (4, 0)}[c]
-    assert k3[0] == {64: 2, 128: 4}[c]
+        assert k1 == base1
+    else:
+        assert (k1[0], k1[2]) == {64: (2, 1), 128: (4, 0)}[c]
+        plans.append((k1[:2], attention._attention_smem(
+            WS * WS, c, heads, k1[0], k1[2])))
     windows = batch * (h // WS) ** 2
-    for (nwg, wpb), size in (
-            (k1[:2], attention._attention_smem(WS * WS, c, heads, k1[0],
-                                               k1[2])),
-            (k3, attention._attention_bwd_smem(WS * WS, c, heads, k3[0]))):
+    for (nwg, wpb), size in plans:
         resident = 4 // nwg
         assert 0 < size <= SMEM_LIMIT
         assert resident * (size + 1024) <= attention._SM_SMEM
@@ -323,13 +363,36 @@ def test_attention_plans_at_embed32(h, c, heads, batch):
         assert wpb == 1 or -(-windows // (wpb - 1)) > resident * SMS
 
 
+@pytest.mark.parametrize("batch", [2, 8])
+def test_backward_plans_at_embed32_enc0(batch):
+    """FBANet-32's enc0 (160 px, C = 32, one head of 32) in bf16: K3 on its
+    wgmma form with one warpgroup, four blocks an SM within the SM's
+    shared memory, the windows dealt to as many blocks as the card holds
+    at once (2 windows a block at B=2, 7 at B=8), each block writing one
+    partial row; K4 on its wgmma form with 16 x 16 tiles, unsplit. K1's
+    and K2's plans keep their first kernels there."""
+    windows = batch * (160 // WS) ** 2
+    nwg, wpb = attention._attention_bwd_plan(batch, 160, 160, 32, 1)
+    assert (nwg, wpb) == (1, {2: 2, 8: 7}[batch])
+    size = attention._attention_bwd_smem(WS * WS, 32, 1, nwg)
+    assert 4 * (size + 1024) <= attention._SM_SMEM
+    assert attention._partial_rows(windows, (nwg, wpb)) == \
+        len(attention._window_blocks(windows, wpb)) <= 4 * SMS
+    assert leff._leff_bwd_plan(batch, 160, 160, 32, 128) == (16, 16, 32, 1)
+    assert attention._attention_plan(batch, 160, 160, 32,
+                                     1) == attention._K1_BASE_PLAN
+    assert leff._leff_plan(batch, 160, 160, 32, 128) == leff._K2_BASE_PLAN
+
+
 def test_form_counts_split_the_head_sizes():
     """A launch counts in its form's count: the first kernel in `.base`,
-    the wgmma form at head sizes 8 and 32 (embed 32's) in `.narrow`, at 16
-    and 64 in `.wgmma`, for K1 and K3 alike."""
+    the wgmma form at head sizes 8 and 32 (embed 32's, K3's enc0 at C = 32
+    among them) in `.narrow`, at 16 and 64 in `.wgmma`, for K1 and K3
+    alike."""
     for counted in (attention.fused_window_attention_2d,
                     attention._attention_bwd_launch):
         for nwg, c, heads, want in ((0, 64, 2, "base"), (0, 64, 1, "base"),
+                                    (1, 32, 1, "narrow"), (0, 32, 1, "base"),
                                     (2, 64, 2, "narrow"),
                                     (4, 128, 16, "narrow"),
                                     (2, 64, 8, "narrow"), (2, 64, 1, "wgmma"),
@@ -378,14 +441,14 @@ def test_smem_models_at_head_sizes_8_and_32():
 def test_measurement_forms_at_embed32(h, c, heads):
     """K7, K9 and K11 at FBANet-32's groups name no instantiation their
     wgmma forms are not built for: head sizes 8 and 32 (and enc0's C = 32)
-    keep the first kernels there, while K1 and K3 themselves take their
-    wgmma forms at enc1 to dec1."""
+    keep the first kernels there, while K1 takes its wgmma form at enc1 to
+    dec1 and K3 at all five groups (K11 keeps its own rule,
+    `_K11_HEAD_SIZES`: its ablations are of FBANet-64)."""
     x = torch.empty(8, h, h, c, device="meta", dtype=torch.bfloat16)
     xw = torch.empty(8 * (h // WS) ** 2, WS * WS, c, device="meta",
                      dtype=torch.bfloat16)
     assert (attention._attention_plan(8, h, h, c, heads)[0] > 0) == (c > 32)
-    assert (attention._attention_bwd_plan(8, h, h, c, heads)[0] > 0) == \
-        (c > 32)
+    assert attention._attention_bwd_plan(8, h, h, c, heads)[0] > 0
     for core in measure_swin_variants.CORES:
         assert _k7_plan(x, heads, core) == attention._K1_BASE_PLAN
     assert _k9_plan(x, heads) == attention._K1_BASE_PLAN
