@@ -147,21 +147,23 @@ non-zero:
    slice's forward and the train phase's step times.
 13. configs (in a process of its own): every configuration the JAX model
    builds. FBANet-32 (embed 32, the configuration's default; head size 32
-   at enc0 / enc1, 8 at the others): its plans must send K1 and K3 to
-   their wgmma forms at enc1 to dec1 in bf16 and to their first kernels at
-   enc0 (C = 32) and in f32; K1 and K3 against their plain versions under
-   those plans, f32 at B=2, bf16 at B=2 and B=8, masked and not, each
-   bitwise on a repeat (K3: dx and every parameter gradient, its sums
-   included), the first kernels also through `_K1_BASE_PLAN` /
-   `_K3_BASE_PLAN` in bf16, K1b and K3's windowed entry in bf16 at B=2;
-   the layout models against the kernels' sizes at head sizes 8 and 32;
-   K1-K4 and K1b per group at B=8 (ms, device ms, bound) and R1 / R2 at
-   every shape of its B=8 step (R1's 32-wide outputs among them, beside
-   torch.mm); then 3 batches of 4 served through `eval_step` against the
-   plain path and 5 AdamW steps at B=8 (20 launches of each of K1-K4 a
-   step, K1 and K3 16 on their wgmma forms and 4 on their first kernels),
-   one profiled, and an f32 B=2 step's gradients against the plain
-   versions. FBANet-64 at window 10, B=8: 20 composed attentions (JAX's
+   at enc0 / enc1, 8 at the others): its plans must send K1-K4 to their
+   wgmma forms at all five groups in bf16 (enc0, C = 32, on their C = 32
+   instantiations) and to their first kernels in f32; K1-K4 against their
+   plain versions under those plans, f32 at B=2, bf16 at B=2 and B=8, K1
+   and K3 masked and not, each bitwise on a repeat (K3 and K4: dx and
+   every parameter gradient, their sums included), the first kernels also
+   through `_K1_BASE_PLAN` / `_K2_BASE_PLAN` / `_K3_BASE_PLAN` /
+   `_WMMA_PLAN` in bf16, K1b and K3's windowed entry in bf16 at B=2 (K1b
+   at enc0 also at B=8 and through `_K1_BASE_PLAN`); the layout models
+   against the kernels' sizes at head sizes 8 and 32 and at C = 32 (K1,
+   K2, K3, K4); K1-K4 and K1b per group at B=8 (ms, device ms, bound; enc0
+   on the C = 32 forms) and R1 / R2 at every shape of its B=8 step (R1's
+   32-wide outputs among them, beside torch.mm); then 3 batches of 4
+   served through `eval_step` against the plain path and 5 AdamW steps at
+   B=8 (20 launches of each of K1-K4 a step, all on their wgmma forms, K1
+   and K3 on `-narrow`, none on a first kernel), one profiled, and an f32
+   B=2 step's gradients against the plain versions. FBANet-64 at window 10, B=8: 20 composed attentions (JAX's
    shape rule) and 20 K2 a forward against the plain path, the forward
    timed, 3 steps. Two B=2 steps of FBANet-64 under each of
    use_qkv_bias=False, token_mlp="ffn" and conv + SE + qk_scale +
@@ -2596,32 +2598,32 @@ def phase_ranks(card: str, work: Path) -> None:
 
 # the configs phase: every configuration the JAX model builds. FBANet-32
 # (embed 32, the configuration's default) has head size 32 at enc0 and
-# enc1 and 8 at the bottleneck, dec0 and dec1: K1's wgmma form takes enc1
-# to dec1 in bf16 (`.narrow` counts), K3's and K4's all five groups (enc0,
-# C = 32, on their C = 32 instantiations), the first kernels of K1 and K2
-# enc0, and every first kernel f32; weight gradients 32 wide, which R1
-# takes as half a 64-wide tile; window 10 (N = 100) and the options of
-# JAX's composed SwinLayer run composed PyTorch ops.
+# enc1 and 8 at the bottleneck, dec0 and dec1: in bf16 the wgmma forms of
+# K1-K4 take all five groups (K1's and K3's in `.narrow`; enc0, C = 32, on
+# their C = 32 instantiations: K1 and K3 one head on one warpgroup, K2
+# and K4 16 x 16 tiles), and every first kernel f32; weight gradients 32
+# wide, which R1 takes as half a 64-wide tile; window 10 (N = 100) and the
+# options of JAX's composed SwinLayer run composed PyTorch ops.
 CONFIG_SHAPES = [(160, 32, 1), (80, 64, 2), (40, 128, 16), (80, 128, 16),
                  (160, 64, 8)]
 
 
 def configs_kernels() -> dict:
-    """K1, K1b, K3 and K4 at FBANet-32's five group shapes against their
-    plain versions, each with a bitwise repeat: under their plans (in bf16
-    the wgmma forms of K1 at enc1 to dec1, of K3 and K4 at every group,
-    enc0 included; the first kernels of K1 and K2 at enc0 and of all four
-    in f32) at B=2 in f32 and at B=2 and B=8 in bf16, masked and not, K3's
-    and K4's dx and every parameter gradient with its sums; in bf16 the
-    first kernels too through `_K1_BASE_PLAN` / `_K3_BASE_PLAN` /
-    `_WMMA_PLAN`; K1b and K3's windowed entry in bf16 at B=2, masked and
-    not; the layout models against the kernels' own sizes at head sizes 8
-    and 32 and at C = 32. Then K1-K4 per group at B=8 under their plans
-    and R1 / R2 at every shape of FBANet-32's B=8 train step
-    (tools/measure_*.py with `groups(32)`). Returns {kernel: {max_abs_err,
-    b8 / shapes}}, with ms, plain ms and bound at B=2 (bf16, masked,
-    residual, summed over K1's wgmma groups, enc1 to dec1, and K3's, enc0
-    to dec1) for the wgmma forms' entries."""
+    """K1, K1b, K2, K3 and K4 at FBANet-32's five group shapes against
+    their plain versions, each with a bitwise repeat: under their plans (in
+    bf16 the wgmma forms at every group, enc0's C = 32 included; the first
+    kernels in f32) at B=2 in f32 and at B=2 and B=8 in bf16, K1 and K3
+    masked and not, K3's and K4's dx and every parameter gradient with its
+    sums; in bf16 the first kernels too through `_K1_BASE_PLAN` /
+    `_K2_BASE_PLAN` / `_K3_BASE_PLAN` / `_WMMA_PLAN`; K1b and K3's windowed
+    entry in bf16 at B=2, masked and not (K1b at enc0 also at B=8 and
+    through `_K1_BASE_PLAN`); the layout models against the kernels' own
+    sizes at head sizes 8 and 32 and at C = 32. Then K1-K4 per group at
+    B=8 under their plans and R1 / R2 at every shape of FBANet-32's B=8
+    train step (tools/measure_*.py with `groups(32)`). Returns {kernel:
+    {max_abs_err, b8 / shapes}}, with ms, plain ms and bound at B=2 (bf16,
+    masked, residual, summed over the five groups) for K1's and K3's
+    `-narrow` entries."""
     import torch
 
     from fbanet_tpu_torch.ops import attention, leff
@@ -2633,8 +2635,9 @@ def configs_kernels() -> dict:
         measure_reduce,
     )
 
-    res = {k: dict(max_abs_err=0.0) for k in ("K1-base", "K1b", "K3-base",
-                                              "K4", "K4-base")}
+    res = {k: dict(max_abs_err=0.0) for k in ("K1-base", "K1b", "K2",
+                                              "K2-base", "K3-base", "K4",
+                                              "K4-base")}
     for k in ("K1-narrow", "K3-narrow"):
         res[k] = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
                       library_ms=None)
@@ -2678,11 +2681,21 @@ def configs_kernels() -> dict:
                         failures.append(f"{what} shared memory C={c} heads="
                                         f"{heads}: kernel {theirs}, plan "
                                         f"{ours}")
-    # and at C = 32 (enc0): K3's one-head instantiation, K4's forms
+    # and at C = 32 (enc0): K1's and K3's one-head instantiations, K2's
+    # and K4's forms (0 for what each does not take)
     pairs = [(f"K3 C=32 heads {heads} warpgroups {nwg}",
               attention._attention_bwd_smem(WS * WS, 32, heads, nwg),
               attention._kernel_bwd_smem(WS * WS, 32, heads, nwg))
              for heads in (1, 2, 4) for nwg in (1, 2, 4)]
+    pairs += [(f"K1 C=32 heads {heads} warpgroups {nwg} staged {staged}",
+               attention._attention_smem(WS * WS, 32, heads, nwg, staged),
+               attention._kernel_attention_smem(WS * WS, 32, heads, nwg,
+                                                staged))
+              for heads in (1, 2, 4) for nwg in (1, 2, 4)
+              for staged in (0, 1)]
+    pairs += [(f"K2 C={c} form {form}", leff._leff_smem(c, *form),
+               leff._kernel_leff_smem(c, *form))
+              for c in (32, 64) for form in leff._K2_FORMS]
     pairs += [(f"K4 C=32 form {form}", leff._leff_bwd_smem(32, *form),
                leff._kernel_smem(32, *form)) for form in leff._K4_FORMS]
     for what, ours, theirs in pairs:
@@ -2704,14 +2717,13 @@ def configs_kernels() -> dict:
                     bplan = attention._attention_bwd_plan(
                         batch, h, h, c, heads, WS, bf16,
                         smem=attention._kernel_bwd_smem)
-                    # K1 (and K2) on the wgmma forms at enc1 to dec1 in
-                    # bf16, K3 (and K4) at every group in bf16
-                    wgmma = bf16 and c > 32
-                    if (plan[0] > 0) != wgmma or (bplan[0] > 0) != bf16:
+                    # K1-K4 on the wgmma forms at every group in bf16,
+                    # enc0's C = 32 included
+                    if (plan[0] > 0) != bf16 or (bplan[0] > 0) != bf16:
                         failures.append(
                             f"B={batch} H={h} C={c} heads={heads} {dname}: "
                             f"plans K1 {plan} K3 {bplan}, not the wgmma "
-                            f"forms of K1 {wgmma} and K3 {bf16}")
+                            f"forms of K1 and K3 {bf16}")
                     k1_name = "K1-narrow" if plan[0] else "K1-base"
                     k3_name = "K3-narrow" if bplan[0] else "K3-base"
 
@@ -2727,15 +2739,15 @@ def configs_kernels() -> dict:
                            f"heads={heads} {dname} masked={masked} plan "
                            f"{plan}", [rel], err, torch.equal(got, again),
                            bool(torch.isfinite(got).all()), dname, TOL)
-                    timed = wgmma and masked and batch == 2
+                    timed = bf16 and masked and batch == 2
                     if timed:
                         res[k1_name]["ms"] += time_ms(k1)
                         res[k1_name]["plain_ms"] += time_ms(
                             lambda: k1(plain=True))
                         bounds[k1_name].add(*attention_work(
                             h, c, heads, masked, backward=False))
-                    if wgmma:
-                        # the first kernel, which still serves f32 and enc0
+                    if bf16:
+                        # the first kernel, which still serves f32
                         def k1_base(x=x, a=a, heads=heads):
                             return attention._attention_launch(
                                 x, *a.values(), heads, WS, True,
@@ -2787,9 +2799,12 @@ def configs_kernels() -> dict:
                                    f"(first kernel)", got, again, ref,
                                    dname)
                     if not masked:
+                        configs_k2(h, c, batch, dtype, 970 + i + 20 * batch,
+                                   record)
                         configs_k4(h, c, batch, dtype, 960 + i + 20 * batch,
                                    record_bwd)
-                    if not (bf16 and batch == 2):
+                    # K1b in bf16 at B=2, at enc0 (C = 32) at B=8 too
+                    if not bf16 or (batch != 2 and c != 32):
                         continue
                     # K1b and K3's windowed entry: the same windows,
                     # partitioned, under their plans
@@ -2797,18 +2812,30 @@ def configs_kernels() -> dict:
                     gw = attention.window_partition(g, WS).contiguous()
                     nw = (h // WS) ** 2
 
-                    def k1b(plain=False, xw=xw, a=a, heads=heads, nw=nw):
+                    def k1b(plain=False, plan=None, xw=xw, a=a, heads=heads,
+                            nw=nw):
+                        if plan is not None:
+                            return attention._launch_windows(
+                                xw, *a.values(), heads, nw, plan=plan)
                         return attention.fused_window_attention(
                             xw, **a, heads=heads, windows_per_image=nw,
                             plain=plain)
 
-                    got, again, ref = k1b(), k1b(), k1b(plain=True)
-                    torch.cuda.synchronize()
-                    err, rel = rel_err(got, ref)
-                    record("K1b", f"configs K1b G={xw.shape[0]} C={c} heads="
-                           f"{heads} {dname} masked={masked}", [rel], err,
-                           torch.equal(got, again),
-                           bool(torch.isfinite(got).all()), dname, TOL)
+                    ref = k1b(plain=True)
+                    plans = [None] + ([attention._K1_BASE_PLAN] if c == 32
+                                      else [])
+                    for use in plans:
+                        got, again = k1b(plan=use), k1b(plan=use)
+                        torch.cuda.synchronize()
+                        err, rel = rel_err(got, ref)
+                        record("K1b" if use is None else "K1-base",
+                               f"configs K1b G={xw.shape[0]} C={c} heads="
+                               f"{heads} {dname} masked={masked} plan "
+                               f"{use or 'its own'}", [rel], err,
+                               torch.equal(got, again),
+                               bool(torch.isfinite(got).all()), dname, TOL)
+                    if batch != 2:
+                        continue
 
                     def k3w(xw=xw, gw=gw, p=p, heads=heads, nw=nw):
                         return attention.window_attention_bwd_windows(
@@ -2832,9 +2859,9 @@ def configs_kernels() -> dict:
                              "version or does not repeat:\n"
                              + "\n".join(failures))
     # every kernel of FBANet-32's step at B=8 per group, under its plan:
-    # the groups on the wgmma forms under "-narrow" (K1, K3) or the plain
-    # name (K2, K4), those on the first kernels (K1's and K2's enc0) under
-    # "-base"
+    # the groups on the wgmma forms (all five, enc0 on the C = 32
+    # instantiations) under "-narrow" (K1, K3) or the plain name (K2, K4);
+    # a group on a first kernel would go under "-base"
     groups32 = measure_reduce.groups(32)
     for (wgmma, base), tool in ((("K1-narrow", "K1-base"), measure_attention),
                                 (("K2", "K2-base"), measure_leff),
@@ -2849,9 +2876,9 @@ def configs_kernels() -> dict:
                 "plan", "ms", "device_ms", "bound_ms", "share_of_bound",
                 "max_rel_err")} for r in rows}
             res[name]["b8_sums"] = measure_reduce.shape_sums(name, rows, 8)
-    # K1b (the windowed entry: the wgmma form at enc1 to dec1, the first
-    # kernel at enc0) per group at B=8: the same windows as K1's map,
-    # partitioned
+    # K1b (the windowed entry: the wgmma form at every group, enc0's C = 32
+    # instantiation included) per group at B=8: the same windows as K1's
+    # map, partitioned
     rows = {}
     for i, (name, h, c, heads) in enumerate(groups32):
         x, a = attention_case(h, c, heads, torch.bfloat16, True, 980 + i,
@@ -2880,13 +2907,44 @@ def configs_kernels() -> dict:
     return res
 
 
+def configs_k2(h, c, batch, dtype, seed, record) -> None:
+    """K2 at one of FBANet-32's group shapes against its plain version
+    with the residual (`record`: the error against 3e-2 of max(1, max
+    |plain|) in bf16, 1e-4 in f32, a bitwise repeat): under its plan (in
+    bf16 the wgmma form at every group, enc0's C = 32 forms included; f32
+    the first kernel) and in bf16 under `_K2_BASE_PLAN` too. Failures go
+    where `record` puts them."""
+    import torch
+
+    from fbanet_tpu_torch.ops import leff
+
+    bf16 = dtype == torch.bfloat16
+    dname = "bfloat16" if bf16 else "float32"
+    x, a = leff_case(h, c, dtype, seed, batch)
+    plan = leff._leff_plan(batch, h, h, c, 4 * c, bf16,
+                           smem=leff._kernel_leff_smem)
+    if (plan[0] > 0) != bf16:
+        raise AssertionError(f"configs B={batch} H={h} C={c} {dname}: K2 "
+                             f"plan {plan}")
+    ref = leff.fused_leff(x, **a, residual=True, plain=True)
+    for name, use in (("K2" if plan[0] else "K2-base", plan),
+                      *((("K2-base", leff._K2_BASE_PLAN),) if bf16 else ())):
+        got = leff._leff_launch(x, *a.values(), True, use)
+        again = leff._leff_launch(x, *a.values(), True, use)
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, ref)
+        record(name, f"configs K2 B={batch} H={h} C={c} Ch={4 * c} {dname} "
+               f"plan {use}", [rel], err, torch.equal(got, again),
+               bool(torch.isfinite(got).all()), dname, TOL)
+
+
 def configs_k4(h, c, batch, dtype, seed, record_bwd) -> None:
     """K4 at one of FBANet-32's group shapes against its plain backward
     (`record_bwd`: every gradient with its sums, a bitwise repeat): under
     its plan (in bf16 the wgmma form at every group, enc0 included; f32 the
     WMMA form) and in bf16 under `_WMMA_PLAN` too; the K2 forward's plan
-    stays on the first kernel at enc0. Failures go where `record_bwd`
-    puts them."""
+    takes its wgmma form at every group in bf16 too. Failures go where
+    `record_bwd` puts them."""
     import torch
 
     from fbanet_tpu_torch.ops import leff
@@ -2899,7 +2957,7 @@ def configs_k4(h, c, batch, dtype, seed, record_bwd) -> None:
     plan = leff._leff_bwd_plan(batch, h, h, c, 4 * c, bf16,
                                smem=leff._kernel_smem)
     fwd = leff._leff_plan(batch, h, h, c, 4 * c, bf16)
-    if (plan[0] > 0) != bf16 or (fwd[0] > 0) != (bf16 and c > 32):
+    if (plan[0] > 0) != bf16 or (fwd[0] > 0) != bf16:
         raise AssertionError(f"configs B={batch} H={h} C={c} {dname}: K4 "
                              f"plan {plan}, K2 plan {fwd}")
 
@@ -2987,13 +3045,13 @@ def configs_fbanet32(card: str) -> tuple[dict, dict]:
     heads), 14 frames, 160 px, bf16: 3 batches of 4 served through
     `eval_step` (ECC, forward, clamp, PSNR/SSIM) against the plain path,
     then 5 AdamW steps at B=8 with drop_path 0.1; 20 launches a forward of
-    K1 and of K2, 20 a step of each of K1-K4: K1 and K2 16 on their wgmma
-    forms (K1's at head sizes 8 and 32, `-narrow`; enc1 to dec1) and 4 on
-    their first kernels (enc0, C = 32), K3 all 20 on its wgmma form
-    (`-narrow`, enc0's one-warpgroup instantiation among them) and K4 all
-    20 on its, none at head sizes 16 and 64 and no composed branch; one
-    f32 B=2 step's gradients against the plain versions (K1-K4 20 each on
-    their first kernels). Returns (launches on these runs, times)."""
+    K1 and of K2, 20 a step of each of K1-K4, all on their wgmma forms: K1
+    and K3 on `-narrow` (head sizes 8 and 32; enc0's one-warpgroup C = 32
+    instantiations among them), K2 and K4 on theirs (enc0 on 16 x 16
+    tiles), none on a first kernel, none at head sizes 16 and 64 and no
+    composed branch; one f32 B=2 step's gradients against the plain
+    versions (K1-K4 20 each on their first kernels). Returns (launches on
+    these runs, times)."""
     import torch
 
     from fbanet_tpu_torch.evaluate import eval_step
@@ -3005,7 +3063,6 @@ def configs_fbanet32(card: str) -> tuple[dict, dict]:
     cfg = ModelConfig(num_frames=14, img_size=160, embed_dim=32,
                       window_size=8, dtype="bfloat16", drop_path_rate=0.1)
     model, layers = _config_model(cfg, seed=41)
-    first = cfg.depths[0] * 2  # enc0's layers in the two hourglasses
     counters = _config_counters()
     requests = [tuple(torch.from_numpy(a).cuda() for a in
                       make_realistic_bursts(4, 14, 160, seed=50 + i,
@@ -3019,9 +3076,8 @@ def configs_fbanet32(card: str) -> tuple[dict, dict]:
     log(f"configs FBANet-32: served 3 batches of 4, launches {launches}")
     n = layers * len(served)
     _expect("FBANet-32 serving", launches, {
-        "K1": 0, "K1-narrow": n - first * len(served),
-        "K1-base": first * len(served), "K2": n - first * len(served),
-        "K2-base": first * len(served), "K2-all": n, "composed": 0})
+        "K1": 0, "K1-narrow": n, "K1-base": 0, "K2": n, "K2-base": 0,
+        "K2-all": n, "composed": 0})
     for pred, *_ in served:
         if tuple(pred.shape) != (4, 640, 640, 3) or \
                 not torch.isfinite(pred).all():
@@ -3056,10 +3112,9 @@ def configs_fbanet32(card: str) -> tuple[dict, dict]:
     losses, times, per_step = _config_steps(model, lr8, hr8, 5)
     for i, got in enumerate(per_step):
         _expect(f"FBANet-32 train step {i}", got, {
-            "K1": 0, "K1-narrow": layers - first, "K1-base": first,
-            "K2": layers - first, "K2-base": first, "K2-all": layers,
-            "K3": 0, "K3-narrow": layers, "K3-base": 0, "K4": layers,
-            "K4-base": 0, "composed": 0})
+            "K1": 0, "K1-narrow": layers, "K1-base": 0, "K2": layers,
+            "K2-base": 0, "K2-all": layers, "K3": 0, "K3-narrow": layers,
+            "K3-base": 0, "K4": layers, "K4-base": 0, "composed": 0})
     step_ms = statistics.median(times[1:])
     log(f"configs FBANet-32 B=8 on {card}: forward {fwd_ms:.2f} ms (plain "
         f"versions {plain_fwd_ms:.2f}), train step {step_ms:.2f} ms "
@@ -3673,13 +3728,14 @@ def main() -> None:
         ("K1", "K1 fused window attention (wgmma form at head sizes 16 and "
          "64)", "attention_wgmma.cu", "fbanet_tpu/ops/attention_pallas.py:250"),
         ("K1-narrow", "K1 fused window attention (wgmma form at head sizes "
-         "8 and 32: FBANet-32's enc1 to dec1)", "attention_wgmma.cu",
+         "8 and 32: FBANet-32's five groups, enc0's C = 32 on one "
+         "warpgroup)", "attention_wgmma.cu",
          "fbanet_tpu/ops/attention_pallas.py:250"),
-        ("K1-base", "K1 fused window attention (first kernel: f32, "
-         "FBANet-32's enc0, K9 and K7-base base)", "attention.cu",
+        ("K1-base", "K1 fused window attention (first kernel: f32, K9 and "
+         "K7-base base)", "attention.cu",
          "fbanet_tpu/ops/attention_pallas.py:250"),
-        ("K2", "K2 fused LeFF (wgmma form)", "leff.cu",
-         "fbanet_tpu/ops/leff_pallas.py:172"),
+        ("K2", "K2 fused LeFF (wgmma form, FBANet-32's enc0 at C = 32 "
+         "too)", "leff.cu", "fbanet_tpu/ops/leff_pallas.py:172"),
         ("K2-base", "K2 fused LeFF (first kernel: f32, K8-base/K10-base "
          "base)",
          "leff.cu", "fbanet_tpu/ops/leff_pallas.py:172"),
@@ -3687,10 +3743,11 @@ def main() -> None:
          "sizes 16 and 64)",
          "attention_bwd_wgmma.cu", "fbanet_tpu/ops/attention_pallas.py:334"),
         ("K3-narrow", "K3 fused window attention backward (wgmma form at "
-         "head sizes 8 and 32: FBANet-32's enc1 to dec1)",
+         "head sizes 8 and 32: FBANet-32's five groups, enc0's C = 32 on "
+         "one warpgroup)",
          "attention_bwd_wgmma.cu", "fbanet_tpu/ops/attention_pallas.py:334"),
         ("K3-base", "K3 fused window attention backward (first kernel: "
-         "f32, FBANet-32's enc0, K11-base base)", "attention_bwd.cu",
+         "f32, K11-base base)", "attention_bwd.cu",
          "fbanet_tpu/ops/attention_pallas.py:334"),
         ("K4", "K4 fused LeFF backward (and K4b; wgmma form, FBANet-32's "
          "enc0 at C = 32 too)", "leff_bwd.cu",

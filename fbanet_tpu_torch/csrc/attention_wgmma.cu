@@ -1,7 +1,8 @@
 // K1's wgmma form: fused norm1 + window attention (the forward of K3) in
 // bf16, for 8 x 8 windows (64 tokens), C = 64, 128 or 256 and head size 8,
-// 16, 32 or 64, on the post-roll map [B, H, W, C] (K1) or on pre-partitioned
-// windows [G, 64, C] (K1b). It replaces the TPU kernels
+// 16, 32 or 64, or C = 32 with one head of 32 (FBANet-32's enc0), on the
+// post-roll map [B, H, W, C] (K1) or on pre-partitioned windows [G, 64, C]
+// (K1b). It replaces the TPU kernels
 // fbanet_tpu/ops/attention_pallas.py::_attention2d_kernel and
 // _attention_kernel; the function, its outputs and its rounding points are
 // those of the first kernel (attention.cu, kept for f32, for the shapes
@@ -49,6 +50,16 @@
 // p v an n16 product whose pad columns are dropped. o lies in y's atoms at
 // every head size, so the projection does not see the padding.
 //
+// C = 32 (YP = 64, FBANet-32's enc0, one head of 32): y / o is one tile of
+// 64-byte rows (64-byte swizzle, like the head tile) and the weights arrive
+// as 32-row x 32-column boxes (64-byte swizzled TMA), all 8 KB of [Wq; Wkv;
+// Wproj] staged once per block; q | k | v are three n32 pieces and proj one,
+// each K = 32 (two k16 steps), q k^T m64n64 and p v m64n32 as for a head of
+// 32 at C = 64. With a single head a second warpgroup would idle through
+// the core, so the form runs one warpgroup a block (NWG = 1, ~41 KB of
+// shared memory), four blocks an SM, each walking its consecutive windows,
+// as K3's form does at C = 32.
+//
 // The form's layout, kernel and launch are in attention_wgmma.cuh, shared
 // with K7's cores and K9's stages on this form (attention_variants_wgmma*.cu,
 // attention_ablation_wgmma*.cu).
@@ -68,14 +79,16 @@ cudaError_t launch_dh(const CUtensorMap& m3, const CUtensorMap& mp, const AfArgs
 }
 
 int launch_form(const void* w3, const void* wproj, AfArgs a, int nwg, int staged, void* stream) {
-  const int C = a.geom.C, dh = C / a.heads;
+  const int C = a.geom.C, dh = C / a.heads, box_cols = C == 32 ? 32 : 64;
   CUtensorMap m3, mp;
-  cudaError_t e = make_tma_map_bf16(&m3, w3, 3 * C, C, kBoxRows);
-  if (e == cudaSuccess) e = make_tma_map_bf16(&mp, wproj, C, C, kBoxRows);
+  cudaError_t e = make_tma_map_bf16(&m3, w3, 3 * C, C, kBoxRows, box_cols);
+  if (e == cudaSuccess) e = make_tma_map_bf16(&mp, wproj, C, C, kBoxRows, box_cols);
   if (e != cudaSuccess) return (int)e;
   const unsigned grid = (unsigned)((a.windows + a.wpb - 1) / a.wpb);
   const int smem = (int)AfLayout(C, a.heads, nwg, staged).total;
   const cudaStream_t s = (cudaStream_t)stream;
+  if (C == 32)  // one head of 32 on one warpgroup, weights staged
+    return (int)launch_k<32, 1, true, kWgLoopLn, 64>(m3, mp, a, grid, smem, s);
   switch (dh) {
     case 8: return (int)launch_dh<8>(m3, mp, a, nwg, staged, grid, smem, s);
     case 16: return (int)launch_dh<16>(m3, mp, a, nwg, staged, grid, smem, s);
@@ -92,14 +105,16 @@ extern "C" {
 // Dynamic shared memory of K1's wgmma form with `nwg` warpgroups and the
 // weights staged (1) or streamed (0), or 0 for a shape it does not take:
 // 64-token windows, C 64, 128 or 256, head size 8, 16, 32 or 64, nwg 2 or
-// 4, at most 232,448 bytes (staged weights fit up to C = 128; at head size 8
-// the padded head tiles leave them room only at C = 64).
+// 4, or C = 32 with one head, nwg 1 and the weights staged; at most 232,448
+// bytes (staged weights fit up to C = 128; at head size 8 the padded head
+// tiles leave them room only at C = 64).
 int fbanet_window_attention_wgmma_smem(int n, int C, int heads, int nwg, int staged) {
   using namespace fbanet;
-  if (n != kWinTok || C % 64 || C > 256 || heads < 1 || C % heads) return 0;
+  if (n != kWinTok || (C % 64 && C != 32) || C > 256 || heads < 1 || C % heads) return 0;
   const int dh = C / heads;
-  if ((dh != 8 && dh != 16 && dh != 32 && dh != 64) || (nwg != 4 && nwg != 2) ||
-      (staged != 0 && staged != 1))
+  if (C == 32 ? heads != 1 || nwg != 1 || staged != 1
+              : (dh != 8 && dh != 16 && dh != 32 && dh != 64) || (nwg != 4 && nwg != 2) ||
+                    (staged != 0 && staged != 1))
     return 0;
   const size_t total = AfLayout(C, heads, nwg, staged).total;
   return total > 232448 ? 0 : (int)total;

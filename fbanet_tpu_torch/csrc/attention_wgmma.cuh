@@ -46,7 +46,7 @@ namespace {
 
 constexpr int kWinTok = 64;   // tokens of an 8 x 8 window
 constexpr int kBoxRows = 32;  // weight rows (output columns) of one TMA box, 64 columns wide
-constexpr int kBoxBytes = 64 * kBoxRows * 2;
+constexpr int kBoxBytes = 64 * kBoxRows * 2;  // a ring slot (a box of 32 columns fills half)
 constexpr int kSlots = 4;     // TMA ring slots per warpgroup when streaming
 
 // The per-head core (K7's `core`, the ids of ops' _CORE_IDS; then K9's
@@ -71,13 +71,15 @@ struct AfArgs {
 
 // Shared-memory layout (byte offsets from a 1024-byte aligned base) for C
 // channels, `heads` heads and NWG warpgroups: y, then o [64 rows] K-major
-// in 64-channel atoms; q, k, v, each 64 x C bf16 as per-head tiles (64 x
-// 2 C at head size 8, each head zero-padded to 16 columns); the window's f32 mask
-// [64][64] (8-float groups of row r XOR-ed with r % 8); the weights (staged:
-// [Wq; Wkv] then Wproj as 32-row x 64-column boxes, piece p's boxes
+// in 64-channel atoms (at C = 32 one tile of 64-byte rows); q, k, v, each
+// 64 x C bf16 as per-head tiles (64 x 2 C at head size 8, each head
+// zero-padded to 16 columns); the window's f32 mask [64][64] (8-float
+// groups of row r XOR-ed with r % 8); the weights (staged: [Wq; Wkv] then
+// Wproj as 32-row boxes of 64 columns, or 32 at C = 32, piece p's boxes
 // together; streamed: each warpgroup's ring of kSlots boxes); the barriers
-// (staged: one; streamed: one per ring slot). K7's lanepack: k and v each
-// 1.5 tensors ([k_a, Z, k_b] per pair of heads) and no mask.
+// (staged: one; streamed: one per ring slot). The sizes are the same
+// expressions at C = 32. K7's lanepack: k and v each 1.5 tensors ([k_a, Z,
+// k_b] per pair of heads) and no mask.
 struct AfLayout {
   size_t y, q, k, v, mk, w, bars, total;
   __host__ __device__ AfLayout(int C, int heads, int nwg, int staged, bool lanepack = false) {
@@ -311,7 +313,7 @@ __device__ __forceinline__ void variant_heads(const uint8_t* sQ, const uint8_t* 
   }
 }
 
-template <int DH, int NWG, bool STAGED, int CORE = kWgLoopLn>
+template <int DH, int NWG, bool STAGED, int CORE = kWgLoopLn, int YP = 128>
 __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
     attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_w3,
                            const __grid_constant__ CUtensorMap map_wproj, AfArgs a) {
@@ -322,6 +324,14 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
   static_assert(DH == 8 || DH == 16 || DH == 32 || DH == 64, "the head sizes instantiated here");
   static_assert(CORE == kWgLoopLn || DH == 16 || DH == 64,
                 "K7's and K9's cores are built at head sizes 16 and 64");
+  // YP: bytes of a row of the y / o tile and of a weight box, 128 (C >= 64:
+  // atoms of 64 channels, boxes of 64 columns) or 64 (C = 32: one tile of
+  // 64-byte rows, boxes of 32 columns, 64-byte swizzle); BW: a box's columns
+  static_assert(YP == 128 || (YP == 64 && DH == 32 && NWG == 1 && STAGED && CORE == kWgLoopLn),
+                "C = 32 is built for K1 alone: one head of 32 on one warpgroup, weights staged");
+  static_assert(NWG > 1 || YP == 64, "one warpgroup a block is the C = 32 form");
+  constexpr int BW = YP / 2;
+  constexpr uint32_t kBoxBytesC = kBoxRows * YP;  // bytes of one box
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -339,7 +349,7 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
   const int arow = 16 * wl + lane / 4, acol = 2 * (lane % 4);  // accumulator rows / columns
   const bool producer = threadIdx.x % 128 == 0;
   const int wbar = 1 + wg;  // this warpgroup's named barrier
-  const int kQ = C / 64;    // weight boxes along K per piece
+  const int kQ = C / BW;    // weight boxes along K per piece
   const int pq = 3 * C / kBoxRows, pp = C / kBoxRows;  // pieces of q | k | v and of proj
   const int w0 = blockIdx.x * a.wpb, nwin = min(a.wpb, a.windows - w0);
 
@@ -362,9 +372,17 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
     const int h = c / DH;
     return base + (3 * (h / 2) + 2 * (h % 2)) * HT + swz_at(row, (c % DH) * 2, PITCH);
   };
-  // (row, column c) of y / o in its 64-channel atoms
+  // (row, column c) of y / o in its 64-channel atoms, or at C = 32 in its
+  // one tile of 64-byte rows. YP = 128 keeps the C >= 64 instantiations'
+  // own expressions, here and for y's stores below: the same offsets
+  // computed through 16-byte chunks raised their spills at head size 64
+  // (48 / 56 -> 68 / 76 bytes at two warpgroups, staged) and their device
+  // time ~5 % (H100).
   auto atom_at = [&](int row, int c) {
-    return sY + (size_t)(c / 64) * 8192 + swz(row, (c % 64) / 8) + (c % 8) * 2;
+    if constexpr (YP == 128)
+      return sY + (size_t)(c / 64) * 8192 + swz(row, (c % 64) / 8) + (c % 8) * 2;
+    else
+      return sY + swz_at(row, 2 * c, 64);
   };
   // float index of mask element (row, column c) in sMk: the accumulator
   // fragments' float2 reads then meet each bank at most twice
@@ -385,8 +403,8 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
       map = &map_wproj;
     }
     uint64_t* bar = &bars[it % kSlots];
-    mbar_expect_tx(bar, kBoxBytes);
-    tma_load_2d(ring + (it % kSlots) * kBoxBytes, map, 64 * (idx % kQ),
+    mbar_expect_tx(bar, kBoxBytesC);
+    tma_load_2d(ring + (it % kSlots) * kBoxBytes, map, BW * (idx % kQ),
                 kBoxRows * (wg + (idx / kQ) * NWG), bar);
   };
   int it = 0;  // boxes consumed by this warpgroup
@@ -401,11 +419,11 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
       mbar_expect_tx(bars0, (uint32_t)(8 * C * C));
       for (int r = 0; r < pq; ++r)
         for (int cb = 0; cb < kQ; ++cb)
-          tma_load_2d(sW + (size_t)(r * kQ + cb) * kBoxBytes, &map_w3, 64 * cb, kBoxRows * r,
+          tma_load_2d(sW + (size_t)(r * kQ + cb) * kBoxBytesC, &map_w3, BW * cb, kBoxRows * r,
                       bars0);
       for (int r = 0; r < pp; ++r)
         for (int cb = 0; cb < kQ; ++cb)
-          tma_load_2d(sW + (size_t)((pq + r) * kQ + cb) * kBoxBytes, &map_wproj, 64 * cb,
+          tma_load_2d(sW + (size_t)((pq + r) * kQ + cb) * kBoxBytesC, &map_wproj, BW * cb,
                       kBoxRows * r, bars0);
     }
   } else if (producer) {
@@ -422,20 +440,20 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
 #pragma unroll
     for (int i = 0; i < 16; ++i) acc[i] = 0.f;
     if constexpr (STAGED) mbar_wait(bars0, 0);  // the staged weights have landed
-    const uint8_t* wp = sW + (size_t)((proj ? pq : 0) + p) * kQ * kBoxBytes;
+    const uint8_t* wp = sW + (size_t)((proj ? pq : 0) + p) * kQ * kBoxBytesC;
     auto run = [&](auto kq) {
 #pragma unroll
       for (int kb = 0; kb < decltype(kq)::value; ++kb) {
-        const uint8_t* box = wp + kb * kBoxBytes;
+        const uint8_t* box = wp + kb * kBoxBytesC;
         if constexpr (!STAGED) {
           mbar_wait(&bars[it % kSlots], (it / kSlots) & 1);
           box = ring + (it % kSlots) * kBoxBytes;
         }
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss<32, 0, 0>(acc, k_major_desc(smem_addr(sY + kb * 8192 + kk * 32)),
-                             k_major_desc(smem_addr(box + kk * 32)));
+        for (int kk = 0; kk < YP / 32; ++kk)
+          wgmma_ss<32, 0, 0>(acc, k_desc_at(smem_addr(sY + kb * 64 * YP + kk * 32), YP),
+                             k_desc_at(smem_addr(box + kk * 32), YP));
         wgmma_commit();
         if constexpr (!STAGED) {
           // box it - 1's products are done in every warp of the group:
@@ -484,7 +502,7 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
     }
     if (wi + 1 < nwin) {
       const WinBlock nb(a.geom, w0 + wi + 1);
-      const int lpr = C / 64;  // 128-byte lines per token
+      const int lpr = YP == 128 ? C / 64 : 1;  // 128-byte lines per token
       for (int e = threadIdx.x; e < kWinTok * lpr; e += NT)
         asm volatile("prefetch.global.L2 [%0];\n" ::"l"(a.x + nb.pix(e / lpr) * C + (e % lpr) * 64));
       if (a.mask && threadIdx.x < 128)
@@ -503,7 +521,12 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
 #pragma unroll
       for (int i = 0; i < 8; ++i)
         yv[i] = (v[i] - mu) * (inv * __ldg(a.ln_s + 8 * sl + i)) + __ldg(a.ln_b + 8 * sl + i);
-      *reinterpret_cast<uint4*>(sY + (size_t)(sl / 8) * 8192 + swz(t, sl % 8)) =
+      uint8_t* dst;
+      if constexpr (YP == 128)
+        dst = sY + (size_t)(sl / 8) * 8192 + swz(t, sl % 8);
+      else
+        dst = sY + swz_at(t, 16 * sl, 64);
+      *reinterpret_cast<uint4*>(dst) =
           make_uint4(pack_bf2(yv[0], yv[1]), pack_bf2(yv[2], yv[3]), pack_bf2(yv[4], yv[5]),
                      pack_bf2(yv[6], yv[7]));
     }
@@ -685,21 +708,24 @@ __global__ void __launch_bounds__(NWG * 128, 4 / NWG)
   }
 }
 
-template <int DH, int NWG, bool STAGED, int CORE = kWgLoopLn>
+template <int DH, int NWG, bool STAGED, int CORE = kWgLoopLn, int YP = 128>
 cudaError_t launch_k(const CUtensorMap& m3, const CUtensorMap& mp, const AfArgs& a,
                      unsigned grid, int smem, cudaStream_t s) {
-  const cudaError_t e = cudaFuncSetAttribute(attention_wgmma_kernel<DH, NWG, STAGED, CORE>,
+  const cudaError_t e = cudaFuncSetAttribute(attention_wgmma_kernel<DH, NWG, STAGED, CORE, YP>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  attention_wgmma_kernel<DH, NWG, STAGED, CORE><<<grid, NWG * 128, smem, s>>>(m3, mp, a);
+  attention_wgmma_kernel<DH, NWG, STAGED, CORE, YP><<<grid, NWG * 128, smem, s>>>(m3, mp, a);
   return cudaGetLastError();
 }
 
-// Launch the instantiation <DH, NWG, STAGED, CORE> (K7's entries): the
-// weight maps, grid and shared memory as K1's launch_form makes them.
+// Launch the instantiation <DH, NWG, STAGED, CORE> (K7's and K9's entries,
+// at C >= 64 only): the weight maps, grid and shared memory as K1's
+// launch_form makes them.
 template <int DH, int NWG, bool STAGED, int CORE>
 int launch_one(const void* w3, const void* wproj, const AfArgs& a, void* stream) {
+  static_assert(NWG > 1, "K7 and K9 are not built for C = 32");
   const int C = a.geom.C;
+  if (C % 64) return (int)cudaErrorInvalidValue;
   CUtensorMap m3, mp;
   cudaError_t e = make_tma_map_bf16(&m3, w3, 3 * C, C, kBoxRows);
   if (e == cudaSuccess) e = make_tma_map_bf16(&mp, wproj, C, C, kBoxRows);

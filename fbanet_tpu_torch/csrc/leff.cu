@@ -122,9 +122,10 @@ int fbanet_leff(const void* x, void* out, const void* ln_s, const void* ln_b,
 }
 
 // Dynamic shared memory of the wgmma form for tile th x tw and hidden chunk
-// kc, or 0 for one it does not take (C 64, 128 or 256; the forms (th, tw,
-// kc) = (16, 8, 64), (16, 8, 32), (8, 8, 64), (8, 8, 32); at most four
-// 64 x 64 pieces of out per tile).
+// kc, or 0 for one it does not take (leff_wgmma_smem: C 64, 128 or 256 with
+// the forms (th, tw, kc) = (16, 8, 64), (16, 8, 32), (8, 8, 64), (8, 8, 32)
+// and at most four 64 x 64 pieces of out per tile; C = 32 with (16, 16,
+// 64), (16, 16, 32), (16, 8, 64), (16, 8, 32)).
 int fbanet_leff_wgmma_smem(int C, int th, int tw, int kc) {
   return fbanet::leff_wgmma_smem(C, th, tw, kc);
 }
@@ -141,7 +142,7 @@ int fbanet_leff_wgmma(const void* x, void* out, const void* ln_s, const void* ln
   const FwArgs a{(const bf16*)x, (bf16*)out, (const float*)ln_s, (const float*)ln_b,
                  (const float*)b1, (const float*)wdw, (const float*)bdw, (const float*)b2,
                  H, W, C, Ch, residual};
-  return launch_leff_form<false, false>(w1, w2t, a, B, th, tw, kc, stream);
+  return launch_leff_form<false, false, false, false, true>(w1, w2t, a, B, th, tw, kc, stream);
 }
 
 }  // extern "C"

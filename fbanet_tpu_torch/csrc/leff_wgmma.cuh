@@ -23,6 +23,19 @@
 //  - 16 x 8 tiles where the pieces fit four warpgroups (C <= 128), 8 x 8
 //    at C = 256.
 //
+// C = 32 (YP = 64, FBANet-32's enc0): y and the W1 / W2^T chunks are tiles
+// of 64-byte rows (64-byte swizzle; TMA boxes 32 columns wide), so dense1
+// is the same product with K = 32 (two k16 steps). dense2's out^T would put
+// C = 32 in wgmma's M, below its 64 rows, so it runs token-major: out +=
+// h2 W2^T_chunk, the tile's tokens as M in 64-row pieces (one a
+// warpgroup), N = C = 32, K = the chunk; the depthwise stage writes h2
+// token-major (K-major, rows of 2 kc bytes: the same bytes as h2^T) and the
+// W2^T chunk is read MN-major, as K4's dy = dz1 W1 at C = 32. The halved y
+// and weight tiles leave room for 16 x 16 tiles (a halo of 1.27x the tile's
+// tokens, not 1.41x; each weight chunk loaded once for twice the tokens;
+// four 64 x 32 pieces of out, one a warpgroup), so the forms at C = 32 are
+// (16 x 16 | 16 x 8) x (64 | 32); K8's and K10's flags are not built there.
+//
 // K8 is this kernel with its two flags, the counterpart of the variant copy
 // scripts/measure_swin_variants.py::_leff_var_kernel (no residual):
 // GELUBF16 rounds z1 + b1 and the depthwise sum to bf16 and takes both
@@ -69,20 +82,22 @@ struct FwGeom {
 };
 
 // Shared-memory layout (byte offsets from a 1024-byte aligned base): y
-// [NYp rows] K-major in 64-channel atoms; the W1 and W2^T chunks, two ring
+// [NYp rows] K-major in 64-channel atoms (at C = 32 one tile of 64-byte
+// rows: 2 C bytes a row either way); the W1 and W2^T chunks, two ring
 // slots each, as TMA lands them ([kc rows] of C); h2^T [kc rows] of NI
-// tokens, MN-major; h1 bf16 [NY][kc + 8]; the chunk's taps, b1 and bdw in
-// f32; two mbarriers. After the chunk loop out [NI][C + 4] f32 reuses the
-// space from 0 (the host checks it ends before the barriers).
+// tokens, MN-major (at C = 32 h2 [NI rows] of kc, K-major: the same
+// bytes); h1 bf16 [NY][kc + 8]; the chunk's taps, b1 and bdw in f32; two
+// mbarriers. After the chunk loop out [NI][C + 4] f32 reuses the space
+// from 0 (the host checks it ends before the barriers).
 struct FwLayout {
   int hp;
   size_t wslot, y, w1, w2t, h2t, h1, taps, b1, bdw, bars, total;
   __host__ __device__ FwLayout(int C, int kc, const FwGeom& q) {
-    const size_t atoms = C / 64;
-    wslot = atoms * kc * 128;
+    const size_t row = 2 * (size_t)C;  // bytes of a row of C bf16 channels
+    wslot = kc * row;
     hp = kc + 8;
     y = 0;
-    w1 = y + atoms * q.NYp * 128;
+    w1 = y + q.NYp * row;
     w2t = w1 + 2 * wslot;
     h2t = w2t + 2 * wslot;
     h1 = h2t + (q.NI / 64) * kc * 128;
@@ -191,7 +206,7 @@ __device__ __forceinline__ void depthwise_ablation_wgmma(const bf16* sH1, int hp
 }
 
 template <int KC, int TH, int TW, bool DWBF16 = false, bool GELUBF16 = false,
-          bool NOGELU = false, bool NODW = false>
+          bool NOGELU = false, bool NODW = false, int YP = 128>
 __global__ void __launch_bounds__(kFwThreads, 1)
     leff_wgmma_kernel(const __grid_constant__ CUtensorMap map_w1,
                       const __grid_constant__ CUtensorMap map_w2t, FwArgs a) {
@@ -200,11 +215,17 @@ __global__ void __launch_bounds__(kFwThreads, 1)
   static_assert(KC == 32 || KC == 64, "the chunk widths instantiated here");
   static_assert(NT % P == 0, "the depthwise stage keeps one channel pair per thread");
   static_assert(!((NOGELU || NODW) && (DWBF16 || GELUBF16)), "K10's flags go without K8's");
+  // YP: bytes of a row of the y and weight tiles, 128 (C >= 64: atoms of 64
+  // channels) or 64 (C = 32: one tile of 64-byte rows, token-major dense2)
+  static_assert(YP == 128 || (YP == 64 && TH == 16 && !(DWBF16 || GELUBF16 || NOGELU || NODW)),
+                "C = 32 is built for K2 alone, 16 x 16 and 16 x 8 tiles");
+  constexpr int KS = YP / 32;  // k16 steps along a row of the y and weight tiles
+  constexpr int ON = YP == 128 ? 64 : 32;  // accumulator columns of a piece of out
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   constexpr FwGeom q(TH, TW);
-  const int C = a.C, atomsC = C / 64;
+  const int C = a.C, atomsC = 2 * C / YP;  // tiles of YP-byte rows across C
   const FwLayout L(C, KC, q);
   const int hp = L.hp;
   uint8_t* sY = sm + L.y;
@@ -233,10 +254,17 @@ __global__ void __launch_bounds__(kFwThreads, 1)
     uint64_t* bar = &bars[slot];
     mbar_expect_tx(bar, 2 * wbytes);
     for (int at = 0; at < atomsC; ++at) {
-      tma_load_2d(sm + L.w1 + slot * L.wslot + at * KC * 128, &map_w1, at * 64, ck * KC, bar);
-      tma_load_2d(sm + L.w2t + slot * L.wslot + at * KC * 128, &map_w2t, at * 64, ck * KC,
+      tma_load_2d(sm + L.w1 + slot * L.wslot + at * KC * YP, &map_w1, at * (YP / 2), ck * KC,
+                  bar);
+      tma_load_2d(sm + L.w2t + slot * L.wslot + at * KC * YP, &map_w2t, at * (YP / 2), ck * KC,
                   bar);
     }
+  };
+  // K-major descriptor of k16 step k of 64-row block mb of a tile of `rows`
+  // rows (y, or a weight chunk with rows = KC)
+  auto k_step = [](const uint8_t* base, int rows, int mb, int k) {
+    return k_desc_at(smem_addr(base + (size_t)(k / KS) * rows * YP + mb * 64 * YP + (k % KS) * 32),
+                     YP);
   };
 
   if (threadIdx.x == 0) {
@@ -260,7 +288,7 @@ __global__ void __launch_bounds__(kFwThreads, 1)
       s8[i] = __ldg(a.ln_s + 8 * sl + i);
       b8[i] = __ldg(a.ln_b + 8 * sl + i);
     }
-    uint8_t* ydst = sY + (size_t)(sl / 8) * q.NYp * 128;
+    uint8_t* ydst = sY + (size_t)(sl / (YP / 16)) * q.NYp * YP;
     for (int t0 = warp * tpw; t0 < q.NYp; t0 += NW * tpw) {  // warp-uniform
       const int t = t0 + sub, hr = t / q.YW, hc = t % q.YW;
       const bool ok = t < q.NY && inside(hr, hc);
@@ -278,19 +306,20 @@ __global__ void __launch_bounds__(kFwThreads, 1)
         y = make_uint4(pack_bf2(yv[0], yv[1]), pack_bf2(yv[2], yv[3]), pack_bf2(yv[4], yv[5]),
                        pack_bf2(yv[6], yv[7]));
       }
-      *reinterpret_cast<uint4*>(ydst + swz(t, sl % 8)) = y;
+      *reinterpret_cast<uint4*>(ydst + swz_at(t, 16 * (sl % (YP / 16)), YP)) = y;
     }
   }
   fence_proxy_async();  // y is read by wgmma (ordered by the loop's first barrier)
 
   // out^T in 64 x 64 pieces (C block cb, token block tb), at most 4:
-  // warpgroup wg holds piece wg in its registers over the chunks
-  const int npieces = atomsC * (q.NI / 64);
+  // warpgroup wg holds piece wg in its registers over the chunks. At
+  // YP = 64: out in 64 x C pieces (token block wg)
+  const int npieces = YP == 128 ? atomsC * (q.NI / 64) : q.NI / 64;
   const bool has_piece = wg < npieces;
-  const int cb = wg / (q.NI / 64), tb = wg % (q.NI / 64);
-  float oacc[32];
+  const int cb = YP == 128 ? wg / (q.NI / 64) : 0, tb = YP == 128 ? wg % (q.NI / 64) : wg;
+  float oacc[ON / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) oacc[i] = 0.f;
+  for (int i = 0; i < ON / 2; ++i) oacc[i] = 0.f;
   // this thread's rows and columns in a wgmma accumulator
   const int arow = 16 * (warp % 4) + lane / 4, acol = 2 * (lane % 4);
 
@@ -319,10 +348,7 @@ __global__ void __launch_bounds__(kFwThreads, 1)
       for (int j = 0; j < KC / 2; ++j) acc[j] = 0.f;
       wgmma_fence();
       for (int k = 0; k < C / 16; ++k)
-        wgmma_ss<KC, 0, 0>(acc,
-                           k_major_desc(smem_addr(sY + (size_t)(k / 4) * q.NYp * 128 +
-                                                  mb * 8192 + (k % 4) * 32)),
-                           k_major_desc(smem_addr(w1s + (k / 4) * KC * 128 + (k % 4) * 32)));
+        wgmma_ss<KC, 0, 0>(acc, k_step(sY, q.NYp, mb, k), k_step(w1s, KC, 0, k));
       wgmma_commit();
       wgmma_wait_all();
 #pragma unroll
@@ -351,8 +377,9 @@ __global__ void __launch_bounds__(kFwThreads, 1)
     __syncthreads();
 
     // depthwise 3 x 3 on the interior (f32 taps in order), GELU, rounded:
-    // h2^T rows j, j + 1, column t. A thread keeps one channel pair (NT is a
-    // multiple of P) and its taps in registers
+    // h2^T rows j, j + 1, column t (at YP = 64 h2 row t, columns j, j + 1).
+    // A thread keeps one channel pair (NT is a multiple of P) and its taps
+    // in registers
     if constexpr (DWBF16 || GELUBF16) {
       depthwise_pairs_wgmma<KC, TW, NT, q.NI, DWBF16, GELUBF16>(sH1, hp, q.YW, sTaps, sBdw, sH2t);
     } else if constexpr (NOGELU || NODW) {
@@ -377,22 +404,34 @@ __global__ void __launch_bounds__(kFwThreads, 1)
             z.y += hv.y * wt[ky * 3 + kx].y;
           }
         const uint32_t w = pack_bf2(gelu_tanh(z.x), gelu_tanh(z.y));
-        uint8_t* col = sH2t + (size_t)(t / 64) * KC * 128 + (t % 8) * 2;
-        *reinterpret_cast<uint16_t*>(col + swz(j, (t % 64) / 8)) = (uint16_t)(w & 0xffffu);
-        *reinterpret_cast<uint16_t*>(col + swz(j + 1, (t % 64) / 8)) = (uint16_t)(w >> 16);
+        if constexpr (YP == 128) {
+          uint8_t* col = sH2t + (size_t)(t / 64) * KC * 128 + (t % 8) * 2;
+          *reinterpret_cast<uint16_t*>(col + swz(j, (t % 64) / 8)) = (uint16_t)(w & 0xffffu);
+          *reinterpret_cast<uint16_t*>(col + swz(j + 1, (t % 64) / 8)) = (uint16_t)(w >> 16);
+        } else {
+          *reinterpret_cast<uint32_t*>(sH2t + swz_at(t, 2 * j, 2 * KC)) = w;
+        }
       }
     }
     fence_proxy_async();  // h2^T is read by wgmma next
     __syncthreads();
 
-    // out^T += (W2^T chunk)^T h2^T on this warpgroup's piece
+    // out^T += (W2^T chunk)^T h2^T on this warpgroup's piece (at YP = 64:
+    // out += h2 W2^T chunk, h2 K-major as A, the W2^T chunk MN-major as B)
     if (has_piece) {
       wgmma_fence();
+      if constexpr (YP == 128) {
 #pragma unroll
-      for (int k = 0; k < KC / 16; ++k)
-        wgmma_ss<64, 1, 1>(oacc,
-                           mn_major_desc(smem_addr(w2s + cb * KC * 128 + k * 2048), KC * 128),
-                           mn_major_desc(smem_addr(sH2t + tb * KC * 128 + k * 2048), KC * 128));
+        for (int k = 0; k < KC / 16; ++k)
+          wgmma_ss<64, 1, 1>(oacc,
+                             mn_major_desc(smem_addr(w2s + cb * KC * 128 + k * 2048), KC * 128),
+                             mn_major_desc(smem_addr(sH2t + tb * KC * 128 + k * 2048), KC * 128));
+      } else {
+#pragma unroll
+        for (int k = 0; k < KC / 16; ++k)
+          wgmma_ss<ON, 0, 1>(oacc, k_desc_at(smem_addr(sH2t + tb * 64 * 2 * KC + k * 32), 2 * KC),
+                             mn_desc_at(smem_addr(w2s + k * 16 * YP), KC * YP, YP));
+      }
       wgmma_commit();
       wgmma_wait_all();
     }
@@ -404,13 +443,17 @@ __global__ void __launch_bounds__(kFwThreads, 1)
   float* sOut = reinterpret_cast<float*>(sm);
   if (has_piece) {
 #pragma unroll
-    for (int jj = 0; jj < 8; ++jj)
+    for (int jj = 0; jj < ON / 8; ++jj)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
-        for (int e = 0; e < 2; ++e)
-          sOut[(tb * 64 + 8 * jj + acol + e) * ldo + cb * 64 + arow + 8 * h] =
-              oacc[4 * jj + 2 * h + e];
+        for (int e = 0; e < 2; ++e) {
+          const float v = oacc[4 * jj + 2 * h + e];
+          if constexpr (YP == 128)  // out^T: row = channel, column = token
+            sOut[(tb * 64 + 8 * jj + acol + e) * ldo + cb * 64 + arow + 8 * h] = v;
+          else  // out: row = token, column = channel
+            sOut[(tb * 64 + arow + 8 * h) * ldo + 8 * jj + acol + e] = v;
+        }
   }
   __syncthreads();
   const int c8s = C / 8;
@@ -435,27 +478,29 @@ __global__ void __launch_bounds__(kFwThreads, 1)
 }
 
 template <int KC, int TH, int TW, bool DWBF16 = false, bool GELUBF16 = false,
-          bool NOGELU = false, bool NODW = false>
+          bool NOGELU = false, bool NODW = false, int YP = 128>
 cudaError_t launch_wgmma(const CUtensorMap& m1, const CUtensorMap& m2, const FwArgs& a,
                          unsigned grid, int smem, cudaStream_t s) {
   const cudaError_t e =
-      cudaFuncSetAttribute(leff_wgmma_kernel<KC, TH, TW, DWBF16, GELUBF16, NOGELU, NODW>,
+      cudaFuncSetAttribute(leff_wgmma_kernel<KC, TH, TW, DWBF16, GELUBF16, NOGELU, NODW, YP>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  leff_wgmma_kernel<KC, TH, TW, DWBF16, GELUBF16, NOGELU, NODW>
+  leff_wgmma_kernel<KC, TH, TW, DWBF16, GELUBF16, NOGELU, NODW, YP>
       <<<grid, kFwThreads, smem, s>>>(m1, m2, a);
   return cudaGetLastError();
 }
 
 // Dynamic shared memory of the form for tile th x tw and hidden chunk kc,
-// or 0 for one it does not take (C 64, 128 or 256; the forms (th, tw, kc)
-// = (16, 8, 64), (16, 8, 32), (8, 8, 64), (8, 8, 32); at most four 64 x 64
-// pieces of out per tile).
+// or 0 for one it does not take: at C 64, 128 or 256 the forms (th, tw, kc)
+// = (16, 8, 64), (16, 8, 32), (8, 8, 64), (8, 8, 32), at most four 64 x 64
+// pieces of out per tile; at C = 32 (16, 16, 64), (16, 16, 32), (16, 8,
+// 64), (16, 8, 32), pieces of 64 x 32.
 inline int leff_wgmma_smem(int C, int th, int tw, int kc) {
-  const bool form = (th == 16 || th == 8) && tw == 8 && (kc == 32 || kc == 64);
-  if (C % 64 || C > 256 || !form) return 0;
+  const bool form = C == 32 ? th == 16 && (tw == 16 || tw == 8) && (kc == 32 || kc == 64)
+                            : (th == 16 || th == 8) && tw == 8 && (kc == 32 || kc == 64);
+  if ((C % 64 && C != 32) || C > 256 || !form) return 0;
   const FwGeom q(th, tw);
-  if ((C / 64) * (q.NI / 64) > 4) return 0;
+  if ((C >= 64 ? C / 64 : 1) * (q.NI / 64) > 4) return 0;
   const FwLayout L(C, kc, q);
   if ((size_t)q.NI * (C + 4) * sizeof(float) > L.bars) return 0;
   return (int)L.total;
@@ -463,18 +508,36 @@ inline int leff_wgmma_smem(int C, int th, int tw, int kc) {
 
 // Launch the form <kc, th, tw, DWBF16, GELUBF16, NOGELU, NODW> on a bf16
 // map (w2t = W2^T [Ch, C]); the caller has checked th x tw divides H x W
-// and kc divides Ch.
-template <bool DWBF16, bool GELUBF16, bool NOGELU = false, bool NODW = false>
+// and kc divides Ch. C32: the C = 32 forms are built too, for K2's own
+// entry only (K8's and K10's entries refuse C = 32).
+template <bool DWBF16, bool GELUBF16, bool NOGELU = false, bool NODW = false, bool C32 = false>
 int launch_leff_form(const void* w1, const void* w2t, const FwArgs& a, int B, int th, int tw,
                      int kc, void* stream) {
+  static_assert(!C32 || !(DWBF16 || GELUBF16 || NOGELU || NODW), "C = 32 is K2's own form");
   const int smem = leff_wgmma_smem(a.C, th, tw, kc);
-  if (smem == 0 || smem > 232448) return (int)cudaErrorInvalidValue;
+  if (smem == 0 || smem > 232448 || (!C32 && a.C == 32)) return (int)cudaErrorInvalidValue;
+  const int box_cols = a.C == 32 ? 32 : 64;
   CUtensorMap map_w1, map_w2t;
-  cudaError_t e = make_tma_map_bf16(&map_w1, w1, a.Ch, a.C, kc);
-  if (e == cudaSuccess) e = make_tma_map_bf16(&map_w2t, w2t, a.Ch, a.C, kc);
+  cudaError_t e = make_tma_map_bf16(&map_w1, w1, a.Ch, a.C, kc, box_cols);
+  if (e == cudaSuccess) e = make_tma_map_bf16(&map_w2t, w2t, a.Ch, a.C, kc, box_cols);
   if (e != cudaSuccess) return (int)e;
   const unsigned grid = (unsigned)B * (a.H / th) * (a.W / tw);
   const cudaStream_t s = (cudaStream_t)stream;
+  if constexpr (C32) {
+    if (a.C == 32) {
+      if (tw == 16)
+        e = kc == 64 ? launch_wgmma<64, 16, 16, false, false, false, false, 64>(map_w1, map_w2t,
+                                                                                a, grid, smem, s)
+                     : launch_wgmma<32, 16, 16, false, false, false, false, 64>(map_w1, map_w2t,
+                                                                                a, grid, smem, s);
+      else
+        e = kc == 64 ? launch_wgmma<64, 16, 8, false, false, false, false, 64>(map_w1, map_w2t,
+                                                                               a, grid, smem, s)
+                     : launch_wgmma<32, 16, 8, false, false, false, false, 64>(map_w1, map_w2t,
+                                                                               a, grid, smem, s);
+      return (int)e;
+    }
+  }
   if (th == 16)
     e = kc == 64 ? launch_wgmma<64, 16, 8, DWBF16, GELUBF16, NOGELU, NODW>(map_w1, map_w2t, a,
                                                                           grid, smem, s)

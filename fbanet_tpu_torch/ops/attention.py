@@ -381,9 +381,10 @@ def _kernel_forward(x4, ln_scale, ln_bias, wq, bq, wkv, bkv, wproj, bproj,
 # The wgmma form (csrc/attention_wgmma.cu) takes bf16 8 x 8 windows, C 64,
 # 128 or 256 and head size 8, 16, 32 or 64, with two or four warpgroups and
 # the weights staged once per block (where all 4 C^2 fit) or streamed per
-# window; warpgroups 0 is the first kernel (csrc/attention.cu: f32, every
-# other shape, FBANet-32's enc0 at C = 32 among them), one window per
-# block. K7's cores and K9's stages follow the plan onto either form.
+# window, and C = 32 with one head (FBANet-32's enc0) on one warpgroup with
+# the weights staged; warpgroups 0 is the first kernel (csrc/attention.cu:
+# f32, every other shape), one window per block. K7's cores and K9's stages
+# follow the plan onto either form where they are built (not at C = 32).
 _K1_BASE_PLAN = (0, 1, 0)
 # head sizes of the wgmma forms of K1 and K3; every other head size runs on
 # their first kernels
@@ -392,7 +393,8 @@ _WGMMA_HEAD_SIZES = (8, 16, 32, 64)
 # the forms' tiles), counted apart from 16 and 64 in the forms' counts
 _NARROW_HEAD_SIZES = (8, 32)
 # (warpgroups, staged) of the wgmma form, in the order the plan tries them
-_K1_FORMS = ((2, 1), (4, 1), (4, 0))
+# (one warpgroup, staged, is C = 32's form and C = 32 takes no other)
+_K1_FORMS = ((1, 1), (2, 1), (4, 1), (4, 0))
 _K1_SLOTS = 4  # TMA ring slots per warpgroup when the weights stream
 
 
@@ -412,10 +414,15 @@ def _attention_smem(n: int, c: int, heads: int, nwg: int,
     `AfLayout` in csrc/attention_wgmma.cuh, byte for byte: y, q, k, v as
     head tiles, the mask, the weights, the barriers, the alignment) that
     plans without the card, as the CPU tests do; on the card K1 plans with
-    the kernel's own, and chip_smoke.py holds the two equal."""
-    if n != 64 or c % 64 or c > 256 or heads < 1 or c % heads:
+    the kernel's own, and chip_smoke.py holds the two equal. C >= 64 takes
+    two or four warpgroups, C = 32 one head on one warpgroup with the
+    weights staged (the same layout: y / o is one tile of 64-byte rows)."""
+    if n != 64 or (c % 64 and c != 32) or c > 256 or heads < 1 or c % heads:
         return 0
-    if c // heads not in _WGMMA_HEAD_SIZES or nwg not in (2, 4) or \
+    if c == 32:
+        if heads != 1 or nwg != 1 or staged != 1:
+            return 0
+    elif c // heads not in _WGMMA_HEAD_SIZES or nwg not in (2, 4) or \
             staged not in (0, 1):
         return 0
     weights = 8 * c * c if staged else nwg * _K1_SLOTS * 4096
@@ -446,16 +453,18 @@ def _attention_plan(b: int, h: int, w: int, c: int, heads: int, ws: int = 8,
     `_attention_smem`) lets 4 // warpgroups blocks share an SM (the
     kernel's launch bounds): the weights staged with two warpgroups at
     C = 64 (two blocks per SM) and four at C = 128 (one), streamed by four
-    at C = 256 and at C = 128 with head size 8 (its padded head tiles leave
-    the staged weights no room); the windows dealt in order to as many
-    blocks as the card holds at once, each taking `wpb` consecutive windows
-    (`_window_blocks`). Measured at the five groups at B=2, 4 and 8
-    (tools/measure_attention.py `plans`, NVIDIA H100 80GB HBM3 at 700 W):
-    the fastest plan, or within 7 % of it, at every group (PERF.md §6); at
-    embed 32's four groups on the form (`--embed 32`) within 6.3 % of the
-    fastest. Else `_K1_BASE_PLAN`, the first kernel: f32, head sizes other
-    than `_WGMMA_HEAD_SIZES`, and C other than 64, 128 and 256 (embed 32's
-    enc0, C = 32)."""
+    at C = 256 and at C = 128 with head size 8 (its padded head tiles
+    leave the staged weights no room), staged by one at C = 32 (four
+    blocks per SM, K3's plan there); the windows dealt in order to as many
+    blocks as the card holds at once, each taking `wpb` consecutive
+    windows (`_window_blocks`). Measured at the five groups at B=2, 4 and
+    8 (tools/measure_attention.py `plans`, NVIDIA H100 80GB HBM3 at
+    700 W): the fastest plan, or within 7 % of it, at every group (PERF.md
+    §6); at embed 32's groups (`--embed 32`) within 6.3 % of the fastest
+    at enc1 to dec1, and at enc0 the fastest at B=2 and 8.6 % behind one
+    window a block at B=8. Else `_K1_BASE_PLAN`, the
+    first kernel: f32, head sizes other than `_WGMMA_HEAD_SIZES`, C other
+    than 32, 64, 128 and 256, and C = 32 with more than one head."""
     if bf16 and h % ws == 0 and w % ws == 0 and \
             c % heads == 0 and c // heads in _WGMMA_HEAD_SIZES:
         for nwg, staged in _K1_FORMS:
@@ -516,8 +525,10 @@ def _check_plan(lib, x, n: int, c: int, heads: int, plan, fail) -> int:
         if not bf16 or lib.fbanet_window_attention_wgmma_smem(
                 n, c, heads, nwg, staged) == 0:
             fail(f"the wgmma form takes no plan {plan} of this shape "
-                 f"(bfloat16, 64-token windows, C 64, 128 or 256, head size "
-                 f"8, 16, 32 or 64, within shared memory)")
+                 f"(bfloat16, 64-token windows, C 64, 128 or 256 with head "
+                 f"size 8, 16, 32 or 64 on 2 or 4 warpgroups, or C = 32 with "
+                 f"one head on 1 warpgroup, weights staged; within shared "
+                 f"memory)")
         return bf16
     smem = lib.fbanet_window_attention_smem(n, c, heads, bf16)
     if smem == 0:

@@ -32,7 +32,7 @@ runs K2 + K4 at all five shapes.
 K2 has two forms, entered from `csrc/leff.cu`: the wgmma form
 (`csrc/leff_wgmma.cuh`; bf16: TMA-staged W1 and W2^T chunks, wgmma
 products with dense2's sums in registers, the depthwise stage on 16 warps,
-16 x 8 or 8 x 8 tiles) and the first kernel (`csrc/leff.cuh`; 8 x 8
+16 x 8 or 8 x 8 tiles, 16 x 16 at C = 32) and the first kernel (`csrc/leff.cuh`; 8 x 8
 tiles, WMMA; f32 and bf16 shapes the wgmma form does not take).
 `_leff_plan` picks the form and tile from the shapes alone; K8's and K10's
 flags follow it onto either form.
@@ -200,29 +200,44 @@ def _kernel_args(x, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, b2):
 # columns, hidden chunk), in the plan's order of preference. Measured at
 # the five groups at B=8 (tools/measure_leff.py plans, NVIDIA H100 80GB
 # HBM3 at 700 W): 64-wide chunks took 15-19 % less device time than
-# 32-wide, 16 x 8 tiles 22-30 % less than 8 x 8 where both fit.
-_K2_FORMS = ((16, 8, 64), (16, 8, 32), (8, 8, 64), (8, 8, 32))
+# 32-wide, 16 x 8 tiles 22-30 % less than 8 x 8 where both fit. At C = 32
+# (FBANet-32's enc0; tiles of 64-byte rows, dense2 token-major) the halved
+# tiles fit 16 x 16 too; (16, 16, *) is built for C = 32 only, (8, 8, *)
+# for C >= 64 only (`_k2_form`).
+_K2_FORMS = ((16, 16, 64), (16, 16, 32), (16, 8, 64), (16, 8, 32),
+             (8, 8, 64), (8, 8, 32))
 _K2_BASE_PLAN = (0, 0, 0)  # the first kernel: 8 x 8 tiles, WMMA (bf16) or f32
+
+
+def _k2_form(c: int, th: int, tw: int, kc: int) -> bool:
+    """Whether csrc/leff_wgmma.cuh builds the wgmma form (th, tw, kc) for
+    C channels (its `leff_wgmma_smem`)."""
+    if (th, tw, kc) not in _K2_FORMS:
+        return False
+    if c == 32:
+        return th == 16
+    return (th, tw) != (16, 16)
 
 
 def _leff_smem(c: int, th: int, tw: int, kc: int) -> int:
     """Dynamic shared memory of K2's wgmma form for C channels, th x tw
     tiles and hidden chunk kc, or 0 for one it does not take: a model of
     the kernel's `fbanet_leff_wgmma_smem` (the layout of `FwLayout` in
-    csrc/leff.cu, byte for byte) that plans without the card, as the CPU
-    tests do; on the card `fused_leff` plans with the kernel's own, and
-    chip_smoke.py holds the two equal."""
+    csrc/leff_wgmma.cuh, byte for byte: rows of 2 C bytes, 64-channel atoms
+    or at C = 32 one tile of 64-byte rows) that plans without the card, as
+    the CPU tests do; on the card `fused_leff` plans with the kernel's own,
+    and chip_smoke.py holds the two equal."""
     ni = th * tw
-    if (c % 64 or c > 256 or (th, tw, kc) not in _K2_FORMS
-            or (c // 64) * (ni // 64) > 4):
+    if ((c % 64 and c != 32) or c > 256 or not _k2_form(c, th, tw, kc)
+            or max(c // 64, 1) * (ni // 64) > 4):
         return 0
 
     def a128(n):
         return _cdiv(n, 128) * 128
 
-    atoms, ny = c // 64, (th + 2) * (tw + 2)
-    wslot = atoms * kc * 128
-    h1 = atoms * _cdiv(ny, 64) * 64 * 128 + 4 * wslot + ni // 64 * kc * 128
+    row, ny = 2 * c, (th + 2) * (tw + 2)  # bytes of a row of C bf16 channels
+    wslot = kc * row
+    h1 = _cdiv(ny, 64) * 64 * row + 4 * wslot + ni * kc * 2
     bars = h1 + a128(2 * ny * (kc + 8)) + a128(36 * kc) + 2 * a128(4 * kc)
     if ni * (c + 4) * 4 > bars:  # out after the chunk loop
         return 0
@@ -242,8 +257,9 @@ def _leff_plan(b: int, h: int, w: int, c: int, ch: int, bf16: bool = True,
     hidden width ch: in bf16 the first form of `_K2_FORMS` whose tile
     divides the map, whose chunk divides ch and that fits shared memory
     (`smem`: `_kernel_leff_smem`, the kernel's, or `_leff_smem`, its
-    model); else `_K2_BASE_PLAN`, the first kernel (f32, or a bf16 shape
-    the wgmma form does not take)."""
+    model), at C 32 (FBANet-32's enc0), 64, 128 or 256; else
+    `_K2_BASE_PLAN`, the first kernel (f32, or a bf16 shape the wgmma form
+    does not take)."""
     if bf16:
         for th, tw, kc in _K2_FORMS:
             if (h % th == 0 and w % tw == 0 and ch % kc == 0
@@ -280,7 +296,8 @@ def _leff_launch(x, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, b2, residual,
     if th:
         if not bf16:
             _unsupported("the wgmma form takes bfloat16", x, ch)
-        # W2 as W2^T [Ch, C], the MN-major A operand of out^T
+        # W2 as W2^T [Ch, C]: the MN-major A operand of out^T, or at C = 32
+        # the MN-major B operand of out = h2 W2^T (the same tensor)
         args[6] = w2.t().to(device=x.device, dtype=x.dtype,
                             memory_format=torch.contiguous_format)
         err = lib.fbanet_leff_wgmma(

@@ -14,7 +14,8 @@ at the five SwinGroup shapes of the published model (`--embed
   chip_smoke.py holds it) and a bitwise repeat. Raises if one is off.
 - plans: K1's device ms (the K1 kernel alone) at each group under the
   first kernel and under the wgmma form with two or four warpgroups on
-  staged or streamed weights, each that its shared memory takes, and three
+  staged or streamed weights (one warpgroup, staged, at C = 32), each that
+  its shared memory takes, and three
   numbers of windows per block (the plan's, half of it, and one); the plan
   `fused_window_attention_2d` picks is marked. Each plan's output is held
   against the plain version as in shapes (raises if one is off).
@@ -125,7 +126,7 @@ def candidates(batch: int, h: int, c: int, heads: int, sms: int,
     smem_fn = smem or attention._kernel_attention_smem
     out = [attention._K1_BASE_PLAN]
     windows = batch * (h // WS) ** 2
-    for nwg, staged in ((2, 1), (2, 0), (4, 1), (4, 0)):
+    for nwg, staged in ((1, 1), (2, 1), (2, 0), (4, 1), (4, 0)):
         size = smem_fn(WS * WS, c, heads, nwg, staged)
         if not 0 < size <= attention._SMEM_LIMIT:
             continue

@@ -1,8 +1,9 @@
 """K2 (`fused_leff`'s forward, the fused LeFF) at the five SwinGroup shapes
-of the published model, on the card.
+of the published model (`--embed 32`: of the configuration's default
+width), on the card.
 
     python fbanet_tpu_torch/tools/measure_leff.py [shapes] [plans]
-        [--batch 8]
+        [--batch 8] [--embed 64]
 
 - shapes: per group, bf16 with the residual: K2's ms (CUDA events around
   10 back-to-back calls), its device ms (every kernel of the call in a
@@ -32,6 +33,7 @@ import torch
 if "fbanet_tpu_torch" not in sys.modules:  # run by its path
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
+from fbanet_tpu_torch.tools import measure_reduce  # noqa: E402
 from fbanet_tpu_torch.tools.measure_reduce import (  # noqa: E402
     GROUPS,
     bound_ms,
@@ -111,13 +113,13 @@ def shapes(batch: int = 8, groups: tuple = GROUPS) -> dict:
     return {"rows": rows, "sums": sums}
 
 
-def plans(batch: int = 8) -> list[dict]:
-    """K2's device ms and error per group under every form of
+def plans(batch: int = 8, groups: tuple = GROUPS) -> list[dict]:
+    """K2's device ms and error per group of `groups` under every form of
     `leff._K2_FORMS` that takes it and under the first kernel."""
     from fbanet_tpu_torch.ops import leff
 
     out, bad = [], []
-    for i, (name, h, c, _heads) in enumerate(GROUPS):
+    for i, (name, h, c, _heads) in enumerate(groups):
         x, p = case(batch, h, c, "cuda", 750 + i)
         ch = 4 * c
         chosen = leff._leff_plan(batch, h, h, c, ch,
@@ -154,15 +156,20 @@ def main(argv=None) -> dict:
     ap.add_argument("modes", nargs="*", default=["shapes"],
                     choices=["shapes", "plans"])
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--embed", type=int, default=64,
+                    help="the model width whose five groups are measured "
+                         "(measure_reduce.groups: 64 published, 32 the "
+                         "configuration's default)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("measure_leff: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False  # full-f32 plain products
     res = {}
+    groups = measure_reduce.groups(args.embed)
     if "shapes" in args.modes:
-        res["shapes"] = shapes(args.batch)
+        res["shapes"] = shapes(args.batch, groups)
     if "plans" in args.modes:
-        res["plans"] = plans(args.batch)
+        res["plans"] = plans(args.batch, groups)
     res["device"] = torch.cuda.get_device_name(0)
     log(json.dumps(res))
     return res

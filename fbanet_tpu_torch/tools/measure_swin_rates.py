@@ -393,6 +393,11 @@ def _abl_leff_plain(x, ln_scale, ln_bias, w1, b1, wdw, bdw, w2, b2, *,
 
 
 _LEFF_VARIANTS = {(True, True): 0, (False, True): 1, (True, False): 2}
+# C K8's and K10's flags are built at on K2's wgmma form
+# (csrc/leff_variants.cu, leff_ablation.cu); K2's own form also takes
+# C = 32 (FBANet-32's enc0), where the flags keep the first kernel: their
+# measurements are of FBANet-64
+_FLAG_CHANNELS = (64, 128, 256)
 
 
 def leff_plan(x, ch: int, smem=_kernel_leff_smem):
@@ -400,7 +405,10 @@ def leff_plan(x, ch: int, smem=_kernel_leff_smem):
     bf16 map x [B, H, W, C] with hidden width ch: K2's own plan for it
     (`_leff_plan`, with the kernel's shared memory or `smem`, its Python
     model), so that each variant runs on the form K2 runs on at that
-    shape."""
+    shape; K2's first kernel, `_K2_BASE_PLAN`, at C the flags' wgmma form
+    is not built for (`_FLAG_CHANNELS`)."""
+    if x.shape[-1] not in _FLAG_CHANNELS:
+        return _K2_BASE_PLAN
     return _leff_plan(*x.shape, ch, True, smem=smem)
 
 

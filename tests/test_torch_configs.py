@@ -48,7 +48,7 @@ from torch_parity import jax_forward as _jax_forward
 from fbanet_tpu.models import layers as jlayers
 from fbanet_tpu.utils.torch_io import flax_to_torch_state_dict
 from fbanet_tpu_torch.models import create_model, layers
-from fbanet_tpu_torch.ops import attention, reduce
+from fbanet_tpu_torch.ops import attention, leff, reduce
 from fbanet_tpu_torch.tools.measure_reduce import groups, r1_shapes
 from fbanet_tpu_torch.utils.weights import (
     jax_params_to_state_dict,
@@ -287,11 +287,10 @@ def test_flag_model_matches_jax(flag, dtype):
 
 def test_first_kernel_plans_at_embed32():
     """K1's and K3's plans keep every group of FBANet-32 in f32 on the
-    first kernels; in bf16 at B=2 and B=8 K1's keeps enc0 (C = 32, which
-    its wgmma form does not take) on the first kernel and sends the other
-    four groups (head size 32 at enc1, 8 at the others) to the wgmma form,
-    and K3's sends all five, enc0 on one warpgroup; the wgmma forms keep
-    FBANet-64's."""
+    first kernels; in bf16 at B=2 and B=8 both send all five groups (head
+    size 32 at enc0 and enc1, 8 at the others) to their wgmma forms, enc0
+    (C = 32) on one warpgroup, and so does K2's (enc0 on 16 x 16 tiles);
+    the wgmma forms keep FBANet-64's."""
     for batch in (2, 8):
         for (_name, h, c, heads), (_n, h64, c64, heads64) in zip(
                 groups(32), groups(64)):
@@ -303,7 +302,8 @@ def test_first_kernel_plans_at_embed32():
             k3 = attention._attention_bwd_plan(batch, h, h, c, heads, 8,
                                                True)
             if c == 32:
-                assert k1 == attention._K1_BASE_PLAN and k3[0] == 1
+                assert k1[0] == 1 and k3[0] == 1
+                assert leff._leff_plan(batch, h, h, c, 4 * c) == (16, 16, 64)
             else:
                 assert k1[0] > 0 and k3[0] > 0
             assert attention._attention_plan(batch, h64, h64, c64,

@@ -23,13 +23,13 @@ C, CH = 16, 64
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 
 
-def _params(seed: int = 0):
+def _params(seed: int = 0, c: int = C, ch: int = CH):
     """JAX layouts: dense kernels [in, out], depthwise kernel [3, 3, 1, Ch]."""
     return dict(
-        ln_scale=1.0 + normal(seed, (C,), 0.1), ln_bias=normal(seed + 1, (C,), 0.1),
-        w1=normal(seed + 2, (C, CH), C ** -0.5), b1=normal(seed + 3, (CH,), 0.1),
-        wdw=normal(seed + 4, (3, 3, 1, CH), 1 / 3), bdw=normal(seed + 5, (CH,), 0.1),
-        w2=normal(seed + 6, (CH, C), CH ** -0.5), b2=normal(seed + 7, (C,), 0.1))
+        ln_scale=1.0 + normal(seed, (c,), 0.1), ln_bias=normal(seed + 1, (c,), 0.1),
+        w1=normal(seed + 2, (c, ch), c ** -0.5), b1=normal(seed + 3, (ch,), 0.1),
+        wdw=normal(seed + 4, (3, 3, 1, ch), 1 / 3), bdw=normal(seed + 5, (ch,), 0.1),
+        w2=normal(seed + 6, (ch, c), ch ** -0.5), b2=normal(seed + 7, (c,), 0.1))
 
 
 def _torch_params(p):
@@ -39,12 +39,22 @@ def _torch_params(p):
     return out
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("residual", [False, True])
-@pytest.mark.parametrize("shape", [(2, 16, 16), (1, 24, 8)])
-def test_plain_matches_pallas_kernel_and_reference(dtype, residual, shape):
-    p = _params()
-    x = normal(shape[1], (*shape, C))
+# (map [B, H, W], C, residual, dtype): the tiny width C = 16 (hidden 64) on
+# two maps, each residual and dtype; then FBANet-32's enc0 width (C = 32,
+# hidden 128, the shape K2's C = 32 forms take on the card) in bf16 with
+# the residual
+CASES = [((b, h, w), C, residual, dtype)
+         for b, h, w in ((2, 16, 16), (1, 24, 8))
+         for residual in (False, True) for dtype in ("float32", "bfloat16")]
+CASES.append(((1, 16, 16), 32, True, "bfloat16"))
+IDS = [f"shape{i // 4}-{r}-{d}" for i, (_s, _c, r, d) in enumerate(CASES[:8])]
+IDS.append("enc0-c32-True-bfloat16")
+
+
+@pytest.mark.parametrize("shape,c,residual,dtype", CASES, ids=IDS)
+def test_plain_matches_pallas_kernel_and_reference(shape, c, residual, dtype):
+    p = _params(c=c, ch=4 * c)
+    x = normal(shape[1], (*shape, c))
     jd, td = jnp.dtype(dtype), getattr(torch, dtype)
     jp = {k: jnp.asarray(v) for k, v in p.items()}
     jx = jnp.asarray(x).astype(jd)

@@ -1,7 +1,7 @@
 """The plans of K1's, K2's and K3's wgmma forms on the CPU, without JAX:
 which form and blocks each shape gets (FBANet-64's five groups, and
-FBANet-32's: K1 and K3 at head sizes 8 and 32), the shared memory each plan
-needs
+FBANet-32's: K1 and K3 at head sizes 8 and 32, K1, K2 and K3 at enc0's
+C = 32), the shared memory each plan needs
 (from the Python models of the kernels' own `*_smem` functions, which
 chip_smoke.py holds equal to the kernels'), the window-to-block assignment
 of K1's and K3's forms, the order of K3's per-block bias partial's sums,
@@ -225,7 +225,8 @@ def test_attention_plan_at_the_group_shapes(h, c, heads, batch):
 
 @pytest.mark.parametrize("args,kw", [
     ((2, 80, 80, 128, 2), dict(bf16=False)),  # f32
-    ((2, 16, 16, 32, 1), {}),  # head size 32 at C = 32 (embed 32's enc0)
+    # head size 32 at C = 32 (embed 32's enc0) in f32: its form is bf16
+    ((2, 16, 16, 32, 1), dict(bf16=False)),
     ((2, 16, 16, 96, 6), {}),  # C not a multiple of 64
     ((2, 28, 28, 64, 1), dict(ws=7)),  # 49-token windows
     ((2, 12, 16, 64, 1), {}),  # H not a multiple of the window
@@ -260,12 +261,12 @@ def test_attention_plan_sizes_with_the_given_smem():
 def test_attention_smem_refuses_what_the_kernel_does_not_take():
     """K1's wgmma form: only 64-token windows, C 64, 128 or 256, head size
     8, 16, 32 or 64, two or four warpgroups, weights staged or streamed,
-    and at most the H100's 227 KB a block (staged weights fit up to
-    C = 128)."""
+    or C = 32 with one head on one warpgroup, weights staged; at most the
+    H100's 227 KB a block (staged weights fit up to C = 128)."""
     assert attention._attention_smem(49, 64, 1, 2, 0) == 0
     assert attention._attention_smem(64, 96, 6, 2, 0) == 0
     assert attention._attention_smem(64, 320, 20, 4, 0) == 0
-    assert attention._attention_smem(64, 32, 1, 2, 0) == 0  # C 32
+    assert attention._attention_smem(64, 32, 1, 1, 1) == 41992  # C 32
     assert attention._attention_smem(64, 192, 8, 2, 0) == 0  # dh 24
     assert attention._attention_smem(64, 128, 2, 3, 0) == 0
     assert attention._attention_smem(64, 128, 2, 2, 2) == 0
@@ -337,8 +338,8 @@ def test_attention_plans_at_embed32(h, c, heads, batch):
     leave the staged weights no room) and K3's at all five (one warpgroup
     at enc0, C = 32; two at C = 64, four at C = 128), within the H100's
     shared memory at their residency, the windows dealt to at most as many
-    blocks as the card holds at once; K1's first kernel at enc0, and both
-    first kernels in f32."""
+    blocks as the card holds at once; K1's form at enc0 too (one head on
+    one warpgroup, staged), and both first kernels in f32."""
     base1, base3 = attention._K1_BASE_PLAN, attention._K3_BASE_PLAN
     assert attention._attention_plan(batch, h, h, c, heads,
                                      bf16=False) == base1
@@ -348,12 +349,9 @@ def test_attention_plans_at_embed32(h, c, heads, batch):
     k3 = attention._attention_bwd_plan(batch, h, h, c, heads)
     assert k3[0] == {32: 1, 64: 2, 128: 4}[c]
     plans = [(k3, attention._attention_bwd_smem(WS * WS, c, heads, k3[0]))]
-    if c == 32:
-        assert k1 == base1
-    else:
-        assert (k1[0], k1[2]) == {64: (2, 1), 128: (4, 0)}[c]
-        plans.append((k1[:2], attention._attention_smem(
-            WS * WS, c, heads, k1[0], k1[2])))
+    assert (k1[0], k1[2]) == {32: (1, 1), 64: (2, 1), 128: (4, 0)}[c]
+    plans.append((k1[:2], attention._attention_smem(
+        WS * WS, c, heads, k1[0], k1[2])))
     windows = batch * (h // WS) ** 2
     for (nwg, wpb), size in plans:
         resident = 4 // nwg
@@ -370,7 +368,8 @@ def test_backward_plans_at_embed32_enc0(batch):
     shared memory, the windows dealt to as many blocks as the card holds
     at once (2 windows a block at B=2, 7 at B=8), each block writing one
     partial row; K4 on its wgmma form with 16 x 16 tiles, unsplit. K1's
-    and K2's plans keep their first kernels there."""
+    and K2's plans take their wgmma forms there too (one warpgroup with
+    K3's windows a block; 16 x 16 tiles with 64-wide chunks)."""
     windows = batch * (160 // WS) ** 2
     nwg, wpb = attention._attention_bwd_plan(batch, 160, 160, 32, 1)
     assert (nwg, wpb) == (1, {2: 2, 8: 7}[batch])
@@ -380,8 +379,8 @@ def test_backward_plans_at_embed32_enc0(batch):
         len(attention._window_blocks(windows, wpb)) <= 4 * SMS
     assert leff._leff_bwd_plan(batch, 160, 160, 32, 128) == (16, 16, 32, 1)
     assert attention._attention_plan(batch, 160, 160, 32,
-                                     1) == attention._K1_BASE_PLAN
-    assert leff._leff_plan(batch, 160, 160, 32, 128) == leff._K2_BASE_PLAN
+                                     1) == (1, wpb, 1)
+    assert leff._leff_plan(batch, 160, 160, 32, 128) == (16, 16, 64)
 
 
 def test_form_counts_split_the_head_sizes():
@@ -441,13 +440,13 @@ def test_smem_models_at_head_sizes_8_and_32():
 def test_measurement_forms_at_embed32(h, c, heads):
     """K7, K9 and K11 at FBANet-32's groups name no instantiation their
     wgmma forms are not built for: head sizes 8 and 32 (and enc0's C = 32)
-    keep the first kernels there, while K1 takes its wgmma form at enc1 to
-    dec1 and K3 at all five groups (K11 keeps its own rule,
-    `_K11_HEAD_SIZES`: its ablations are of FBANet-64)."""
+    keep the first kernels there, while K1 and K3 take their wgmma forms
+    at all five groups (K11 keeps its own rule, `_K11_HEAD_SIZES`: its
+    ablations are of FBANet-64)."""
     x = torch.empty(8, h, h, c, device="meta", dtype=torch.bfloat16)
     xw = torch.empty(8 * (h // WS) ** 2, WS * WS, c, device="meta",
                      dtype=torch.bfloat16)
-    assert (attention._attention_plan(8, h, h, c, heads)[0] > 0) == (c > 32)
+    assert attention._attention_plan(8, h, h, c, heads)[0] > 0
     assert attention._attention_bwd_plan(8, h, h, c, heads)[0] > 0
     for core in measure_swin_variants.CORES:
         assert _k7_plan(x, heads, core) == attention._K1_BASE_PLAN
@@ -537,8 +536,8 @@ def test_k11_keeps_the_first_kernel_where_k3_does():
 @pytest.mark.parametrize("h,c,heads", GROUPS, ids=IDS)
 def test_k8_takes_k2s_form(h, c, heads):
     """K8 runs each variant on the form K2's own plan gives the map: the
-    wgmma form at every group; the first kernel at C = 32, which the wgmma
-    form does not take."""
+    wgmma form at every group; the first kernel at C = 32, which K2's form
+    takes but K8's flags are not built for (`_FLAG_CHANNELS`)."""
     ch = 4 * c
     x = torch.empty(8, h, h, c, device="meta", dtype=torch.bfloat16)
     plan = measure_swin_variants.variant_plan(x, ch, smem=leff._leff_smem)
@@ -583,7 +582,8 @@ K2_FORM = {"enc0": (16, 8, 64), "enc1": (16, 8, 64), "bott": (8, 8, 64),
 def test_k10_takes_k2s_form(h, c, heads, request):
     """K10 runs each ablation on the form K2's own plan gives the map: the
     wgmma form at every group (16 x 8 x 64 at enc0, enc1, dec1; 8 x 8 x 64
-    at bott, dec0); the first kernel at C = 32, which it does not take."""
+    at bott, dec0); the first kernel at C = 32, which K2's form takes but
+    K10's flags are not built for (`_FLAG_CHANNELS`)."""
     ch = 4 * c
     x = torch.empty(8, h, h, c, device="meta", dtype=torch.bfloat16)
     plan = measure_swin_rates.leff_plan(x, ch, smem=leff._leff_smem)
@@ -773,3 +773,126 @@ def test_k9_refuses_off_the_card():
             mr.ablation_attention(x, *ap, heads=1, softmax=False, plan=plan)
     assert (mr.ablation_attention.wgmma.launches,
             mr.ablation_attention.base.launches) == before
+
+
+def test_attention_smem_at_c32_byte_for_byte():
+    """K1's layout at C = 32 (FBANet-32's enc0, one head of 32), byte for
+    byte: y / o, q, k, v (64 x 32 bf16 each, 64-byte rows), the window's
+    f32 mask, the staged [Wq; Wkv; Wproj] (8 C^2 bytes), one barrier and
+    the alignment slack; four such blocks share an SM. C = 32 takes one
+    head on one warpgroup with staged weights only, and one warpgroup
+    serves C = 32 only."""
+    want = 4096 + 3 * 4096 + 4 * 64 * 64 + 8 * 32 * 32 + 8 + 1024
+    assert attention._attention_smem(64, 32, 1, 1, 1) == want == 41992
+    assert 4 * (want + 1024) <= attention._SM_SMEM
+    for heads, nwg, staged in ((1, 1, 0), (1, 2, 1), (1, 4, 1), (1, 2, 0),
+                               (2, 1, 1), (4, 1, 1)):
+        assert attention._attention_smem(64, 32, heads, nwg, staged) == 0
+    assert attention._attention_smem(49, 32, 1, 1, 1) == 0
+    for c in (64, 128, 256):
+        for staged in (0, 1):
+            assert attention._attention_smem(64, c, c // 32, 1, staged) == 0
+
+
+def test_leff_smem_at_c32_byte_for_byte():
+    """K2's layout at C = 32, byte for byte, for each form built there: y
+    on the halo's whole 64-row blocks, two W1 and two W2^T ring slots (kc
+    rows of 64 bytes), h2 (NI x kc bf16), h1 bf16 [NY][kc + 8], the
+    chunk's taps, b1 and bdw in f32, two barriers, the alignment slack;
+    out [NI][C + 4] f32 fits under the barriers. 16 x 16 tiles are built
+    for C = 32 only, 8 x 8 for C >= 64 only."""
+    def a128(n):
+        return -(-n // 128) * 128
+
+    for th, tw, kc in ((16, 16, 64), (16, 16, 32), (16, 8, 64), (16, 8, 32)):
+        ny, ni = (th + 2) * (tw + 2), th * tw
+        bars = (-(-ny // 64) * 64 * 64 + 4 * kc * 64 + ni * kc * 2
+                + a128(2 * ny * (kc + 8)) + a128(36 * kc) + 2 * a128(4 * kc))
+        assert ni * 36 * 4 <= bars
+        assert leff._leff_smem(32, th, tw, kc) == bars + 16 + 1024
+        assert leff._k2_form(32, th, tw, kc)
+    assert leff._leff_smem(32, 16, 16, 64) == 124304
+    assert leff._leff_smem(32, 16, 8, 32) == 45584
+    for kc in (32, 64):
+        assert leff._leff_smem(32, 8, 8, kc) == 0
+        for c in (64, 128, 256):
+            assert leff._leff_smem(c, 16, 16, kc) == 0
+            assert not leff._k2_form(c, 16, 16, kc)
+    assert leff._leff_smem(32, 16, 16, 16) == 0  # not a form
+
+
+@pytest.mark.parametrize("batch", [2, 8])
+def test_forward_plans_at_embed32_enc0(batch):
+    """FBANet-32's enc0 (160 px, C = 32, one head of 32): in bf16 K1 on its
+    wgmma form with one warpgroup and staged weights, four blocks an SM,
+    K3's windows a block (2 at B=2, 7 at B=8), and K2 on its form with
+    16 x 16 tiles and 64-wide chunks (tools/measure_leff.py plans
+    --embed 32: (16, 16, 64) the fastest at B=2, within 0.2 % of (16, 8,
+    64) at B=8); in f32 both on their first kernels. The plans also size
+    with the given function: a model that refuses 16 x 16 gets 16 x 8."""
+    k1 = attention._attention_plan(batch, 160, 160, 32, 1)
+    assert k1 == (1, {2: 2, 8: 7}[batch], 1)
+    assert k1[1] == attention._attention_bwd_plan(batch, 160, 160, 32, 1)[1]
+    windows = batch * (160 // WS) ** 2
+    assert len(attention._window_blocks(windows, k1[1])) <= 4 * SMS
+    assert leff._leff_plan(batch, 160, 160, 32, 128) == (16, 16, 64)
+    assert attention._attention_plan(batch, 160, 160, 32, 1,
+                                     bf16=False) == attention._K1_BASE_PLAN
+    assert leff._leff_plan(batch, 160, 160, 32, 128,
+                           False) == leff._K2_BASE_PLAN
+
+    def no_16x16(c, th, tw, kc):
+        return 0 if tw == 16 else leff._leff_smem(c, th, tw, kc)
+
+    assert leff._leff_plan(batch, 160, 160, 32, 128,
+                           smem=no_16x16) == (16, 8, 64)
+    # a map 16 x 16 tiles do not divide (but 16 x 8 do) gets 16 x 8
+    assert leff._leff_plan(batch, 16, 24, 32, 128) == (16, 8, 64)
+
+
+def test_measurement_forms_keep_c32_on_the_first_kernels():
+    """K8's and K10's flags and K7's and K9's cores are not built at
+    C = 32: at FBANet-32's enc0 their plans name the first kernels by
+    their own rules (`_FLAG_CHANNELS`, the triples), while K1's and K2's
+    own plans take the wgmma forms there."""
+    x = torch.empty(8, 160, 160, 32, device="meta", dtype=torch.bfloat16)
+    assert leff._leff_plan(8, 160, 160, 32, 128)[0] > 0
+    assert attention._attention_plan(8, 160, 160, 32, 1)[0] > 0
+    assert measure_swin_rates.leff_plan(
+        x, 128, smem=leff._leff_smem) == leff._K2_BASE_PLAN
+    assert measure_swin_variants.variant_plan(
+        x, 128, smem=leff._leff_smem) == leff._K2_BASE_PLAN
+    assert 32 not in measure_swin_rates._FLAG_CHANNELS
+    for core in measure_swin_variants.CORES:
+        assert _k7_plan(x, 1, core) == attention._K1_BASE_PLAN
+    assert _k9_plan(x, 1) == attention._K1_BASE_PLAN
+
+
+def test_forward_wrappers_refuse_off_the_card_at_c32():
+    """K1's and K2's launches under an explicit plan, and K1b's, take CUDA
+    tensors only at C = 32 too, on the C = 32 forms and the first kernels:
+    any other device gets an error naming the shape, never the plain
+    version; and nothing is counted."""
+    c, ch = 32, 128
+    x = torch.empty(1, 16, 16, c, device="meta", dtype=torch.bfloat16)
+    ap = [torch.empty(s, device="meta") for s in (
+        (c,), (c,), (c, c), (c,), (2 * c, c), (2 * c,), (c, c), (c,),
+        (1, 64, 64))]
+    counts = attention.fused_window_attention_2d
+    before = (counts.narrow.launches, counts.base.launches,
+              leff._leff_launch.wgmma.launches, leff._leff_launch.base.launches)
+    for plan in ((1, 7, 1), attention._K1_BASE_PLAN):
+        with pytest.raises(ValueError, match=r"\(1, 16, 16, 32\)"):
+            attention._attention_launch(x, *ap, None, 1, WS, True, plan)
+    xw = torch.empty(4, 64, c, device="meta", dtype=torch.bfloat16)
+    for plan in (None, (1, 1, 1), attention._K1_BASE_PLAN):
+        with pytest.raises(ValueError, match=r"\(4, 64, 32\)"):
+            attention._launch_windows(xw, *ap, None, 1, 4, plan=plan)
+    lp = [torch.empty(s, device="meta") for s in (
+        (c,), (c,), (ch, c), (ch,), (ch, 1, 3, 3), (ch,), (c, ch), (c,))]
+    for plan in ((16, 16, 64), (16, 8, 32), leff._K2_BASE_PLAN):
+        with pytest.raises(ValueError, match=r"\(1, 16, 16, 32\)"):
+            leff._leff_launch(x, *lp, True, plan)
+    assert before == (counts.narrow.launches, counts.base.launches,
+                      leff._leff_launch.wgmma.launches,
+                      leff._leff_launch.base.launches)
