@@ -1,0 +1,8 @@
+"""The share of the profiled sub-window in which no kernel, copy or set
+ran on the card (serving cells)."""
+
+from benchmark.metrics_common import idle_share
+
+
+def read(rec):
+    return idle_share(rec, "serve")
