@@ -29,6 +29,7 @@ import torch
 
 from fbanet_tpu_torch.ops.warp import warp_burst_homography, warp_flow
 from fbanet_tpu_torch.ops.warp_kernels import warp_burst_bilinear, warp_burst_coords
+from fbanet_tpu_torch.utils.profiling import annotate
 
 _LUMA = (0.299, 0.587, 0.114)  # Rec.601, as cv2.cvtColor(RGB2GRAY)
 _BINOMIAL = (1.0 / 16, 4.0 / 16, 6.0 / 16, 4.0 / 16, 1.0 / 16)
@@ -205,15 +206,20 @@ def _run_ecc_iters(step, p0: torch.Tensor, num_iters: int, eps: float
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Drive `step(p) -> (p + dp, rho)` for N frames (registration.py:
     178-205): a fixed count when eps == 0, else each frame stops once its
-    |rho - rho_prev| <= eps and the loop once every frame has stopped."""
+    |rho - rho_prev| <= eps and the loop once every frame has stopped.
+    Each iteration run raises `ecc_align.iterations`."""
     n = p0.shape[0]
     p = p0
     rho = torch.zeros(n, device=p0.device)
     drho = torch.full((n,), float("inf"), device=p0.device)
     for _ in range(num_iters):
         active = drho > eps if eps > 0.0 else torch.ones_like(drho, dtype=torch.bool)
-        if eps > 0.0 and not bool(active.any()):  # the per-iteration host sync
-            break
+        if eps > 0.0:
+            with annotate("fbanet.ecc.host_read"):  # the per-iteration sync
+                done = not bool(active.any())
+            if done:
+                break
+        ecc_align.iterations += 1
         p2, rho2 = step(p)
         p = torch.where(active[:, None], p2, p)
         drho = torch.where(active, (rho2 - rho).abs(), drho)
@@ -358,6 +364,9 @@ def ecc_align(template: torch.Tensor, image: torch.Tensor, *,
     return m, rho
 
 
+ecc_align.iterations = 0  # batched iterations run, all levels and motions
+
+
 def align_burst(burst: torch.Tensor, *, motion: str = "translation",
                 levels: int = 3, iters_per_level: int = 25, eps: float = 0.0,
                 interp: str = "bilinear", plain: bool = False
@@ -403,15 +412,21 @@ def online_register(batch: torch.Tensor, method: str = "ecc") -> torch.Tensor:
     """Register `[B, F, H, W, C]` to frame 0 in an eval or train step
     (registration.py:394-428): "ecc" is translation ECC, 3 levels x 25
     iterations, eps 1e-5; "flow" is pyramidal Lucas-Kanade (3 levels x 5
-    iterations) and a backward warp by the flow."""
-    if method == "ecc":
-        return align_burst(batch, motion="translation", levels=3,
-                           iters_per_level=25, eps=1e-5)[0]
-    if method == "flow":
-        # imported here: flow imports this module
-        from fbanet_tpu_torch.ops.flow import burst_optical_flow
+    iterations) and a backward warp by the flow. Raises
+    `online_register.calls`."""
+    online_register.calls += 1
+    with annotate("fbanet.register"):
+        if method == "ecc":
+            return align_burst(batch, motion="translation", levels=3,
+                               iters_per_level=25, eps=1e-5)[0]
+        if method == "flow":
+            # imported here: flow imports this module
+            from fbanet_tpu_torch.ops.flow import burst_optical_flow
 
-        flows = burst_optical_flow(batch, levels=3, iters_per_level=5)
-        warped = warp_flow(batch[:, 1:], flows)
-        return torch.cat([batch[:, :1], warped], 1)
+            flows = burst_optical_flow(batch, levels=3, iters_per_level=5)
+            warped = warp_flow(batch[:, 1:], flows)
+            return torch.cat([batch[:, :1], warped], 1)
     raise ValueError(f"unknown online registration method {method}")
+
+
+online_register.calls = 0  # batches registered

@@ -29,7 +29,8 @@ evaluation, the epoch loop and the command line.
   the same stochastic depth as the uninterrupted run). Each step draws its
   stochastic depth from a generator seeded by (seed, epoch, step).
   `--profile_dir` traces the first epoch's steps with torch.profiler
-  (`utils/profiling.py::trace`: `<profile_dir>/trace.json`).
+  (`utils/profiling.py::trace`: `<profile_dir>/trace.json`), each step
+  split into its `fbanet.*` spans (`make_train_step`).
 
 Data parallelism (`parallel/mesh.py`, the JAX package's single-host mesh
 semantics): under torchrun each rank runs this loop on its own card
@@ -76,7 +77,7 @@ from fbanet_tpu_torch.models import create_model
 from fbanet_tpu_torch.parallel import mesh
 from fbanet_tpu_torch.parallel.mesh import World
 from fbanet_tpu_torch.utils.checkpoint import CheckpointTriad, load_checkpoint
-from fbanet_tpu_torch.utils.profiling import StepTimer, trace
+from fbanet_tpu_torch.utils.profiling import StepTimer, annotate, trace
 
 
 def lr_for_epoch(epoch: int, cfg: TrainConfig, *, start_epoch: int = 1,
@@ -188,7 +189,11 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     process. The gradients are views of DDP's buckets (no copy back after
     the all-reduce). Over more than one rank, mixup gathers the global
     batch, draws lambda and the permutation from `mix_generator` (which
-    must be the same on every rank) and keeps this rank's rows."""
+    must be the same on every rank) and keeps this rank's rows.
+
+    The step opens `fbanet.train_step` and, inside it, `fbanet.forward`
+    around each microbatch's loss, `fbanet.backward` around its backward
+    and `fbanet.update` around the rest (`utils/profiling.py`)."""
     if online_align != "none":
         from fbanet_tpu_torch.ops.registration import online_register
 
@@ -237,31 +242,41 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
 
     def step(lr_burst, hr, generator: torch.Generator, lr: float,
              mix_generator: torch.Generator | None = None):
-        optimizer.zero_grad(set_to_none=True)
-        if ga == 1:
-            loss = loss_fn(lr_burst, hr, generator, mix_generator)
-            loss.backward()
-            loss = loss.detach()
-        else:
-            if len(lr_burst) != ga or len(hr) != ga:
-                raise ValueError(f"grad_accum={ga} needs {ga} microbatches")
-            loss = 0.0
-            for i, (lb, h) in enumerate(zip(lr_burst, hr)):
-                sync = ddp is None or i == ga - 1
-                with contextlib.nullcontext() if sync else ddp.no_sync():
-                    micro = loss_fn(lb, h, generator, mix_generator)
-                    (micro / ga).backward()
-                loss = loss + micro.detach()
-            loss = loss / ga
-        if wide:
-            loss = world.mean(loss)
-        for p in params:  # unused parameters: a zero gradient, as jax.grad
-            if p.grad is None:  # gives (so weight decay still applies)
-                p.grad = torch.zeros_like(p)
-        if cfg.grad_clip_norm > 0:
-            clip_by_global_norm_(params, cfg.grad_clip_norm)
-        set_lr(optimizer, lr)
-        optimizer.step()
+        with annotate("fbanet.train_step"):
+            with annotate("fbanet.update"):
+                optimizer.zero_grad(set_to_none=True)
+            if ga == 1:
+                with annotate("fbanet.forward"):
+                    loss = loss_fn(lr_burst, hr, generator, mix_generator)
+                with annotate("fbanet.backward"):
+                    loss.backward()
+                    micros = [loss.detach()]
+            else:
+                if len(lr_burst) != ga or len(hr) != ga:
+                    raise ValueError(f"grad_accum={ga} needs {ga} "
+                                     f"microbatches")
+                micros = []
+                for i, (lb, h) in enumerate(zip(lr_burst, hr)):
+                    sync = ddp is None or i == ga - 1
+                    with contextlib.nullcontext() if sync else ddp.no_sync():
+                        with annotate("fbanet.forward"):
+                            micro = loss_fn(lb, h, generator, mix_generator)
+                        with annotate("fbanet.backward"):
+                            (micro / ga).backward()
+                            micros.append(micro.detach())
+            with annotate("fbanet.update"):
+                loss = micros[0] if ga == 1 else sum(micros) / ga
+                if wide:
+                    loss = world.mean(loss)
+                # unused parameters: a zero gradient, as jax.grad gives (so
+                # weight decay still applies)
+                for p in params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                if cfg.grad_clip_norm > 0:
+                    clip_by_global_norm_(params, cfg.grad_clip_norm)
+                set_lr(optimizer, lr)
+                optimizer.step()
         return loss
 
     step.loss_fn = loss_fn

@@ -6,13 +6,33 @@ fbanet_tpu/utils/profiling.py.
 - `trace`: a context manager around `torch.profiler` that writes a Chrome
   trace (`chrome://tracing`, Perfetto) of the host and, on the card, the
   device's kernels and copies;
-- `annotate`: a named span inside a trace (`torch.profiler.record_function`);
-- `device_memory_stats`: the card's allocator counters
-  (`torch.cuda.memory_stats`), None without a card.
+- `annotate`: a named span inside a trace. With the profiler on it is a
+  `torch.profiler.record_function`, an event in the same trace as the
+  card's kernels and on its clock; with the profiler off, a shared no-op
+  (a bare `record_function` costs ~10 us on the host even then).
 
 StepTimer reads the host clock: around card work, end each step with
 `torch.cuda.synchronize()` (or a host read of a result), or it times the
 launches only.
+
+The program's spans, all `fbanet.*`:
+
+- `fbanet.train_step` (`train.make_train_step`): the whole step, which
+  holds `fbanet.forward` (each microbatch's loss: mixup, online
+  registration, the model, the loss), `fbanet.backward` (each
+  `.backward()`, DDP's all-reduce included) and `fbanet.update` (the
+  gradients' reset at the start; the loss mean, the zero-fill of unused
+  gradients, clipping, the learning rate and the optimizer step at the
+  end). Every kernel of a step is launched under exactly one of the three.
+- `fbanet.register` (`ops/registration.online_register`): online
+  registration of a batch; inside it `fbanet.ecc.host_read`, ECC's host
+  read of its loop condition, once an iteration.
+
+Counters are always on: an integer attribute of the function that does
+the work, raised where the work runs (`fn.launches += 1` in the kernel
+wrappers). `ops/registration.ecc_align.iterations` counts ECC's batched
+iterations, summed over the pyramid levels; `online_register.calls` the
+batches registered.
 """
 
 from __future__ import annotations
@@ -98,15 +118,12 @@ def trace(log_dir: str):
     prof.export_chrome_trace(str(out / "trace.json"))
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named span inside a `trace` capture."""
-    return torch.profiler.record_function(name)
-
-
-def device_memory_stats() -> dict[str, int] | None:
-    """The card's allocator counters (current, peak and allocated bytes,
-    allocation counts, ...) of the current device; None without a card."""
-    if not torch.cuda.is_available():
-        return None
-    return {k: int(v) for k, v in torch.cuda.memory_stats().items()
-            if isinstance(v, int)}
+    """Named span inside a `trace` capture; a shared no-op when no profiler
+    is on."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN

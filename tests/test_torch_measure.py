@@ -17,6 +17,7 @@ a rounded intermediate by one ulp; the forward's softmax is normalised
 before the AV product in both, as the scripts do).
 """
 
+import contextlib
 import importlib.util
 import json
 from pathlib import Path
@@ -174,7 +175,85 @@ def test_trace_writes_a_chrome_trace_with_spans(tmp_path):
             torch.ones(64, 64) @ torch.ones(64, 64)
     events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
     assert any(e.get("name") == "port-span" for e in events)
-    assert profiling.device_memory_stats() is None  # no card here
+
+
+def test_annotate_reaches_the_profiler_only_when_it_is_on(monkeypatch):
+    """With the profiler off a span is the shared no-op and never builds
+    a `record_function` (~10 us on the host each); with it on, it does."""
+    made = []
+    real = torch.profiler.record_function
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: made.append(name) or real(name))
+    with profiling.annotate("off"):
+        pass
+    assert made == []
+    assert profiling.annotate("a") is profiling.annotate("b")
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]):
+        with profiling.annotate("on"):
+            pass
+    assert made == ["on"]
+
+
+def _spans(events, name):
+    return [(e["ts"], e["ts"] + e["dur"]) for e in events
+            if e.get("ph") == "X" and e.get("name") == name]
+
+
+@pytest.mark.parametrize("grad_accum", [1, 2])
+def test_train_step_spans_and_bit_equal_steps(tmp_path, grad_accum):
+    """Two train steps of a tiny model under `profiling.trace` write
+    `fbanet.forward`, `fbanet.backward` and `fbanet.update` inside
+    `fbanet.train_step`, with every host operation of the step inside one
+    of the three; losses and parameters equal bit for bit those of the
+    same steps with the profiler off."""
+    from fbanet_tpu_torch import train
+    from fbanet_tpu_torch.config import ModelConfig, TrainConfig
+    from fbanet_tpu_torch.models import create_model
+
+    mcfg = ModelConfig(num_frames=2, img_size=16, embed_dim=8, window_size=8,
+                       heads=(1, 1, 2, 2, 2, 2, 1, 1, 1), dtype="float32")
+    tcfg = TrainConfig(batch_size=grad_accum, grad_accum=grad_accum,
+                       grad_clip_norm=0.1)
+    r = np.random.default_rng(5)
+    bursts = [torch.from_numpy(r.uniform(0, 1, (1, 2, 16, 16, 3))
+                               .astype(np.float32)) for _ in range(2)]
+    hrs = [torch.from_numpy(r.uniform(0, 1, (1, 64, 64, 3))
+                            .astype(np.float32)) for _ in range(2)]
+
+    def run(profiled):
+        model = create_model(mcfg, device="cpu", seed=3)
+        step = train.make_train_step(
+            model, train.make_optimizer(model.parameters(), tcfg), tcfg)
+        ctx = profiling.trace(str(tmp_path)) if profiled else \
+            contextlib.nullcontext()
+        losses = []
+        with ctx:
+            for k in range(2):
+                lb, h = ((bursts[0], hrs[0]) if grad_accum == 1
+                         else (tuple(bursts), tuple(hrs)))
+                losses.append(step(lb, h, torch.Generator().manual_seed(k),
+                                   1e-3))
+        return losses, [p.detach().clone() for p in model.parameters()]
+
+    loss_on, params_on = run(True)
+    loss_off, params_off = run(False)
+    assert all(torch.equal(a, b) for a, b in zip(loss_on, loss_off))
+    assert all(torch.equal(a, b) for a, b in zip(params_on, params_off))
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    steps = _spans(events, "fbanet.train_step")
+    phases = {k: _spans(events, f"fbanet.{k}")
+              for k in ("forward", "backward", "update")}
+    assert len(steps) == 2
+    assert len(phases["forward"]) == len(phases["backward"]) == 2 * grad_accum
+    assert len(phases["update"]) == 4
+    inside = lambda ts, ivs: any(a <= ts <= b for a, b in ivs)  # noqa: E731
+    for ivs in phases.values():
+        assert all(inside(a, steps) and inside(b, steps) for a, b in ivs)
+    held = sum(phases.values(), [])
+    ops = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") == "cpu_op" and inside(e["ts"], steps)]
+    assert ops and [e["name"] for e in ops if not inside(e["ts"], held)] == []
 
 
 @pytest.fixture

@@ -11,6 +11,8 @@ closed-form Jacobian of the warped positions with `jax.jacfwd` to 1e-5
 relative (f32 rounding of the same derivative).
 """
 
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -209,3 +211,42 @@ def test_align_burst_other_interpolations_match_jax(homography_burst, interp):
     np.testing.assert_allclose(n(mats), np.asarray(mats_j), atol=1e-4)
     np.testing.assert_allclose(n(aligned), np.asarray(aligned_j), atol=2e-3)
     np.testing.assert_array_equal(n(aligned[:, 0]), burst[:, 0])
+
+
+@pytest.mark.parametrize("motion", ["translation", "affine"])
+@pytest.mark.parametrize("eps", [0.0, 1e-5])
+def test_ecc_iterations_counter(homography_burst, motion, eps, monkeypatch):
+    """`ecc_align.iterations` grows by the iterations the loop runs, summed
+    over the levels: levels x iterations at eps 0, and at eps 1e-5 the
+    steps the loop takes (counted here around each level's step), fewer."""
+    steps = []
+    real = reg._run_ecc_iters
+
+    def counted(step, *args):
+        return real(lambda p: steps.append(p) or step(p), *args)
+
+    monkeypatch.setattr(reg, "_run_ecc_iters", counted)
+    before = reg.ecc_align.iterations
+    reg.align_burst(t(homography_burst[0]), motion=motion, levels=3,
+                    iters_per_level=25, eps=eps)
+    grew = reg.ecc_align.iterations - before
+    assert grew == len(steps)
+    assert grew == 75 if eps == 0.0 else 3 <= grew < 75
+
+
+def test_online_register_counts_and_spans(burst, tmp_path):
+    """`online_register` raises its call count by one a batch and, under a
+    trace, opens `fbanet.register` around ECC's host reads."""
+    from fbanet_tpu_torch.utils import profiling
+
+    calls = reg.online_register.calls
+    with profiling.trace(str(tmp_path)):
+        reg.online_register(t(burst))
+    assert reg.online_register.calls == calls + 1
+    events = [e for e in json.loads((tmp_path / "trace.json").read_text())
+              ["traceEvents"] if e.get("ph") == "X"]
+    outer = [e for e in events if e["name"] == "fbanet.register"]
+    reads = [e for e in events if e["name"] == "fbanet.ecc.host_read"]
+    assert len(outer) == 1 and len(reads) >= 3
+    a, b = outer[0]["ts"], outer[0]["ts"] + outer[0]["dur"]
+    assert all(a <= e["ts"] and e["ts"] + e["dur"] <= b for e in reads)
