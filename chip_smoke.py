@@ -7,6 +7,7 @@
     python3 chip_smoke.py configs F  # phase_configs alone, its results as
                                      # JSON in F (the full run starts it so)
     python3 chip_smoke.py raw F      # phase_raw alone, likewise
+    python3 chip_smoke.py ecc        # phase_ecc alone
 
 Phases, each printed as it runs; any failure raises and the exit code is
 non-zero:
@@ -61,13 +62,18 @@ non-zero:
    in order and overlapped, equal to `align_burst` on it alone, 1 K5 and
    75 K6 launches per burst, ms per burst overlapped and serial. Then
    align ms at B=8 for euclidean, affine and homography (plain path too),
-   and a torch.profiler table of one homography align.
+   and a torch.profiler table of one homography align. Then translation
+   ECC's kernel (`phase_ecc`) against its plain loop: the serving burst
+   (16 x 13 frames of 160 px, 3 x 25 at eps 1e-5 and at eps 0), 37 x 53
+   and 480 px (its finest level read through L2), each within 2e-3 px and
+   rho within 1e-5 with a bitwise repeat; its ms, device ms and bound, and
+   `online_register`'s ms and launches per B=16 batch.
 7. slice: FBANet-64, 14 frames, 160 px, bf16 compute, every parameter drawn
    from a seed, serves 3 batches of 4 bursts through `eval_step` (ECC
    registration + forward + clamp + PSNR/SSIM). Checks finite [0, 1]
    outputs of shape [4, 640, 640, 3], K1 and K2 (their wgmma forms) launch
-   counts of exactly 20 per forward and none of K1's first kernel, and
-   agreement with the same slice on the plain versions.
+   counts of exactly 20 per forward and none of K1's first kernel, one
+   launch of translation ECC's kernel per batch, and agreement with the same slice on the plain versions.
    Then times align and forward at B=8 and prints a torch.profiler table
    of one such step by device time.
 8. train: the same model with drop_path 0.1 takes 5 AdamW steps at B=8
@@ -1052,7 +1058,136 @@ def phase_registration(card: str) -> tuple[dict, dict]:
                          getattr(e, "cuda_time_total", 0.0))
             log(f"registration profile aten::bmm {e.input_shapes}: "
                 f"{e.count} calls, device {us / 1e3:.3f} ms")
+    res["ECC"] = phase_ecc(card)
     return res, launches
+
+
+# translation ECC's kernel (csrc/ecc.cu) against its plain loop: the
+# serving burst (ECC_B x 13 frames of 160 px, online_register's 3 x 25 at
+# eps 1e-5, and at eps 0), an odd size, and 480 px (its finest level read
+# through L2). A translation moves every corner by its shift, so the
+# corners' error is the shifts' (<= REG_PLAIN_PX); rho within ECC_RHO.
+ECC_B, ECC_RHO = 16, 1e-5
+# f32 operations the algorithm needs per pixel and iteration (the bilinear
+# sample of the image and of its two gradients, 27; centring the image and
+# the template, 2; seven products summed, 19) and per pixel of a pyramid
+# level built (the separable 5-tap binomial of the image and the template)
+ECC_PIX_FLOPS, ECC_PYR_FLOPS = 48, 60
+
+
+def ecc_work(its, h, w):
+    """(tensor-core flops, CUDA-core flops, bytes) of one ECC launch whose
+    frames of h x w ran `its` [levels, N] iterations: the iterations each
+    level ran and its pyramid, each frame and template read once, p, rho and
+    the counts written."""
+    levels, n = its.shape
+    flops, hh, ww = 0, h, w
+    for lvl in range(levels):
+        flops += int(its[lvl].sum()) * hh * ww * ECC_PIX_FLOPS
+        if lvl:
+            flops += n * hh * ww * ECC_PYR_FLOPS
+        hh, ww = (hh + 1) // 2, (ww + 1) // 2
+    return 0, flops, n * (2 * h * w + 3 + levels) * 4
+
+
+def phase_ecc(card: str) -> dict:
+    """Translation ECC's kernel against its plain loop, then its times and
+    those of `online_register` on a served batch. Returns the kernel's
+    results (its launches are counted on the serving path, `phase_slice`)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fbanet_tpu_torch.ops import registration as reg
+    from fbanet_tpu_torch.tools.measure_reduce import device_ms
+
+    res = dict(max_abs_err=0.0)
+    failures = []
+
+    def pairs(b, h, w, seed):
+        lr = torch.from_numpy(make_realistic_bursts(b, 14, max(h, w),
+                                                    seed=seed)).cuda()
+        gray = reg.rgb_to_gray(lr)[:, :, :h, :w]
+        tpl = gray[:, :1].expand(-1, 13, -1, -1).reshape(-1, h, w)
+        return tpl.contiguous(), gray[:, 1:].reshape(-1, h, w).contiguous()
+
+    def run(tpl, img, eps):
+        return reg.ecc_translation(tpl, img, None, REG_LEVELS, REG_ITERS, eps)
+
+    def compare(tpl, img, eps):
+        n, h, w = tpl.shape
+        p, rho, its = run(tpl, img, eps)
+        again = run(tpl, img, eps)
+        m_p, rho_p = reg.ecc_align(tpl, img, levels=REG_LEVELS,
+                                   iters_per_level=REG_ITERS, eps=eps,
+                                   plain=True)
+        torch.cuda.synchronize()
+        px = float((p - m_p[:, :2, 2]).abs().max())
+        drho = float((rho - rho_p).abs().max())
+        repeat = all(torch.equal(a, b) for a, b in zip((p, rho, its), again))
+        per_level = its.amax(1).tolist()
+        line = (f"ECC ecc_translation {n}x{h}x{w} eps={eps:g}: corners "
+                f"{px:.3e} px (limit {REG_PLAIN_PX}), rho {drho:.3e} (limit "
+                f"{ECC_RHO}), bitwise_repeat={repeat}, iterations per level "
+                f"(finest first, most over the frames) {per_level}; max |shift| "
+                f"{float(p.abs().max()):.3f} px")
+        log(line)
+        res["max_abs_err"] = max(res["max_abs_err"], px)
+        if not (px <= REG_PLAIN_PX and drho <= ECC_RHO and repeat
+                and bool(torch.isfinite(p).all())):
+            failures.append(line)
+        return its
+
+    tpl, img = pairs(ECC_B, REG_SIZE, REG_SIZE, seed=60)
+    its = compare(tpl, img, 1e-5)
+    compare(tpl, img, 0.0)
+    for h, w, seed in ((37, 53, 61), (480, 480, 62)):
+        compare(*pairs(1, h, w, seed), 1e-5)
+    if failures:
+        raise AssertionError("ECC kernel disagrees with its plain loop:\n"
+                             + "\n".join(failures))
+
+    ms = time_ms(lambda: run(tpl, img, 1e-5))
+    dms = device_ms(lambda: run(tpl, img, 1e-5), keys=("ecc",))
+    pms = time_ms(lambda: reg.ecc_align(tpl, img, levels=REG_LEVELS,
+                                        iters_per_level=REG_ITERS, eps=1e-5,
+                                        plain=True), iters=2)
+    b = Bound()
+    b.add(*ecc_work(its.cpu().numpy(), REG_SIZE, REG_SIZE))
+    res.update(ms=ms, device_ms=dms, plain_ms=pms, library_ms=None,
+               **b.fields())
+    log(f"ECC on {card}: {tpl.shape[0]} frames of {REG_SIZE} px, eps 1e-5: "
+        f"kernel_ms={ms:.4f} device_ms={dms:.4f} plain_ms={pms:.4f} "
+        f"bound_ms={b.ms:.4f} ({res['bound_by']}; device share of bound "
+        f"{b.ms / dms:.3f})")
+
+    # online_register on a served batch: host ms (synchronised) and the
+    # kernels it launches
+    lr = torch.from_numpy(make_realistic_bursts(ECC_B, 14, REG_SIZE,
+                                                seed=63)).cuda()
+
+    def register():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reg.online_register(lr)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    register()
+    host = [register() for _ in range(10)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        reg.online_register(lr)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if "CUDA" in str(e.device_type)
+               and not e.name.startswith(("Memcpy", "Memset"))
+               and not getattr(e, "is_user_annotation", False)]
+    res["register_ms"] = float(np.median(host))
+    res["register_launches"] = len(kernels)
+    log(f"ECC online_register B={ECC_B} on {card}: host ms median "
+        f"{res['register_ms']:.3f} (min {min(host):.3f}), kernels "
+        f"{len(kernels)} a batch: "
+        f"{sorted({e.name[:40] for e in kernels})}")
+    return res
 
 
 # the CLI's card path: align_stream over CLI_BURSTS in-memory bursts (no
@@ -1145,7 +1280,7 @@ def phase_slice(card: str) -> tuple[dict, float]:
     from fbanet_tpu_torch.models import ModelConfig, create_model
     from fbanet_tpu_torch.ops.attention import fused_window_attention_2d
     from fbanet_tpu_torch.ops.leff import _leff_launch
-    from fbanet_tpu_torch.ops.registration import online_register
+    from fbanet_tpu_torch.ops.registration import ecc_translation, online_register
     from fbanet_tpu_torch.utils.weights import random_state_dict
 
     cfg = ModelConfig(num_frames=14, img_size=160, embed_dim=64,
@@ -1159,11 +1294,11 @@ def phase_slice(card: str) -> tuple[dict, float]:
         requests.append((torch.from_numpy(lr).cuda(), torch.from_numpy(hr).cuda()))
     torch.cuda.synchronize()
 
-    # the wgmma forms of K1 and K2, which serving runs, and K1's first
-    # kernel, which it must not
+    # the wgmma forms of K1 and K2, which serving runs, K1's first kernel,
+    # which it must not, and translation ECC's kernel, one launch a batch
     k1, k1_base = fused_window_attention_2d.wgmma, \
         fused_window_attention_2d.base
-    for cnt in (k1, k1_base, _leff_launch.wgmma):
+    for cnt in (k1, k1_base, _leff_launch.wgmma, ecc_translation):
         cnt.launches = 0
     t0 = time.perf_counter()
     served = [eval_step(model, lr, hr, online_align="ecc")
@@ -1171,15 +1306,17 @@ def phase_slice(card: str) -> tuple[dict, float]:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"K1": k1.launches, "K1-base": k1_base.launches,
-                "K2": _leff_launch.wgmma.launches}
+                "K2": _leff_launch.wgmma.launches,
+                "ECC": ecc_translation.launches}
     log(f"slice: served {len(served)} batches of 4 in {wall:.3f} s "
         f"(first call included); launches {launches}")
     for name, count in launches.items():
-        want = 0 if name == "K1-base" else layers * len(served)
+        want = {"K1-base": 0, "ECC": len(served)}.get(name,
+                                                      layers * len(served))
         if count != want:
             raise AssertionError(f"{name}: {count} launches, expected "
-                                 f"{want} ({layers} per forward x "
-                                 f"{len(served)} of the wgmma forms)")
+                                 f"{want} ({layers} per forward of the wgmma"
+                                 f" forms, one ECC a batch, x {len(served)})")
 
     psnrs, ssims = [], []
     for pred, p, s, _ in served:
@@ -1213,7 +1350,7 @@ def phase_slice(card: str) -> tuple[dict, float]:
                              f"< {SLICE_PSNR_MIN}")
 
     # throughput at B=8: align and forward timed apart (host clock around
-    # synchronised work; align has one host read per ECC iteration)
+    # synchronised work; ECC runs as one kernel launch, with no host read)
     lr8 = torch.from_numpy(make_realistic_bursts(8, 14, 160, seed=20)).cuda()
 
     def step(plain=False):
@@ -3653,6 +3790,9 @@ def main() -> None:
         log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
         return out
 
+    if sys.argv[1:] == ["ecc"]:  # translation ECC's kernel alone
+        print(json.dumps({"ECC": timed("ecc", phase_ecc, card)}), flush=True)
+        return
     if sys.argv[1:] == ["ranks"]:  # the multi-rank step alone (W cards)
         import shutil
         import tempfile
@@ -3709,9 +3849,9 @@ def main() -> None:
                                    got.get("max_abs_err", 0.0))
         entry["fbanet32"] = {k: v for k, v in got.items()
                              if k not in line_keys}
-    # launches on the main paths: registration (K5, K6), serving (K1, K2),
-    # training (K1-K4, R1, R2), the entry points from disk (K1-K4, R1, R2),
-    # the DDP steps (K1-K4, R1, R2),
+    # launches on the main paths: registration (K5, K6), serving (K1, K2,
+    # ECC), training (K1-K4, R1, R2), the entry points from disk (K1-K4,
+    # R1, R2), the DDP steps (K1-K4, R1, R2),
     # measurement (K1b, K9-K11 and, through the tools, K1-K4, R1, R2) and
     # the variants (K7, K8 and, through the tools, K1-K4, R1, R2), the
     # configs phase's runs (K1-K4 and their first kernels, R1, R2) and the
@@ -3762,6 +3902,9 @@ def main() -> None:
          "fbanet_tpu/ops/warp_pallas.py:102"),
         ("K6", "K6 dense-coords bilinear warp", "warp.cu",
          "fbanet_tpu/ops/warp_pallas.py:128"),
+        ("ECC", "ECC translation ECC over the pyramid, a block a frame "
+         "(port only)", "ecc.cu",
+         "none: fbanet_tpu/ops/registration.py's XLA loop"),
         ("K1b", "K1b fused window attention on [G, N, C] windows (K1's "
          "wgmma form, windowed entry)", "attention_wgmma.cu",
          "fbanet_tpu/ops/attention_pallas.py:234"),

@@ -142,6 +142,10 @@ SIGNATURES = {
     # F, H, W, C, constant mode, cval, stream
     "fbanet_warp_homography": [_P] * 3 + [_I] * 5 + [ctypes.c_float, _P],
     "fbanet_warp_coords": [_P] * 3 + [_I] * 5 + [ctypes.c_float, _P],
+    # translation ECC over the pyramid: template, image, p0 (or null), p,
+    # rho, iterations, scratch, N, H, W, levels, iterations per level, eps,
+    # stream
+    "fbanet_ecc_translation": [_P] * 7 + [_I] * 5 + [ctypes.c_float, _P],
 }
 
 

@@ -3,10 +3,15 @@ fbanet_tpu/ops/registration.py).
 
 Everything runs in f32, batched over all B x (F-1) non-reference frames at
 once. JAX runs each frame's `while_loop` under `vmap`, so every frame stops
-on its own when its correlation increment |rho - rho_prev| drops to eps;
-here a per-frame `active` mask freezes finished frames with `torch.where`,
-which gives the same per-frame results. The loop leaves early once no frame
-is active: one host read per iteration (a known device sync).
+on its own when its correlation increment |rho - rho_prev| drops to eps.
+
+Translation ECC on a CUDA tensor is one kernel launch, `ecc_translation`
+(`csrc/ecc.cu`): one block a frame builds the pyramid and iterates every
+level on the card, each frame stopping on its own, with no host read. On
+the CPU, or with `plain=True`, its plain version runs the frames together:
+a per-frame `active` mask freezes finished frames with `torch.where`, which
+gives the same per-frame results, and the loop leaves early once no frame
+is active, one host read per iteration (a device sync on a card).
 
 Translation warps are clamped bilinear gathers along each axis (the JAX
 package applies them as one-hot matrix products, a TPU workaround for slow
@@ -27,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from fbanet_tpu_torch.ops import _build
 from fbanet_tpu_torch.ops.warp import warp_burst_homography, warp_flow
 from fbanet_tpu_torch.ops.warp_kernels import warp_burst_bilinear, warp_burst_coords
 from fbanet_tpu_torch.utils.profiling import annotate
@@ -268,6 +274,93 @@ def _ecc_translation_level(template: torch.Tensor, image: torch.Tensor,
     return _run_ecc_iters(step, p0, num_iters, eps)
 
 
+def _pyramid_floats(h: int, w: int, levels: int) -> int:
+    """Floats of pyramid levels 1.. of one [h, w] image (`_blur_and_halve`
+    keeps ceil(h / 2) x ceil(w / 2))."""
+    total = 0
+    for _ in range(levels - 1):
+        h, w = (h + 1) // 2, (w + 1) // 2
+        total += h * w
+    return total
+
+
+def ecc_translation(template: torch.Tensor, image: torch.Tensor,
+                    p0: torch.Tensor | None, levels: int, num_iters: int,
+                    eps: float
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Translation ECC of each frame `image` [N, H, W] to its `template`
+    [N, H, W] over a `levels`-level pyramid, from `p0` [N, 2] at the
+    coarsest level (None: zero), by the kernel `csrc/ecc.cu`: one block a
+    frame builds both pyramids and runs `_ecc_translation_level` level after
+    level, stopping as `_run_ecc_iters` does, with no host read. CUDA
+    tensors only (the plain version is `ecc_align`'s loop). Returns (p
+    [N, 2] at the finest level, rho [N], the iterations run [levels, N]
+    int32, level 0 the finest); a non-finite result is already `ecc_align`'s
+    fallback, p 0 and rho -1.
+
+    Raises `.launches`. `ecc_align.iterations` takes the batched
+    iterations (each level's most over the frames) from a copy into pinned
+    memory that does not block: a later call adds them once the launch has
+    finished (`_add_ecc_iterations`)."""
+    _add_ecc_iterations()
+    if (template.dim() != 3 or template.shape != image.shape
+            or not 1 <= levels <= 16 or num_iters < 0 or (
+                p0 is not None and p0.shape != (template.shape[0], 2))):
+        raise ValueError(
+            f"ecc_translation does not take template {tuple(template.shape)}"
+            f" and image {tuple(image.shape)} at {levels} levels x "
+            f"{num_iters} iterations: [N, H, W] both, 1 to 16 levels, p0 "
+            f"[N, 2] or None")
+    dev = template.device
+    if not template.is_cuda or any(t is not None and t.device != dev
+                                   for t in (image, p0)):
+        raise ValueError(f"ecc_translation kernel takes CUDA tensors on one "
+                         f"device, got {template.device} and {image.device}")
+    n, h, w = template.shape
+    tpl, img = template.float().contiguous(), image.float().contiguous()
+    p = torch.empty(n, 2, device=dev)
+    rho = torch.empty(n, device=dev)
+    iters = torch.empty(levels, n, dtype=torch.int32, device=dev)
+    if n:
+        scratch = torch.empty(n * 2 * _pyramid_floats(h, w, levels),
+                              device=dev)
+        start = None if p0 is None else p0.float().contiguous()
+        err = _build.library().fbanet_ecc_translation(
+            tpl.data_ptr(), img.data_ptr(),
+            None if start is None else start.data_ptr(), p.data_ptr(),
+            rho.data_ptr(), iters.data_ptr(), scratch.data_ptr(), n, h, w,
+            levels, num_iters, eps, _build.stream(tpl))
+        if err:
+            _build.check(err, f"ecc_translation {tuple(template.shape)}")
+        ecc_translation.launches += 1
+    if eps <= 0.0:
+        ecc_align.iterations += levels * num_iters
+    elif n:
+        counts = torch.empty(levels, n, dtype=torch.int32, pin_memory=True)
+        counts.copy_(iters, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(dev))
+        ecc_translation.pending.append((done, counts))
+    return p, rho, iters
+
+
+ecc_translation.launches = 0
+# (event, pinned per-frame counts) of launches not yet added to
+# ecc_align.iterations, oldest first
+ecc_translation.pending = []
+
+
+def _add_ecc_iterations(wait: bool = False) -> None:
+    """Add the batched iterations of `ecc_translation`'s finished launches
+    to `ecc_align.iterations`; with `wait`, of every launch, waiting for
+    them to finish."""
+    pending = ecc_translation.pending
+    while pending and (wait or pending[0][0].query()):
+        done, counts = pending.pop(0)
+        done.synchronize()
+        ecc_align.iterations += int(counts.amax(1).sum())
+
+
 def _solve(c: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """c^-1 b for c [N, P, P], b [N, P], without a host read of the
     factorisation's status (a singular c gives non-finite values)."""
@@ -331,18 +424,26 @@ def ecc_align(template: torch.Tensor, image: torch.Tensor, *,
     a binomial pyramid, the level loop carried through 3x3 matrices. Returns
     (matrices [..., 3, 3] mapping template to image coordinates, rho [...]);
     a non-finite result falls back to the identity with rho = -1.
-    `plain=True` takes K6's plain version on CUDA (a comparison)."""
+    Translation on a CUDA tensor runs the kernel `ecc_translation`;
+    `plain=True` takes the plain versions on CUDA (a comparison)."""
     _motion_check(motion)
     if template.dim() == 2:
         m, rho = ecc_align(template[None], image[None], motion=motion,
                            levels=levels, iters_per_level=iters_per_level,
                            eps=eps, init_matrix=init_matrix, plain=plain)
         return m[0], rho[0]
+    n, dev = template.shape[0], template.device
+    if motion == "translation" and not (plain or template.is_cpu):
+        p0 = None if init_matrix is None else matrix_to_params(
+            _scale_matrix(init_matrix.float().expand(n, 3, 3),
+                          0.5 ** (levels - 1)), motion)
+        p, rho, _ = ecc_translation(template, image, p0, levels,
+                                    iters_per_level, eps)
+        return params_to_matrix(p, motion), rho  # the fallback is in p, rho
     pyr_t, pyr_i = [template.float()], [image.float()]
     for _ in range(levels - 1):
         pyr_t.append(_blur_and_halve(pyr_t[-1]))
         pyr_i.append(_blur_and_halve(pyr_i[-1]))
-    n, dev = template.shape[0], template.device
     eye = torch.eye(3, device=dev).expand(n, 3, 3)
     m = eye if init_matrix is None else init_matrix.float().expand(n, 3, 3)
     m = _scale_matrix(m, 0.5 ** (levels - 1))
@@ -377,8 +478,8 @@ def align_burst(burst: torch.Tensor, *, motion: str = "translation",
 
     Bilinear warps of a translation are the axis-wise gathers; of another
     motion, K5 in nearest mode. Nearest and bicubic warps take the plain
-    `warp_burst_homography`. `plain=True` takes K5's and K6's plain versions
-    on CUDA (a comparison, not the serving path)."""
+    `warp_burst_homography`. `plain=True` takes the plain versions of the
+    ECC kernel, K5 and K6 on CUDA (a comparison, not the serving path)."""
     if burst.dim() == 4:
         a, m, r = align_burst(burst[None], motion=motion, levels=levels,
                               iters_per_level=iters_per_level, eps=eps,

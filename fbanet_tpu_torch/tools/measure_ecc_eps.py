@@ -4,10 +4,12 @@
     python -m fbanet_tpu_torch.tools.measure_ecc_eps [--batch 8 --frames 14
         --size 160 --repeats 10] [--device cpu]
 
-With eps > 0 every ECC iteration reads back whether any frame is still
-moving (`ops/registration.py::_run_ecc_iters`, one host sync an iteration),
-so a batch stops when its slowest frame does; with eps 0 the iteration
-count is fixed and nothing is read back until the end. This tool times
+With eps > 0 each frame stops once its correlation stops moving; with eps
+0 the iteration count is fixed. On the card the kernel `ecc_translation`
+stops each frame on its own; on the CPU the plain loop
+(`ops/registration.py::_run_ecc_iters`) reads back once an iteration
+whether any frame is still moving, so a batch stops when its slowest frame
+does. This tool times
 `align_burst(motion="translation")` at B=8 under each setting and reports
 how well each recovers the known shifts:
 

@@ -25,14 +25,16 @@ The program's spans, all `fbanet.*`:
   gradients, clipping, the learning rate and the optimizer step at the
   end). Every kernel of a step is launched under exactly one of the three.
 - `fbanet.register` (`ops/registration.online_register`): online
-  registration of a batch; inside it `fbanet.ecc.host_read`, ECC's host
-  read of its loop condition, once an iteration.
+  registration of a batch; inside it `fbanet.ecc.host_read`, the host
+  read of the loop condition that ECC's plain version makes once an
+  iteration (the CUDA kernel `ecc_translation` makes none).
 
 Counters are always on: an integer attribute of the function that does
 the work, raised where the work runs (`fn.launches += 1` in the kernel
 wrappers). `ops/registration.ecc_align.iterations` counts ECC's batched
-iterations, summed over the pyramid levels; `online_register.calls` the
-batches registered.
+iterations, summed over the pyramid levels (the kernel's once a later call
+finds its launch finished); `online_register.calls` the batches
+registered.
 """
 
 from __future__ import annotations
